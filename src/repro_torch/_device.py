@@ -1,0 +1,27 @@
+"""Device selection for the port's entry points.
+
+The entry points (``session_init``, ``run_sequence``, ``render``,
+``make_dataset``) run on the card unless the caller asks for the CPU.  A
+request for the card on a machine without one raises: nothing carries on
+on the CPU in its place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Raises if CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none was "
+            "found; pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def check_on(t: torch.Tensor, dev: torch.device, what: str) -> None:
+    """Raise if ``t`` does not live on ``dev``'s device type."""
+    if t.device.type != dev.type:
+        raise ValueError(f"{what} is on {t.device}, expected {dev}")

@@ -1,0 +1,102 @@
+"""Carry state across from the JAX package, given as numpy arrays.
+
+Each function takes numpy arrays (or objects whose attributes are numpy
+arrays, such as a ``jax.device_get`` of the reference's pytrees) and builds
+the port's counterpart on ``device``.  With them a test starts both
+packages from identical state.  This module imports no JAX: the objects
+are read by attribute name only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import gaussians as G
+from repro_torch.core.camera import Intrinsics
+from repro_torch.core.sorting import FragmentLists
+from repro_torch.slam import datasets as D
+from repro_torch.slam.engine import _Stage
+from repro_torch.slam.metrics import DeviceWork
+from repro_torch.slam.session import SLAMConfig, SlamSession
+from repro_torch.train.optimizer import AdamState
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    # A copy: the source arrays may be read-only, and the port's session
+    # writes its logs in place.
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def field_from_numpy(src, device="cpu") -> G.GaussianField:
+    """A ``GaussianField`` from an object with numpy ``mu``, ``log_scale``,
+    ``quat``, ``logit_o``, ``color`` and ``alive`` attributes."""
+    return G.GaussianField(**{f: _t(getattr(src, f), device)
+                              for f in G.PARAM_FIELDS + ("alive",)})
+
+
+def adam_from_numpy(src, device="cpu") -> AdamState:
+    """An ``AdamState`` from an object with ``step``, ``mu`` and ``nu``
+    (the moments as dicts of numpy arrays)."""
+    return AdamState(step=_t(src.step, device, torch.int32),
+                     mu={k: _t(v, device) for k, v in src.mu.items()},
+                     nu={k: _t(v, device) for k, v in src.nu.items()})
+
+
+def dataset_from_numpy(src, device="cpu") -> D.SLAMDataset:
+    """A dataset from an object with ``name``, ``intrinsics`` (fx, fy, cx,
+    cy, width, height), ``frames`` (each with ``rgb``, ``depth``,
+    ``w2c_gt``) and ``gt_field``."""
+    i = src.intrinsics
+    intr = Intrinsics(float(i.fx), float(i.fy), float(i.cx), float(i.cy),
+                      int(i.width), int(i.height))
+    frames = [D.Frame(rgb=_t(f.rgb, device, torch.float32),
+                      depth=_t(f.depth, device, torch.float32),
+                      w2c_gt=np.asarray(f.w2c_gt, np.float32))
+              for f in src.frames]
+    return D.SLAMDataset(name=src.name, intrinsics=intr, frames=frames,
+                         gt_field=field_from_numpy(src.gt_field, device))
+
+
+def _work_totals(src) -> list:
+    """Counter totals of a reference work record: a hi/lo split record
+    (``total = hi * 2**30 + lo``) or a flat one."""
+    fields = DeviceWork._fields
+    if hasattr(src, "hi"):
+        return [int(getattr(src.hi, f)) * (1 << 30) + int(getattr(src.lo, f))
+                for f in fields]
+    return [int(getattr(src, f)) for f in fields]
+
+
+def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
+                       device="cpu", seed: int = 0) -> SlamSession:
+    """A MonoGS session from every leaf of a reference session (numpy).
+
+    The reference's densify PRNG key has no torch counterpart; the new
+    session draws from a generator seeded with ``seed`` (tests inject the
+    reference's permutation instead)."""
+    dev = torch.device(device)
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed)
+    f = src.frags
+    return SlamSession(
+        cfg=cfg, intr=intr, stage=_Stage(intr, cfg, dev),
+        g=field_from_numpy(src.g, dev),
+        map_opt=adam_from_numpy(src.map_opt, dev),
+        masked=_t(src.masked, dev, torch.bool),
+        pose=_t(src.pose, dev, torch.float32),
+        velocity=_t(src.velocity, dev, torch.float32),
+        traj=_t(src.traj, dev, torch.float32),
+        frame_idx=int(src.frame_idx),
+        kf_rgb=_t(src.kf_rgb, dev, torch.float32),
+        kf_depth=_t(src.kf_depth, dev, torch.float32),
+        kf_w2c=_t(src.kf_w2c, dev, torch.float32),
+        kf_count=int(src.kf_count), kf_total=int(src.kf_total),
+        last_kf_idx=int(src.last_kf_idx),
+        kf_psnr=_t(src.kf_psnr, dev, torch.float32),
+        alive_log=_t(src.alive_log, dev, torch.int64),
+        work=DeviceWork(*(torch.tensor(v, dtype=torch.int64, device=dev)
+                          for v in _work_totals(src.work))),
+        frags=FragmentLists(*(_t(x, dev, torch.int32) for x in f)),
+        rng=rng,
+    )

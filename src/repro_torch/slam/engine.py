@@ -1,0 +1,160 @@
+"""The SLAM step engine's cores as plain loops (counterpart of
+``repro/slam/engine.py``).
+
+The reference fuses each phase into one ``lax.scan`` dispatch.  PyTorch
+runs eagerly, so each scan becomes a Python loop over iterations, each
+``lax.cond`` a host ``if`` and each ``vmap`` over the keyframe window a
+loop over views.  Every mapping iteration still renders the whole window
+as ONE batched raster call (one stacked K1 and one stacked K2 launch).
+The ported cores are the MonoGS slice: no pruning, no sparse
+stable/unstable mapping, no WSU schedule.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import gaussians as G
+from repro_torch.core import lie
+from repro_torch.core.camera import Camera, Intrinsics
+from repro_torch.core.losses import slam_loss
+from repro_torch.core.raster_api import RasterPlan
+from repro_torch.core.render import render
+from repro_torch.core.sorting import (
+    FragmentLists, build_fragment_lists, make_tile_grid, stack_fragment_lists,
+    tile_trips, update_fragment_slot,
+)
+from repro_torch.core.projection import project
+from repro_torch.slam.metrics import DeviceWork, device_work_add
+from repro_torch.train.optimizer import Adam, AdamState, apply_updates
+
+
+def silence(g: G.GaussianField, masked: torch.Tensor) -> G.GaussianField:
+    """Masked or dead Gaussians render as nothing."""
+    off = masked | ~g.alive
+    return g.replace(logit_o=torch.where(off, torch.full_like(g.logit_o, -30.0),
+                                         g.logit_o))
+
+
+def _pose_adam_zero(device) -> AdamState:
+    z = torch.zeros(6, dtype=torch.float32, device=device)
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     mu={"xi": z}, nu={"xi": z})
+
+
+class _Stage:
+    """The cores at one resolution (the slice runs only factor 1)."""
+
+    def __init__(self, intr: Intrinsics, cfg, device: torch.device):
+        self.intr = intr
+        self.grid = make_tile_grid(intr.height, intr.width)
+        self.plan = RasterPlan(grid=self.grid, backend=cfg.backend,
+                               capacity=cfg.frag_capacity)
+        self.pixels = intr.height * intr.width
+        self.cfg = cfg
+        self.device = device
+
+    def _render(self, g, w2c, frags=None):
+        return render(g, Camera(self.intr, w2c), self.plan, frags=frags,
+                      device=self.device)
+
+    # ---- cores -----------------------------------------------------------
+
+    @torch.no_grad()
+    def _build_core(self, g, masked, w2c) -> FragmentLists:
+        proj = project(silence(g, masked), Camera(self.intr, w2c))
+        return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity)
+
+    def _track_iter_core(self, g, masked, xi, ostate, base_w2c, obs_rgb,
+                         obs_depth, frags):
+        """One tracking iteration: render -> Eq. 6 loss -> pose Adam step.
+        Only the pose needs a gradient here (no pruning in the slice)."""
+        g_eff = silence(g, masked)
+        xi_ = xi.detach().requires_grad_(True)
+        out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags)
+        loss = slam_loss(out.image, out.depth, out.alpha, obs_rgb, obs_depth,
+                         self.cfg.lambda_pho)
+        (g_xi,) = torch.autograd.grad(loss, [xi_])
+        upd, ostate = Adam(lr=self.cfg.lr_pose).update({"xi": g_xi}, ostate)
+        return loss.detach(), xi + upd["xi"], ostate
+
+    def _map_iter_core(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
+                       cache, kf_valid):
+        """One mapping iteration over the whole keyframe window: one batched
+        render, the valid-masked mean window loss, one Adam step."""
+        # As in the reference, the differentiated params are g's own (the
+        # silenced opacities are replaced); rows off the fragment lists get
+        # exactly zero gradient either way.
+        g_eff = silence(g, masked)
+        params_g = G.params_of(g)
+        params = {k: p.detach().requires_grad_(True) for k, p in params_g.items()}
+        out = self._render(G.with_params(g_eff, params), kf_w2c, cache)
+        w_len = kf_w2c.shape[0]
+        vw = kf_valid.to(torch.float32)
+        loss = sum(slam_loss(out.image[b], out.depth[b], out.alpha[b],
+                             kf_rgb[b], kf_depth[b], self.cfg.lambda_pho) * vw[b]
+                   for b in range(w_len)) / vw.sum()
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        upd, opt_state = Adam(lr=self.cfg.lr_map).update(grads, opt_state)
+        new = apply_updates(params_g, upd)
+        return loss.detach(), G.with_params(g, new), opt_state
+
+    @torch.no_grad()
+    def _render_eval_core(self, g, masked, w2c):
+        return self._render(silence(g, masked), w2c).image
+
+    # ---- phases ----------------------------------------------------------
+
+    def _track_scan_noprune(self, g, masked, base_w2c, obs_rgb, obs_depth,
+                            frags, work: DeviceWork):
+        """The K tracking iterations on the frame's fragment lists."""
+        work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
+        xi = torch.zeros(6, dtype=torch.float32, device=self.device)
+        ostate = _pose_adam_zero(self.device)
+        alive_eff = (g.alive & ~masked).sum()
+        losses = []
+        for _ in range(self.cfg.iters_track):
+            loss, xi, ostate = self._track_iter_core(
+                g, masked, xi, ostate, base_w2c, obs_rgb, obs_depth, frags)
+            work = device_work_add(work, frags.total, self.pixels, alive_eff,
+                                   unstable=0)
+            losses.append(loss)
+        fired = torch.zeros(self.cfg.iters_track, dtype=torch.bool,
+                            device=self.device)
+        return xi, work, torch.stack(losses), fired
+
+    def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
+                         n_valid: int, work: DeviceWork):
+        """The mapping phase over the fixed-shape keyframe ring: the window
+        has ``map_window`` slots, the first ``n_valid`` populated (oldest
+        first).  Invalid slots render but add nothing to the loss, the
+        counters, the round-robin stride rebuild or the final eval."""
+        cfg = self.cfg
+        stride = cfg.map_rebuild_stride
+        w_len = kf_w2c.shape[0]
+        kf_valid = torch.arange(w_len, device=self.device) < n_valid
+        valid_i = kf_valid.to(torch.int64)
+        # One view at a time: a full-size view's membership matrix is ~0.8 GB.
+        cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b])
+                                      for b in range(w_len)])
+        work = work._replace(
+            frag_build_rows=work.frag_build_rows
+            + (n_valid + cfg.iters_map // stride + 1) * g.capacity)
+        losses = []
+        for it in range(cfg.iters_map):
+            loss, g, opt_state = self._map_iter_core(
+                g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid)
+            n_alive = g.alive.sum()
+            progs = torch.stack([tile_trips(cache.count[b], self.plan.chunk)
+                                 for b in range(w_len)])
+            work = device_work_add(
+                work, (cache.total.to(torch.int64) * valid_i).sum(),
+                n_valid * self.pixels, n_valid * n_alive,
+                unstable=n_valid * n_alive, programs=(progs * valid_i).sum())
+            losses.append(loss)
+            if (it + 1) % stride == 0:
+                slot = ((it + 1) // stride - 1) % n_valid   # round-robin
+                cache = update_fragment_slot(
+                    cache, slot, self._build_core(g, masked, kf_w2c[slot]))
+        image = self._render_eval_core(g, masked, kf_w2c[n_valid - 1])
+        return g, opt_state, work, torch.stack(losses), image

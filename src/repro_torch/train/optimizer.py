@@ -1,0 +1,56 @@
+"""Functional Adam (counterpart of ``repro/train/optimizer.py``'s ``Adam``).
+
+``init(params) -> AdamState`` and ``update(grads, state) -> (updates,
+state)`` over dicts of tensors.  The expression order is the reference's:
+``a = lr / bc1`` and ``rsqrt(bc2)`` as float32 scalars, then
+``-a * m / (sqrt(v) * rsqrt(bc2) + eps)`` per leaf.  ``torch.optim.Adam``
+orders the bias correction differently and is not used.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor  # () int32
+    mu: dict
+    nu: dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: dict) -> AdamState:
+        any_leaf = next(iter(params.values()))
+        return AdamState(
+            step=torch.zeros((), dtype=torch.int32, device=any_leaf.device),
+            mu={k: torch.zeros_like(p) for k, p in params.items()},
+            nu={k: torch.zeros_like(p) for k, p in params.items()},
+        )
+
+    def update(self, grads: dict, state: AdamState):
+        step = state.step + 1
+        mu = {k: self.b1 * state.mu[k] + (1 - self.b1) * g for k, g in grads.items()}
+        nu = {k: self.b2 * state.nu[k] + (1 - self.b2) * g * g
+              for k, g in grads.items()}
+        f32 = dict(dtype=torch.float32, device=step.device)
+        stepf = step.to(torch.float32)
+        bc1 = 1.0 - torch.tensor(self.b1, **f32) ** stepf
+        bc2 = 1.0 - torch.tensor(self.b2, **f32) ** stepf
+        a = torch.tensor(self.lr, **f32) / bc1
+        inv_sqrt_bc2 = torch.rsqrt(bc2)
+        updates = {k: -a * mu[k] / (torch.sqrt(nu[k]) * inv_sqrt_bc2 + self.eps)
+                   for k in grads}
+        return updates, AdamState(step=step, mu=mu, nu=nu)
+
+
+def apply_updates(params: dict, updates: dict) -> dict:
+    return {k: p + updates[k] for k, p in params.items()}
