@@ -7,25 +7,39 @@
 Run from the root of a checkout.  In order, it
 
 1. prints the PyTorch version and the card's name and power limit;
-2. builds the CUDA kernels K1 (forward tile rasterizer) and K2 (backward)
-   from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a`` and prints
-   the ``-Xptxas -v`` register and shared-memory lines;
-3. holds K1 and K2 against their plain PyTorch versions on the card at the
-   slice's shapes (1200 tiles of a 640x480 frame, K=256 fragments per tile,
-   B=1 and B=4 stacked views) and times all of them with CUDA events; the
-   packed attrs are wide splats near their own tile (``tests/_kernel_inputs``),
-   so most tiles saturate and skip chunks while the rest blend them all;
-4. renders the full-size ground-truth scene through the ``kernel`` backend
+2. builds the CUDA kernels K1 (forward tile rasterizer), K2 (backward),
+   K4 and K5 (the two under a WSU schedule) and K3 (GMU level 2's block
+   prefix sum) from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``
+   and prints the ``-Xptxas -v`` register and shared-memory lines;
+3. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
+   card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
+   fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
+   to tile order against K1 and K2 bit for bit, and times all of them with
+   CUDA events; the packed attrs are wide splats near their own tile
+   (``tests/_kernel_inputs``), so most tiles saturate and skip chunks while
+   the rest blend them all; holds K3 against its plain version and a
+   float64 prefix sum at (307200, 10) and times it beside ``torch.cumsum``;
+4. repeats the comparisons and times of step 3 on the packed attrs of a
+   full-size ground-truth view (uneven tile loads), prints their tile-load
+   and pair-load imbalance, and checks GMU level 2 with K3's prefix sum
+   against the torch-op one on that view's K2 gradients;
+5. renders the full-size ground-truth scene through the ``kernel`` backend
    and the pure-tensor ``ref`` backend and compares images and gradients;
-   checks that a batched 4-view render equals four single-view renders;
-5. runs a small session on the card and on the CPU from the same inputs
+   checks that the ``schedule`` backend equals the ``kernel`` backend bit
+   for bit (images and per-Gaussian gradients, 1 and 4 views) and that a
+   batched 4-view render equals four single-view renders;
+6. runs a small session on the card and on the CPU from the same inputs
    and compares poses and PSNR;
-6. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
+7. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
    12 frames, a 131072-Gaussian pool) with every launch counter set to 0
    just before, and checks that K1 and K2 carried it, that no plain version
    ran, and that ATE < 0.30 m and mean keyframe PSNR > 17 dB;
-7. with ``profile``, traces one tracking-only frame and one keyframe of a
-   second full-size session with ``torch.profiler`` and prints the tables.
+8. runs the same session on the ``schedule`` backend, counters set to 0
+   again, and checks that K4 and K5 carried it (no K1, K2 or plain run),
+   the same bounds, the same keyframes, and camera centres within 1 mm of
+   step 7's;
+9. with ``profile``, traces one tracking-only frame and one keyframe of a
+   further full-size session with ``torch.profiler`` and prints the tables.
 
 It prints one JSON line with every kernel's numbers, then the card's name
 and power limit, then as the last line
@@ -143,92 +157,248 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(dev):
-    """K1 and K2 against their plain versions at the slice's shapes."""
+def sched_flat(count, tiles: int, views: int):
+    """Per-view schedules ``build_schedule(count, 16, max_trips=16)`` of
+    stacked rows, flattened for K4/K5 (perms offset to global rows), and the
+    int64 gather from slot order back to tile order."""
+    import torch
+    from repro_torch.core.schedule import build_schedule
+    perms, trips, invs, scheds = [], [], [], []
+    for b in range(views):
+        s = build_schedule(count[b * tiles:(b + 1) * tiles], CHUNK,
+                           max_trips=K // CHUNK)
+        perms.append(s.perm + b * tiles)
+        trips.append(s.trips)
+        invs.append(s.inv.long() + b * s.perm.shape[0])
+        scheds.append(s)
+    return torch.cat(perms), torch.cat(trips), torch.cat(invs), scheds
+
+
+def check_fwd(name, got, want, label):
+    import torch
+    for out, g, w_ in zip(("color", "depth", "final_T", "stash"), got, want):
+        tol = DEPTH_TOL if out == "depth" else FWD_ATOL
+        rtol = DEPTH_TOL if out == "depth" else FWD_RTOL
+        require(bool(torch.isfinite(g).all()), f"{name} {out} not finite ({label})")
+        require(close(g, w_, tol, rtol),
+                f"{name} {out} disagrees with plain ({label}): max |d| {max_err(g, w_):.3g}")
+    return max(max_err(g, w_) for g, w_ in zip(got, want))
+
+
+def check_bwd(name, got, want, label):
+    import torch
+    require(bool(torch.isfinite(got).all()), f"{name} grads not finite ({label})")
+    atol = grad_atol(want)
+    require(close(got, want, atol),
+            f"{name} disagrees with plain ({label}): max |d| {max_err(got, want):.3g} > {atol:.3g}")
+    return max_err(got, want)
+
+
+def raster_suite(dev, grid, attrs, count, views, label, seed):
+    """K1, K2, K4 and K5 on one set of packed attrs: each against its plain
+    version, K4/K5 gathered by ``inv`` against K1/K2 bit for bit, CUDA-event
+    times and bounds.  Returns {name: numbers} and K2's gradients."""
     import numpy as np
     import torch
-    from repro_torch.core.sorting import make_tile_grid
     from repro_torch.kernels.tile_render import (
-        tile_render_fwd, tile_render_fwd_plain)
+        raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
+        tile_render_fwd_sched, tile_render_fwd_sched_plain)
     from repro_torch.kernels.tile_render_bp import (
-        tile_render_bwd, tile_render_bwd_plain)
+        tile_render_bwd, tile_render_bwd_plain, tile_render_bwd_sched,
+        tile_render_bwd_sched_plain)
+
+    tiles = grid.num_tiles
+    kw = dict(chunk=CHUNK, tiles_per_view=tiles)
+    perm, trips, inv, _ = sched_flat(count, tiles, views)
+
+    got = tile_render_fwd(attrs, count, grid, **kw)
+    err1 = check_fwd("K1", got, tile_render_fwd_plain(attrs, count, grid, **kw), label)
+    got4 = tile_render_fwd_sched(attrs, perm, trips, grid, **kw)
+    err4 = check_fwd("K4", got4, tile_render_fwd_sched_plain(attrs, perm, trips, grid, **kw),
+                     label)
+    for out, g4, g1 in zip(("color", "depth", "final_T", "stash"), got4, got):
+        require(torch.equal(g4[inv], g1), f"K4 {out} gathered by inv is not K1's ({label})")
+    stash, stash4 = got[3], got4[3]
+
+    r = np.random.default_rng(seed)
+    rows = views * tiles
+    g_color = torch.as_tensor(r.normal(size=(rows, 3, 256)).astype(np.float32), device=dev)
+    g_depth = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
+    g_finalt = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
+    bargs = (attrs, count, stash, g_color, g_depth, g_finalt, grid)
+    got2 = tile_render_bwd(*bargs, **kw)
+    err2 = check_bwd("K2", got2, tile_render_bwd_plain(*bargs, **kw), label)
+    pl = perm.long()
+    sargs = (attrs, perm, trips, stash4, g_color[pl].contiguous(),
+             g_depth[pl].contiguous(), g_finalt[pl].contiguous(), grid)
+    got5 = tile_render_bwd_sched(*sargs, **kw)
+    err5 = check_bwd("K5", got5, tile_render_bwd_sched_plain(*sargs, **kw), label)
+    require(torch.equal(got5[inv], got2), f"K5 gathered by inv is not K2's ({label})")
+    torch.cuda.synchronize()
+    raise_on_sched_fault(dev)
+
+    # Bounds count what this data needs: the forward reads the attrs of the
+    # chunks it runs and writes every output (zeros included); the backward
+    # reads the attrs and stash of those chunks and the cotangents, and
+    # writes every gradient.  K4/K5 also read their perm and trips.
+    ran = processed_chunks(stash, count, CHUNK)
+    n_ran = int(ran.sum())
+    n_trips = int(torch.div(count + CHUNK - 1, CHUNK, rounding_mode="floor").sum())
+    saturated = float((got[2].amax(1) <= 1e-4).double().mean())
+    pairs = n_ran * CHUNK * 256
+    elt = 4
+    fwd_bytes = elt * (n_ran * CHUNK * 12 + count.numel() + sum(t.numel() for t in got))
+    bwd_bytes = elt * (n_ran * CHUNK * (12 + 256) + count.numel() + g_color.numel()
+                       + g_depth.numel() + g_finalt.numel() + got2.numel())
+    slot_extra = elt * (perm.numel() + trips.numel() - count.numel())
+    bounds = {"K1": bound(fwd_bytes, pairs * OPS_K1),
+              "K4": bound(fwd_bytes + slot_extra, pairs * OPS_K1),
+              "K2": bound(bwd_bytes, pairs * OPS_K2),
+              "K5": bound(bwd_bytes + slot_extra, pairs * OPS_K2)}
+    calls = {
+        "K1": (lambda: tile_render_fwd(attrs, count, grid, **kw),
+               lambda: tile_render_fwd_plain(attrs, count, grid, **kw), err1),
+        "K4": (lambda: tile_render_fwd_sched(attrs, perm, trips, grid, **kw),
+               lambda: tile_render_fwd_sched_plain(attrs, perm, trips, grid, **kw), err4),
+        "K2": (lambda: tile_render_bwd(*bargs, **kw),
+               lambda: tile_render_bwd_plain(*bargs, **kw), err2),
+        "K5": (lambda: tile_render_bwd_sched(*sargs, **kw),
+               lambda: tile_render_bwd_sched_plain(*sargs, **kw), err5),
+    }
+    out = {}
+    for name, (kernel, plain, err) in calls.items():
+        b, by = bounds[name]
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(kernel, 40),
+                         plain_ms=cuda_ms(plain, 2), bound_ms=b, bound_by=by)
+    log(f"[kernels] {label}: {n_ran} of {n_trips} chunks below the trip count ran, "
+        f"{100 * saturated:.1f}% of tiles saturated; K4 == K1 and K5 == K2 bitwise "
+        f"after inv")
+    for name, o in out.items():
+        log(f"[kernels] {label}: {name} {o['ms']:.3f} ms (plain {o['plain_ms']:.1f} ms, "
+            f"bound {o['bound_ms']:.3f} ms by {o['bound_by']}, max |d| {o['max_abs_err']:.2e})")
+    return out, got2
+
+
+def phase_kernels(dev):
+    """K1, K2, K4 and K5 against their plain versions at the slice's shapes."""
+    import torch
+    from repro_torch.core.sorting import make_tile_grid
 
     from _kernel_inputs import random_attrs
 
     grid = make_tile_grid(H, W)
-    tiles = grid.num_tiles
     rows_out = {}
     for views in (1, 4):
-        a_np, c_np = random_attrs(42 + views, views * tiles, K, H, W, near_tile=True)
+        a_np, c_np = random_attrs(42 + views, views * grid.num_tiles, K, H, W,
+                                  near_tile=True)
         attrs = torch.as_tensor(a_np, device=dev)
         count = torch.as_tensor(c_np, device=dev)
-        kw = dict(chunk=CHUNK, tiles_per_view=tiles)
-
-        got = tile_render_fwd(attrs, count, grid, **kw)
-        want = tile_render_fwd_plain(attrs, count, grid, **kw)
-        torch.cuda.synchronize()
-        names = ("color", "depth", "final_T", "stash")
-        for name, g, w_ in zip(names, got, want):
-            tol = DEPTH_TOL if name == "depth" else FWD_ATOL
-            rtol = DEPTH_TOL if name == "depth" else FWD_RTOL
-            require(bool(torch.isfinite(g).all()), f"K1 {name} not finite (B={views})")
-            require(close(g, w_, tol, rtol),
-                    f"K1 {name} disagrees with plain (B={views}): "
-                    f"max |d| {max_err(g, w_):.3g}")
-        err1 = max(max_err(g, w_) for g, w_ in zip(got, want))
-        stash = got[3]
-        del want
-
-        r = np.random.default_rng(7 + views)
-        rows = views * tiles
-        g_color = torch.as_tensor(r.normal(size=(rows, 3, 256)).astype(np.float32), device=dev)
-        g_depth = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
-        g_finalt = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
-        bargs = (attrs, count, stash, g_color, g_depth, g_finalt, grid)
-        got2 = tile_render_bwd(*bargs, **kw)
-        want2 = tile_render_bwd_plain(*bargs, **kw)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(got2).all()), f"K2 grads not finite (B={views})")
-        atol2 = grad_atol(want2)
-        require(close(got2, want2, atol2),
-                f"K2 disagrees with plain (B={views}): max |d| "
-                f"{max_err(got2, want2):.3g} > {atol2:.3g}")
-        err2 = max_err(got2, want2)
-        del want2
-
-        # Bounds count what this data needs: K1 reads the attrs of the chunks
-        # it runs and writes every output (zeros included); K2 reads the
-        # attrs and stash of those chunks and the cotangents, and writes
-        # every gradient.
-        ran = processed_chunks(stash, count, CHUNK)
-        n_ran = int(ran.sum())
-        n_trips = int(torch.div(count + CHUNK - 1, CHUNK, rounding_mode="floor").sum())
-        saturated = float((got[2].amax(1) <= 1e-4).double().mean())
-        pairs = n_ran * CHUNK * 256
-        elt = 4
-        k1_bytes = elt * (n_ran * CHUNK * 12 + count.numel()
-                          + sum(t.numel() for t in got))
-        k2_bytes = elt * (n_ran * CHUNK * (12 + 256) + count.numel()
-                          + g_color.numel() + g_depth.numel()
-                          + g_finalt.numel() + got2.numel())
-        ms1 = cuda_ms(lambda: tile_render_fwd(attrs, count, grid, **kw), 40)
-        pms1 = cuda_ms(lambda: tile_render_fwd_plain(attrs, count, grid, **kw), 2)
-        ms2 = cuda_ms(lambda: tile_render_bwd(*bargs, **kw), 40)
-        pms2 = cuda_ms(lambda: tile_render_bwd_plain(*bargs, **kw), 2)
-        b1, by1 = bound(k1_bytes, pairs * OPS_K1)
-        b2, by2 = bound(k2_bytes, pairs * OPS_K2)
-        rows_out[("K1", views)] = dict(max_abs_err=err1, ms=ms1, plain_ms=pms1,
-                                       bound_ms=b1, bound_by=by1)
-        rows_out[("K2", views)] = dict(max_abs_err=err2, ms=ms2, plain_ms=pms2,
-                                       bound_ms=b2, bound_by=by2)
-        log(f"[kernels] B={views}: {n_ran} of {n_trips} chunks below the trip "
-            f"count ran, {100 * saturated:.1f}% of tiles saturated")
-        log(f"[kernels] B={views}: K1 {ms1:.3f} ms (plain {pms1:.1f} ms, bound "
-            f"{b1:.3f} ms by {by1}, max |d| {err1:.2e}); K2 {ms2:.3f} ms "
-            f"(plain {pms2:.1f} ms, bound {b2:.3f} ms by {by2}, max |d| {err2:.2e})")
-        del got, got2, stash, bargs
+        out, _ = raster_suite(dev, grid, attrs, count, views,
+                              f"near-tile B={views}", 7 + views)
+        for name, o in out.items():
+            rows_out[(name, views)] = o
+        del attrs, count, out
         torch.cuda.empty_cache()
     return rows_out
+
+
+def cumsum_bound_ratio(got, x):
+    """Worst |got - exact| / (1e-5 * prefix of |x| + 1e-6) per column,
+    with ``exact`` the float64 prefix sum of the same input."""
+    import torch
+    exact = torch.cumsum(x.double(), 0)
+    scale = torch.cumsum(x.double().abs(), 0)
+    return float(((got.double() - exact).abs() / (1e-5 * scale + 1e-6)).max())
+
+
+def phase_gmu(dev):
+    """K3 against its plain version and a float64 prefix sum at the slice's
+    shape, (1200 * 256, 10), timed beside torch's own scans."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gmu
+
+    m, g = H // 16 * W // 16 * K, 10
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=(m, g)).astype(np.float32),
+                        device=dev)
+    got = gmu.block_cumsum(x)
+    want = gmu.block_cumsum_plain(x)
+    torch.cuda.synchronize()
+    ratio, ratio_plain = cumsum_bound_ratio(got, x), cumsum_bound_ratio(want, x)
+    require(ratio <= 1.0, f"K3 off a float64 prefix sum: {ratio:.3g} of its bound")
+    require(ratio_plain <= 1.0, f"plain K3 off a float64 prefix sum: {ratio_plain:.3g}")
+    err = max_err(got, want)
+    b, by = bound(2 * 4 * m * g, m * g)   # one read and one write; one add each
+    res = dict(max_abs_err=err, ms=cuda_ms(lambda: gmu.block_cumsum(x), 40),
+               plain_ms=cuda_ms(lambda: gmu.block_cumsum_plain(x), 5),
+               bound_ms=b, bound_by=by,
+               library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
+               inner_ms=cuda_ms(lambda: torch.cumsum(x.t().contiguous(), 1).t(), 40))
+    log(f"[kernels] K3 ({m}, {g}): {res['ms']:.4f} ms (plain {res['plain_ms']:.3f} ms, "
+        f"bound {b:.4f} ms by {by}, max |d| vs plain {err:.2e}); worst error "
+        f"{ratio:.3f} of 1e-5 x prefix|x| + 1e-6 (plain {ratio_plain:.3f}); "
+        f"torch.cumsum(x, 0) {res['library_ms']:.3f} ms, transposed inner-dim "
+        f"cumsum (gmu.py's default) {res['inner_ms']:.3f} ms")
+    return res
+
+
+def gt_view(dev, ds):
+    """Projection and fragment lists of the full-size ground-truth scene
+    seen from frame 3's pose."""
+    import torch
+    from repro_torch.core.camera import Camera
+    from repro_torch.core.projection import project
+    from repro_torch.core.sorting import build_fragment_lists, make_tile_grid
+
+    grid = make_tile_grid(H, W)
+    cam = Camera(ds.intrinsics, torch.as_tensor(ds.frames[3].w2c_gt, device=dev))
+    with torch.no_grad():
+        proj = project(ds.gt_field, cam)
+        frags = build_fragment_lists(proj, grid, K)
+    return grid, proj, frags
+
+
+def phase_real_view(dev, ds):
+    """The kernel suite on the packed attrs of a real view, its load
+    imbalance, and GMU level 2 with K3 on that view's K2 gradients."""
+    import torch
+    from repro_torch.core.schedule import pair_loads
+    from repro_torch.kernels import gmu, ops
+    from repro_torch.kernels.tile_render_bp import NUM_GRADS
+    from repro_torch.slam.metrics import imbalance_stats
+
+    grid, proj, frags = gt_view(dev, ds)
+    with torch.no_grad():
+        attrs = ops._pack_attrs(proj.mu2d, proj.conic, proj.color, proj.opacity,
+                                proj.depth, frags.idx).contiguous()
+    count = frags.count.contiguous()
+    out, grads = raster_suite(dev, grid, attrs, count, 1, "real view B=1", 17)
+    _, _, _, scheds = sched_flat(count, grid.num_tiles, 1)
+    tile_l, pair_l = imbalance_stats(count), imbalance_stats(pair_loads(scheds[0]))
+    log(f"[kernels] real view: {int(frags.total)} fragments, tile loads max "
+        f"{tile_l.max_load:.0f} / mean {tile_l.mean_load:.2f} (tail ratio "
+        f"{tile_l.tail_ratio:.2f}), pair loads max {pair_l.max_load:.0f} / mean "
+        f"{pair_l.mean_load:.2f} (tail ratio {pair_l.tail_ratio:.2f})")
+
+    # GMU level 2 on the K2 gradients: K3's prefix sum against the torch-op
+    # one, both against a float64 segment sum.  A run sum is a difference of
+    # two prefix sums, so each may be off by twice the prefix bound.
+    flat = grads.transpose(1, 2).reshape(-1, NUM_GRADS).contiguous()
+    ids = frags.idx.reshape(-1)
+    n = proj.mu2d.shape[0]
+    by_kernel = gmu.segment_merge(flat, ids, n, use_kernel=True)
+    by_ops = gmu.segment_merge(flat, ids, n)
+    ok = ids >= 0
+    exact = torch.zeros((n, NUM_GRADS), dtype=torch.float64, device=dev)
+    exact.index_add_(0, ids[ok].long(), flat[ok].double())
+    tol = 2 * (1e-5 * float(flat[ok].double().abs().sum(0).max()) + 1e-6)
+    for what, got in (("K3", by_kernel), ("torch-op", by_ops)):
+        e = float((got.double() - exact).abs().max())
+        require(e <= tol, f"GMU level 2 with the {what} prefix sum off by {e:.3g} > {tol:.3g}")
+    log(f"[kernels] real view GMU level 2: K3 prefix vs torch-op prefix max |d| "
+        f"{max_err(by_kernel, by_ops):.2e}; both within {tol:.2e} of a float64 "
+        f"segment sum")
+    return out
 
 
 def make_room(dev, frames=12):
@@ -246,34 +416,41 @@ def make_room(dev, frames=12):
     return ds
 
 
+def raster_with_grads(inputs, plan, backend, target):
+    """Images and the gradients of every raster input of one rasterize
+    call under ``backend``."""
+    import dataclasses
+    import torch
+    from repro_torch.core.raster_api import RasterInputs
+    from repro_torch.kernels import ops
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs[:5]]
+    img, dep, ft = ops.rasterize(RasterInputs(*leaves, frags=inputs.frags),
+                                 dataclasses.replace(plan, backend=backend))
+    loss = ((img - target) ** 2).mean() + 0.1 * dep.mean() + 0.05 * ft.mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return (img.detach(), dep.detach(), ft.detach()), grads
+
+
 def phase_render(dev, ds):
-    """The kernel backend against the ref backend on the full-size scene."""
+    """The kernel backend against the ref backend, and the schedule backend
+    against the kernel backend, on the full-size scene."""
     import numpy as np
     import torch
     from repro_torch.core.camera import Camera
-    from repro_torch.core.projection import project
+    from repro_torch.core.projection import ProjectedGaussians, project
     from repro_torch.core.raster_api import RasterInputs, RasterPlan
     from repro_torch.core.render import render
-    from repro_torch.core.sorting import build_fragment_lists, make_tile_grid
-    from repro_torch.kernels import ops
+    from repro_torch.core.sorting import build_fragment_lists, stack_fragment_lists
 
-    grid = make_tile_grid(H, W)
-    cam = Camera(ds.intrinsics, torch.as_tensor(ds.frames[3].w2c_gt, device=dev))
-    with torch.no_grad():
-        proj = project(ds.gt_field, cam)
-        frags = build_fragment_lists(proj, grid, K)
+    grid, proj, frags = gt_view(dev, ds)
+    plan = RasterPlan(grid=grid, capacity=K)
     target = torch.as_tensor(np.random.default_rng(3).uniform(
         size=(H, W, 3)).astype(np.float32), device=dev)
+    inputs = RasterInputs.from_projection(proj, frags)
     outs, grads = {}, {}
-    for backend in ("kernel", "ref"):
-        leaves = [x.detach().clone().requires_grad_(True) for x in
-                  (proj.mu2d, proj.conic, proj.color, proj.opacity, proj.depth)]
-        img, dep, ft = ops.rasterize(RasterInputs(*leaves, frags=frags),
-                                     RasterPlan(grid=grid, backend=backend, capacity=K))
-        loss = ((img - target) ** 2).mean() + 0.1 * dep.mean() + 0.05 * ft.mean()
-        grads[backend] = torch.autograd.grad(loss, leaves)
-        outs[backend] = (img.detach(), dep.detach(), ft.detach())
-        del img, dep, ft, loss
+    for backend in ("kernel", "schedule", "ref"):
+        outs[backend], grads[backend] = raster_with_grads(inputs, plan, backend, target)
         torch.cuda.empty_cache()
     for name, g, w_ in zip(("color", "depth", "final_T"), outs["kernel"], outs["ref"]):
         tol = DEPTH_TOL if name == "depth" else FWD_ATOL
@@ -281,8 +458,8 @@ def phase_render(dev, ds):
         require(close(g, w_, tol, rtol),
                 f"kernel render {name} disagrees with ref: max |d| {max_err(g, w_):.3g}")
     worst = 0.0
-    for name, g, w_ in zip(("mu2d", "conic", "color", "opacity", "depth"),
-                           grads["kernel"], grads["ref"]):
+    leaves = ("mu2d", "conic", "color", "opacity", "depth")
+    for name, g, w_ in zip(leaves, grads["kernel"], grads["ref"]):
         atol = grad_atol(w_)
         require(close(g, w_, atol),
                 f"kernel gradient of {name} disagrees with ref: max |d| "
@@ -292,10 +469,34 @@ def phase_render(dev, ds):
         f"({int(frags.overflow)} over K={K}): images within {FWD_ATOL}/{FWD_RTOL}, "
         f"gradients within max(3e-6, 3e-5 max|g|) (worst at {worst:.2f} of it)")
 
-    # Batched: one stacked launch over 4 views equals 4 single-view renders.
-    plan = RasterPlan(grid=grid, backend="kernel", capacity=K)
+    def require_equal(a, b, what):
+        for name, x, y in zip(what, a, b):
+            require(torch.equal(x, y), f"schedule backend {name} differs from kernel's: "
+                    f"max |d| {max_err(x, y):.3g}")
+
+    require_equal(outs["schedule"], outs["kernel"], ("color", "depth", "final_T"))
+    require_equal(grads["schedule"], grads["kernel"], leaves)
+    del outs, grads
+
+    # Four stacked views: the schedule backend equals the kernel backend.
     poses = torch.stack([torch.as_tensor(ds.frames[i].w2c_gt, device=dev)
                          for i in (0, 4, 8, 11)])
+    with torch.no_grad():
+        projs = [project(ds.gt_field, Camera(ds.intrinsics, p)) for p in poses]
+        frags4 = stack_fragment_lists([build_fragment_lists(p, grid, K) for p in projs])
+    inputs4 = RasterInputs.from_projection(
+        ProjectedGaussians(*(torch.stack(xs) for xs in zip(*projs))), frags4)
+    o_k, g_k = raster_with_grads(inputs4, plan, "kernel", target)
+    o_s, g_s = raster_with_grads(inputs4, plan, "schedule", target)
+    require_equal(o_s, o_k, ("color", "depth", "final_T"))
+    require_equal(g_s, g_k, leaves)
+    log(f"[render] schedule backend == kernel backend bitwise at {W}x{H}, 1 and 4 "
+        "views: images and per-Gaussian gradients")
+    del inputs4, o_k, g_k, o_s, g_s
+    torch.cuda.empty_cache()
+
+    # Batched: one stacked launch over 4 views equals 4 single-view renders.
+    plan = RasterPlan(grid=grid, backend="kernel", capacity=K)
     with torch.no_grad():
         batched = render(ds.gt_field, Camera(ds.intrinsics, poses), plan, device=dev)
         for b in range(4):
@@ -345,22 +546,36 @@ def phase_small_session(dev):
     require(psnr_d < 0.1, f"card and CPU PSNR differ by {psnr_d:.3g} dB")
 
 
-def phase_main(dev, ds):
-    """The MonoGS session on the full-size scene; returns its numbers."""
+def launch_counters():
+    """Every kernel wrapper's launch counter and every plain version's call
+    counter, by name."""
+    from repro_torch.kernels import gmu
+    from repro_torch.kernels import tile_render as fwd
+    from repro_torch.kernels import tile_render_bp as bwd
+    kernels = {"K1": fwd.tile_render_fwd, "K2": bwd.tile_render_bwd,
+               "K3": gmu.block_cumsum, "K4": fwd.tile_render_fwd_sched,
+               "K5": bwd.tile_render_bwd_sched}
+    plains = (fwd.tile_render_fwd_plain, bwd.tile_render_bwd_plain,
+              gmu.block_cumsum_plain, fwd.tile_render_fwd_sched_plain,
+              bwd.tile_render_bwd_sched_plain)
+    return kernels, plains
+
+
+def phase_main(dev, ds, backend="kernel"):
+    """The MonoGS session on the full-size scene under ``backend``, every
+    counter set to 0 just before; returns its launches and results."""
     import numpy as np
     import torch
-    from repro_torch.kernels.tile_render import tile_render_fwd, tile_render_fwd_plain
-    from repro_torch.kernels.tile_render_bp import tile_render_bwd, tile_render_bwd_plain
     from repro_torch.slam.session import (
         SLAMConfig, session_finalize, session_init, session_step)
 
+    tag = "[main]" if backend == "kernel" else f"[main-{backend[:5]}]"
     cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4,
-                     iters_track=12, iters_map=24)
-    counters = (tile_render_fwd, tile_render_bwd)
-    plains = (tile_render_fwd_plain, tile_render_bwd_plain)
+                     iters_track=12, iters_map=24, backend=backend)
+    kernels, plains = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
+    for fn in kernels.values():
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
@@ -377,30 +592,53 @@ def phase_main(dev, ds):
     wall = time.perf_counter() - t_run
     res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames],
                            wall_time_s=wall)
-    launches = {"K1": tile_render_fwd.launches, "K2": tile_render_bwd.launches}
+    launches = {k: fn.launches for k, fn in kernels.items()}
     plain_calls = sum(fn.calls for fn in plains)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     frames = ds.num_frames
     kf_ms = [t for t, k in zip(step_ms[1:], kf_flags[1:]) if k]
     tr_ms = [t for t, k in zip(step_ms[1:], kf_flags[1:]) if not k]
-    log(f"[main] room0 {W}x{H}, {frames} frames, capacity {cfg.capacity}, "
-        f"K={K}, window {cfg.map_window}: wall {wall:.2f} s, "
+    keyframes = [i for i, k in enumerate(kf_flags) if k]
+    log(f"{tag} room0 {W}x{H}, {frames} frames, capacity {cfg.capacity}, "
+        f"K={K}, window {cfg.map_window}, backend {backend}: wall {wall:.2f} s, "
         f"{wall * 1e3 / frames:.1f} ms per frame (init+boot {step_ms[0]:.0f} ms, "
         f"tracking-only frame {np.mean(tr_ms):.1f} ms, keyframe "
         f"{np.mean(kf_ms) if kf_ms else float('nan'):.1f} ms)")
-    log(f"[main] ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.2f} dB "
+    log(f"{tag} ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.2f} dB "
         f"({', '.join(f'{p:.2f}' for p in res.keyframe_psnr)}), keyframes "
-        f"{[i for i, k in enumerate(kf_flags) if k]}, alive {res.alive_per_frame[-1]}")
-    log(f"[main] launches: K1 {launches['K1']} ({launches['K1'] / frames:.2f} per frame), "
-        f"K2 {launches['K2']} ({launches['K2'] / frames:.2f} per frame), plain versions "
-        f"{plain_calls}; peak device memory {peak_gb:.2f} GB; cached-list fragments "
-        f"{int(sess.frags.total)}, overflow {int(sess.frags.overflow)}; work {res.work}")
-    require(launches["K1"] > 0 and launches["K2"] > 0,
-            f"the main path did not launch both kernels: {launches}")
+        f"{keyframes}, alive {res.alive_per_frame[-1]}")
+    log(f"{tag} launches: " + ", ".join(
+        f"{k} {v} ({v / frames:.2f} per frame)" for k, v in launches.items())
+        + f", plain versions {plain_calls}; peak device memory {peak_gb:.2f} GB; "
+        f"cached-list fragments {int(sess.frags.total)}, overflow "
+        f"{int(sess.frags.overflow)}; work {res.work}")
+    ours = ("K1", "K2") if backend == "kernel" else ("K4", "K5")
+    others = [k for k in ("K1", "K2", "K4", "K5") if k not in ours]
+    require(all(launches[k] > 0 for k in ours),
+            f"the {backend} path did not launch {ours}: {launches}")
+    require(all(launches[k] == 0 for k in others),
+            f"the {backend} path launched {others}: {launches}")
     require(plain_calls == 0, f"the main path ran a plain version {plain_calls} times")
     require(np.isfinite(res.ate) and res.ate < 0.30, f"ATE {res.ate:.3f} m >= 0.30 m")
     require(res.mean_psnr > 17.0, f"mean keyframe PSNR {res.mean_psnr:.2f} dB <= 17")
+    return launches, res, keyframes
+
+
+def phase_main_sched(dev, ds, main_res, main_keyframes):
+    """The same session on the WSU ``schedule`` backend, against [main]."""
+    import numpy as np
+    launches, res, keyframes = phase_main(dev, ds, backend="schedule")
+    require(keyframes == main_keyframes,
+            f"schedule session keyframes {keyframes} != kernel session's {main_keyframes}")
+    pose_d = max(float(np.abs(a - b).max()) for a, b in zip(res.est_w2c, main_res.est_w2c))
+    centre_d = max(float(np.linalg.norm(np.linalg.inv(a)[:3, 3] - np.linalg.inv(b)[:3, 3]))
+                   for a, b in zip(res.est_w2c, main_res.est_w2c))
+    # K4/K5 equal K1/K2 bit for bit and every other op is the same, so the
+    # two sessions are expected to be identical.
+    log(f"[main-sched] vs [main]: largest pose entry difference {pose_d:.3g}, "
+        f"camera centres within {centre_d * 1e3:.4f} mm, same keyframes")
+    require(centre_d < 1e-3, f"schedule and kernel camera centres differ by {centre_d:.3g} m")
     return launches
 
 
@@ -466,34 +704,60 @@ def main(argv) -> int:
     t_all = time.perf_counter()
     phase_build()
     kernel_rows = phase_kernels(dev)
+    k3 = phase_gmu(dev)
     ds = make_room(dev)
+    real_rows = phase_real_view(dev, ds)
     phase_render(dev, ds)
     phase_small_session(dev)
-    launches = phase_main(dev, ds)
+    k3_check_launches = launch_counters()[0]["K3"].launches  # checks and timing
+    launches, main_res, main_kfs = phase_main(dev, ds)
+    launches_s = phase_main_sched(dev, ds, main_res, main_kfs)
     if argv == ["profile"]:
         phase_profile(dev, ds)
 
     meta = {
         "K1": ("tile_render_fwd", "src/repro_torch/csrc/tile_render.cu",
-               "src/repro/kernels/tile_render.py:175"),
+               "src/repro/kernels/tile_render.py:175", launches["K1"]),
         "K2": ("tile_render_bwd", "src/repro_torch/csrc/tile_render_bp.cu",
-               "src/repro/kernels/tile_render_bp.py:208"),
+               "src/repro/kernels/tile_render_bp.py:208", launches["K2"]),
+        "K4": ("tile_render_fwd_sched", "src/repro_torch/csrc/tile_render.cu",
+               "src/repro/kernels/tile_render.py:280", launches_s["K4"]),
+        "K5": ("tile_render_bwd_sched", "src/repro_torch/csrc/tile_render_bp.cu",
+               "src/repro/kernels/tile_render_bp.py:302", launches_s["K5"]),
     }
+    tiles = H // 16 * W // 16
     kernels = []
-    for key, (name, source, replaces) in meta.items():
-        b1, b4 = kernel_rows[(key, 1)], kernel_rows[(key, 4)]
+    for key, (name, source, replaces, n_launch) in meta.items():
+        b1, b4, rv = kernel_rows[(key, 1)], kernel_rows[(key, 4)], real_rows[key]
         kernels.append({
             "name": f"{key} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(b1["max_abs_err"], b4["max_abs_err"]),
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": max(b1["max_abs_err"], b4["max_abs_err"], rv["max_abs_err"]),
             "ms": b1["ms"], "plain_ms": b1["plain_ms"],
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": None,
-            "shape": f"{H // 16 * W // 16} tiles x K={K}, B=1 (tracking); "
-                     "*_b4 keys: B=4 stacked views (mapping window)",
+            "shape": f"{tiles} tiles x K={K}, B=1 near-tile attrs (tracking); "
+                     "*_b4 keys: B=4 stacked views (mapping window); "
+                     "*_real keys: B=1 packed attrs of a ground-truth view",
             "ms_b4": b4["ms"], "plain_ms_b4": b4["plain_ms"],
             "bound_ms_b4": b4["bound_ms"],
+            "ms_real": rv["ms"], "plain_ms_real": rv["plain_ms"],
+            "bound_ms_real": rv["bound_ms"],
         })
+    kernels.insert(2, {
+        "name": "K3 block_cumsum", "route": "cuda", "source": "src/repro_torch/csrc/gmu.cu",
+        "replaces": "src/repro/kernels/gmu.py:83",
+        # Off the main paths, as in the reference (segment_merge's default is
+        # the torch-op prefix sum): the count from [main] and [main-sched].
+        "launches": launches["K3"] + launches_s["K3"],
+        "check_launches": k3_check_launches,
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"], "inner_cumsum_ms": k3["inner_ms"],
+        "shape": f"({tiles * K}, 10) float32; library_ms is torch.cumsum(x, 0), "
+                 "inner_cumsum_ms the transposed inner-dim cumsum gmu.py uses; "
+                 "one view per call at every B, so no *_b4 keys",
+    })
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,9 +5,11 @@
   per-tile :class:`FragmentLists`; a leading view axis ``B`` on every
   tensor means batched multi-view rasterization.
 * :class:`RasterPlan` — how to rasterize: tile grid, backend name, chunk,
-  fragment capacity.  The WSU schedule of the reference is not ported yet.
+  fragment capacity, the WSU trip bucketing, and an optional carried
+  :class:`~repro_torch.core.schedule.TileSchedule` for the ``schedule``
+  backend.
 * the registry — backends register under a name (``kernels/ops.py`` holds
-  the built-ins: ``ref`` and ``kernel``).
+  the built-ins: ``ref``, ``kernel`` and ``schedule``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.projection import ProjectedGaussians
+from repro_torch.core.schedule import TileSchedule
 from repro_torch.core.sorting import FragmentLists, TileGrid
 
 
@@ -47,6 +50,18 @@ class RasterPlan:
     backend: str = "kernel"   # registry name
     chunk: int = 16           # kernel chunk size (C)
     capacity: int = 128       # fragments per tile (K)
+    sched_bucket: int = 1     # WSU trip bucketing (schedule backend)
+    # A carried schedule (schedule backend): (S,) tensors for one view,
+    # (B, S) for B views.  None: the backend builds one from the counts.
+    sched: Optional[TileSchedule] = dataclasses.field(default=None,
+                                                      compare=False)
+
+    @property
+    def max_trips(self) -> int:
+        return self.capacity // self.chunk
+
+    def with_sched(self, sched: Optional[TileSchedule]) -> "RasterPlan":
+        return dataclasses.replace(self, sched=sched)
 
 
 # name -> fn(inputs, plan) -> (color_pm, depth_pm, final_t)

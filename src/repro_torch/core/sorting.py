@@ -95,22 +95,52 @@ def build_fragment_lists(proj: ProjectedGaussians, grid: TileGrid,
     return FragmentLists(idx=out, count=count, overflow=overflow, total=total)
 
 
-def stack_fragment_lists(lists) -> FragmentLists:
-    """Stack per-view lists along a new leading axis."""
-    return FragmentLists(*(torch.stack(xs) for xs in zip(*lists)))
+def stack_fragment_lists(lists):
+    """Stack per-view lists (or any NamedTuples of tensors, such as
+    schedules) along a new leading axis."""
+    return type(lists[0])(*(torch.stack(xs) for xs in zip(*lists)))
 
 
-def update_fragment_slot(stack: FragmentLists, i: int,
-                         fresh: FragmentLists) -> FragmentLists:
-    """A copy of ``stack`` with window slot ``i`` replaced by ``fresh``."""
+def update_fragment_slot(stack, i: int, fresh):
+    """A copy of ``stack`` with window slot ``i`` replaced by ``fresh``
+    (fragment lists or schedules)."""
     out = []
     for s, f in zip(stack, fresh):
         s = s.clone()
         s[i] = f
         out.append(s)
-    return FragmentLists(*out)
+    return type(stack)(*out)
 
 
 def tile_trips(count: torch.Tensor, chunk: int) -> torch.Tensor:
     """Chunk trips a per-tile loop streams: ``sum(ceil(count / chunk))``."""
     return torch.sum(torch.div(count + chunk - 1, chunk, rounding_mode="floor"))
+
+
+def balanced_pair_permutation(count: torch.Tensor):
+    """Heavy-light fold of tiles into balanced work pairs (the WSU's
+    pairwise scheduling at tile granularity).
+
+    Tiles are sorted by fragment count and the heaviest is paired with the
+    lightest, the second-heaviest with the second-lightest, and so on.  For
+    an odd tile count a zero-load duplicate of the lightest tile pads the
+    schedule to an even number of slots; it always lands in slot 1.
+
+    Returns ``(perm, load)``, both (S,) int32 with ``S = 2 * ceil(T / 2)``:
+    ``perm[2p]`` / ``perm[2p+1]`` are pair ``p``'s heavy and light tiles and
+    ``load`` the fragments each slot owes (0 for the pad).  The sort is
+    stable, as ``jnp.argsort`` is: equal counts are common and keep their
+    tile order, so ``perm`` equals the reference's bit for bit."""
+    t = count.shape[0]
+    p = (t + 1) // 2
+    order = torch.argsort(count, stable=True).to(torch.int32)
+    load = count[order.long()].to(torch.int32)
+    if 2 * p != t:
+        order = torch.cat([order[:1], order])
+        load = torch.cat([torch.zeros(1, dtype=torch.int32, device=count.device),
+                          load])
+    light, light_load = order[:p], load[:p]
+    heavy, heavy_load = order[p:].flip(0), load[p:].flip(0)
+    perm = torch.stack([heavy, light], dim=1).reshape(-1)
+    slot_load = torch.stack([heavy_load, light_load], dim=1).reshape(-1)
+    return perm, slot_load

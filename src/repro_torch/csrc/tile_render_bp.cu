@@ -1,6 +1,7 @@
-// K2: backward tile rasterizer replaying the R&B stash, for Hopper (sm_90a).
+// K2 and K5: backward tile rasterizer replaying the R&B stash, for Hopper
+// (sm_90a).
 //
-// Replaces repro/kernels/tile_render_bp.py::tile_render_bwd (the Pallas
+// K2 replaces repro/kernels/tile_render_bp.py::tile_render_bwd (the Pallas
 // _bwd_kernel and its helpers _pass_a_chunk, _pass_b_chunk,
 // _bwd_tile_loops).  Same function, redesigned for the card:
 //
@@ -16,6 +17,15 @@
 //     (gradient, fragment) writes grads[tile, :, k].  No atomics;
 //   * chunk skips are block votes replaying K1's, and every output element
 //     is written exactly once (zeros for skipped chunks).
+//
+// K5 replaces repro/kernels/tile_render_bp.py::tile_render_bwd_sched (the
+// Pallas _sched_bwd_kernel): K2 replaying a WSU schedule.  One block per
+// balanced pair runs slot 2p and then slot 2p+1; the stash, cotangent and
+// gradient rows are indexed by slot, the attrs row by perm[slot], and each
+// slot's loops are bounded by its own trips (so every vote stays uniform
+// across the block).  K2 and K5 call one per-tile device function,
+// backward_tile, so K5 equals K2 bit for bit by construction; K5 guards its
+// perm and trips as K4 does.
 //
 // What bounds it on the H100: bytes.  It reads the 315 MB stash of a view
 // twice (once per pass) and does ~60 flops per (pixel, fragment) — about
@@ -37,36 +47,29 @@ constexpr int MAX_CHUNK = 64;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float TERM_EPS = 1e-4f;
 
-__global__ void __launch_bounds__(PIX)
-tile_render_bwd_kernel(const float* __restrict__ attrs,
-                       const int* __restrict__ count,
-                       const float* __restrict__ stash,
-                       const float* __restrict__ g_color,
-                       const float* __restrict__ g_depth,
-                       const float* __restrict__ g_finalt,
-                       float* __restrict__ grads,
-                       int capacity, int chunk, int tiles, int grid_w) {
-  __shared__ float s_attr[NUM_ATTRS][MAX_CHUNK];
-  __shared__ float s_part[MAX_CHUNK][NUM_GRADS][WARPS];
+constexpr int FAULT_PERM = 1;   // a perm entry outside [0, rows)
+constexpr int FAULT_TRIPS = 2;  // a trip count outside [0, K / chunk]
 
-  const int row = blockIdx.x;
+// One tile: `a` is its (12, capacity) attrs row, `st` its (capacity, 256)
+// stash row, `gc` / `gd` / `gt` its cotangent rows (3 x 256, 256, 256) and
+// `gr` its (10, capacity) gradient row.  Every thread of the block calls it
+// with the same tile and trips.
+__device__ __forceinline__ void backward_tile(
+    const float* __restrict__ a, const float* __restrict__ st,
+    const float* __restrict__ gc, const float* __restrict__ gd,
+    const float* __restrict__ gt, float* __restrict__ gr, int capacity,
+    int chunk, int tile_id, int grid_w, int trips,
+    float (*s_attr)[MAX_CHUNK], float (*s_part)[NUM_GRADS][WARPS]) {
   const int pix = threadIdx.x;
   const int lane = pix % 32, warp = pix / 32;
-  const int tile_id = row % tiles;
   const float px = static_cast<float>((tile_id % grid_w) * TILE + pix % TILE) + 0.5f;
   const float py = static_cast<float>((tile_id / grid_w) * TILE + pix / TILE) + 0.5f;
-
-  const float* a = attrs + static_cast<size_t>(row) * NUM_ATTRS * capacity;
-  const float* st = stash + static_cast<size_t>(row) * capacity * PIX;
-  float* gr = grads + static_cast<size_t>(row) * NUM_GRADS * capacity;
-  const size_t pix_row = static_cast<size_t>(row) * PIX + pix;
-  const float g_r = g_color[static_cast<size_t>(row) * 3 * PIX + pix];
-  const float g_g = g_color[static_cast<size_t>(row) * 3 * PIX + PIX + pix];
-  const float g_b = g_color[static_cast<size_t>(row) * 3 * PIX + 2 * PIX + pix];
-  const float g_d = g_depth[pix_row];
-  const float g_t = g_finalt[pix_row];
+  const float g_r = gc[pix];
+  const float g_g = gc[PIX + pix];
+  const float g_b = gc[2 * PIX + pix];
+  const float g_d = gd[pix];
+  const float g_t = gt[pix];
   const int n_chunks = capacity / chunk;
-  const int trips = (count[row] + chunk - 1) / chunk;
 
   // ---- pass A: total sum(w * s) and final T (multiply-only replay) -------
   float trans = 1.f, total_ws = 0.f;
@@ -167,9 +170,72 @@ tile_render_bwd_kernel(const float* __restrict__ attrs,
   }
 }
 
+__global__ void __launch_bounds__(PIX)
+tile_render_bwd_kernel(const float* __restrict__ attrs,
+                       const int* __restrict__ count,
+                       const float* __restrict__ stash,
+                       const float* __restrict__ g_color,
+                       const float* __restrict__ g_depth,
+                       const float* __restrict__ g_finalt,
+                       float* __restrict__ grads,
+                       int capacity, int chunk, int tiles, int grid_w) {
+  __shared__ float s_attr[NUM_ATTRS][MAX_CHUNK];
+  __shared__ float s_part[MAX_CHUNK][NUM_GRADS][WARPS];
+  const int row = blockIdx.x;
+  backward_tile(attrs + static_cast<size_t>(row) * NUM_ATTRS * capacity,
+                stash + static_cast<size_t>(row) * capacity * PIX,
+                g_color + static_cast<size_t>(row) * 3 * PIX,
+                g_depth + static_cast<size_t>(row) * PIX,
+                g_finalt + static_cast<size_t>(row) * PIX,
+                grads + static_cast<size_t>(row) * NUM_GRADS * capacity,
+                capacity, chunk, row % tiles, grid_w,
+                (count[row] + chunk - 1) / chunk, s_attr, s_part);
+}
+
+__global__ void __launch_bounds__(PIX)
+tile_render_bwd_sched_kernel(const float* __restrict__ attrs,
+                             const int* __restrict__ perm,
+                             const int* __restrict__ trips,
+                             const float* __restrict__ stash,
+                             const float* __restrict__ g_color,
+                             const float* __restrict__ g_depth,
+                             const float* __restrict__ g_finalt,
+                             float* __restrict__ grads, int* fault, int rows,
+                             int capacity, int chunk, int tiles, int grid_w) {
+  __shared__ float s_attr[NUM_ATTRS][MAX_CHUNK];
+  __shared__ float s_part[MAX_CHUNK][NUM_GRADS][WARPS];
+  const int n_chunks = capacity / chunk;
+  for (int j = 0; j < 2; ++j) {
+    const int slot = 2 * blockIdx.x + j;
+    int row = perm[slot];
+    int tr = trips[slot];
+    if (row < 0 || row >= rows) {  // block-uniform guard: run as a pad slot
+      if (threadIdx.x == 0) atomicOr(fault, FAULT_PERM);
+      row = 0;
+      tr = 0;
+    }
+    if (tr < 0 || tr > n_chunks) {
+      if (threadIdx.x == 0) atomicOr(fault, FAULT_TRIPS);
+      tr = tr < 0 ? 0 : n_chunks;
+    }
+    if (j == 1) __syncthreads();  // slot 2p is done with s_attr and s_part
+    backward_tile(attrs + static_cast<size_t>(row) * NUM_ATTRS * capacity,
+                  stash + static_cast<size_t>(slot) * capacity * PIX,
+                  g_color + static_cast<size_t>(slot) * 3 * PIX,
+                  g_depth + static_cast<size_t>(slot) * PIX,
+                  g_finalt + static_cast<size_t>(slot) * PIX,
+                  grads + static_cast<size_t>(slot) * NUM_GRADS * capacity,
+                  capacity, chunk, row % tiles, grid_w, tr, s_attr, s_part);
+  }
+}
+
+bool bad_chunk(int capacity, int chunk) {
+  return chunk < 1 || chunk > MAX_CHUNK || capacity % chunk != 0;
+}
+
 }  // namespace
 
-// attrs (rows, 12, K), count (rows,) i32, stash (rows, K, 256), g_color
+// K2.  attrs (rows, 12, K), count (rows,) i32, stash (rows, K, 256), g_color
 // (rows, 3, 256), g_depth (rows, 256), g_finalt (rows, 256); output grads
 // (rows, 10, K), all f32.  Returns the launch's cudaError_t (0 = success).
 extern "C" int tile_render_bwd(const float* attrs, const int* count,
@@ -177,12 +243,32 @@ extern "C" int tile_render_bwd(const float* attrs, const int* count,
                                const float* g_depth, const float* g_finalt,
                                float* grads, int rows, int capacity, int chunk,
                                int tiles, int grid_w, cudaStream_t stream) {
-  if (chunk < 1 || chunk > MAX_CHUNK || capacity % chunk != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_chunk(capacity, chunk)) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   tile_render_bwd_kernel<<<rows, PIX, 0, stream>>>(
       attrs, count, stash, g_color, g_depth, g_finalt, grads, capacity, chunk,
       tiles, grid_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5.  attrs (rows, 12, K), perm and trips (slots,) i32 with slots even;
+// stash (slots, K, 256), g_color (slots, 3, 256), g_depth and g_finalt
+// (slots, 256) in slot order; output grads (slots, 10, K) in slot order,
+// all f32.  `fault` is one i32 that collects FAULT_* bits.  Returns the
+// launch's cudaError_t.
+extern "C" int tile_render_bwd_sched(const float* attrs, const int* perm,
+                                     const int* trips, const float* stash,
+                                     const float* g_color, const float* g_depth,
+                                     const float* g_finalt, float* grads,
+                                     int* fault, int rows, int slots,
+                                     int capacity, int chunk, int tiles,
+                                     int grid_w, cudaStream_t stream) {
+  if (bad_chunk(capacity, chunk) || slots % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (slots == 0) return 0;
+  tile_render_bwd_sched_kernel<<<slots / 2, PIX, 0, stream>>>(
+      attrs, perm, trips, stash, g_color, g_depth, g_finalt, grads, fault, rows,
+      capacity, chunk, tiles, grid_w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,102 @@
-"""Gradient Merging Unit, level 2 (counterpart of ``repro/kernels/gmu.py``).
+"""Gradient Merging Unit, level 2 (counterpart of ``repro/kernels/gmu.py``),
+and K3, its block prefix sum.
 
-Level 1 (pixel -> tile) happens inside K2.  Level 2 (tile -> Gaussian) is
-here, in torch ops, as the reference runs it on its main path
-(``segment_merge(..., use_pallas=False)``): sort the (tile, fragment) rows
-by Gaussian id (stable), take the inclusive prefix sum, and scatter
-``+pref`` at run ends and ``-pref_excl`` at run starts.  The reference's
-``mode="drop"`` scatter becomes an ``index_add_`` into ``N + 1`` rows whose
-last row collects the padding and is sliced off.  Each real row receives
-at most one end and one start write, so the result does not depend on the
-order the adds land in.  The Pallas block prefix sum (K3) is not on this
-path; its CUDA port is a later slice.
+Level 1 (pixel -> tile) happens inside K2 and K5.  Level 2 (tile ->
+Gaussian) is here: sort the (tile, fragment) rows by Gaussian id (stable),
+take the inclusive prefix sum, and scatter ``+pref`` at run ends and
+``-pref_excl`` at run starts.  The reference's ``mode="drop"`` scatter
+becomes an ``index_add_`` into ``N + 1`` rows whose last row collects the
+padding and is sliced off.  Each real row receives at most one end and one
+start write, so the result does not depend on the order the adds land in.
+
+The prefix sum comes from torch ops by default, as the reference's main
+path takes it from ``jnp.cumsum`` (``segment_merge(..., use_pallas=False)``).
+``use_kernel=True`` takes it from K3, :func:`block_cumsum`, the port of
+the Pallas ``block_cumsum`` (``pallas_call`` at ``gmu.py:83``):
+``csrc/gmu.cu``, an inclusive prefix sum over 256-row blocks whose carry
+across blocks is a second pass (block totals, their scan, then each block's
+local scan plus its carry), since Hopper blocks run in no order.  It is
+bound by bytes: it reads the tensor twice and writes it once.
+``block_cumsum.launches`` counts calls that launch it (each call is three
+kernel launches) and ``block_cumsum_plain.calls`` counts plain runs.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels import _build
+
+BLOCK = 256
+MAX_COLUMNS = 32  # K3's shared-memory staging bound
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = _build.load("gmu")
+    fn = lib.block_cumsum
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _P]
+    fn.restype = _I
+    return lib
+
+
+def _check_block_operand(vals: torch.Tensor, block: int) -> None:
+    if vals.dtype != torch.float32 or vals.ndim != 2:
+        raise ValueError(f"vals must be a float32 (M, G) tensor, got "
+                         f"{vals.dtype} {tuple(vals.shape)}")
+    if block != BLOCK:
+        raise ValueError(f"block must be {BLOCK}, got {block}")
+    if vals.shape[0] % block:
+        raise ValueError(f"rows {vals.shape[0]} must be a multiple of {block}")
+    if not 1 <= vals.shape[1] <= MAX_COLUMNS:
+        raise ValueError(f"columns {vals.shape[1]} must lie in [1, {MAX_COLUMNS}]")
+
+
+def block_cumsum(vals: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """K3: inclusive prefix sum along axis 0 of (M, G) float32, M a multiple
+    of ``block`` (256).  Launches on a CUDA tensor, runs
+    :func:`block_cumsum_plain` on a CPU tensor."""
+    _check_block_operand(vals, block)
+    if vals.device.type == "cpu":
+        return block_cumsum_plain(vals, block)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no K3 for device {vals.device}")
+    if not vals.is_contiguous():
+        raise ValueError("K3 needs a contiguous tensor")
+    m, g = vals.shape
+    out = torch.empty_like(vals)
+    scratch = torch.empty((2, m // block, g), dtype=torch.float32,
+                          device=vals.device)
+    with torch.cuda.device(vals.device):
+        err = _lib().block_cumsum(
+            vals.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), m, g, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K3 block_cumsum launch failed: cudaError {err}")
+    block_cumsum.launches += 1
+    return out
+
+
+block_cumsum.launches = 0
+
+
+def block_cumsum_plain(vals: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Plain PyTorch K3 with the kernel's structure: a prefix sum inside
+    each block, the exclusive prefix of the block totals as each block's
+    carry, their sum."""
+    block_cumsum_plain.calls += 1
+    _check_block_operand(vals, block)
+    m, g = vals.shape
+    local = torch.cumsum(vals.reshape(m // block, block, g), dim=1)
+    totals = local[:, -1]
+    carries = torch.cumsum(totals, dim=0) - totals
+    return (local + carries[:, None]).reshape(m, g)
+
+
+block_cumsum_plain.calls = 0
 
 
 def segment_merge_scatter(vals: torch.Tensor, ids: torch.Tensor,
@@ -28,19 +110,27 @@ def segment_merge_scatter(vals: torch.Tensor, ids: torch.Tensor,
     return out[:num_segments]
 
 
-def segment_merge(vals: torch.Tensor, ids: torch.Tensor,
-                  num_segments: int) -> torch.Tensor:
-    """Sorted run-reduction merge: vals (M, G), ids (M,) -> (N, G)."""
+def segment_merge(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                  use_kernel: bool = False) -> torch.Tensor:
+    """Sorted run-reduction merge: vals (M, G), ids (M,) -> (N, G).
+    ``use_kernel`` takes the prefix sum from K3 (the counterpart of the
+    reference's ``use_pallas``)."""
+    m, g = vals.shape
     ok = ids >= 0
     keys = torch.where(ok, ids, torch.full_like(ids, num_segments))
     order = torch.argsort(keys, stable=True)
     ids_s = keys[order]
     valid = ids_s < num_segments
     vals_s = torch.where(valid[:, None], vals[order], torch.zeros_like(vals))
-    # Scan along the innermost dimension: PyTorch's CUDA scan over the outer
-    # dimension of an (M, 10) tensor runs ~50 ms at M = 307200 (the slice's
-    # 1200 tiles x K=256), the innermost one a fraction of a millisecond.
-    pref = torch.cumsum(vals_s.t().contiguous(), dim=1).t()
+    if use_kernel:
+        pad = torch.zeros(((-m) % BLOCK, g), dtype=vals.dtype, device=vals.device)
+        pref = block_cumsum(torch.cat([vals_s, pad]))[:m]
+    else:
+        # Scan along the innermost dimension: PyTorch's CUDA scan over the
+        # outer dimension of an (M, 10) tensor runs ~50 ms at M = 307200
+        # (the slice's 1200 tiles x K=256), the innermost one a fraction of
+        # a millisecond.
+        pref = torch.cumsum(vals_s.t().contiguous(), dim=1).t()
     pref_excl = pref - vals_s
 
     differs = ids_s[1:] != ids_s[:-1]

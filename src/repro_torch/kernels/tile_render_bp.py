@@ -1,8 +1,13 @@
-"""K2 — backward tile rasterizer replaying the R&B stash (GMU level 1).
+"""K2 and K5 — backward tile rasterizer replaying the R&B stash (GMU
+level 1).
 
-Replaces ``repro/kernels/tile_render_bp.py::tile_render_bwd`` (Pallas,
-``pallas_call`` at line 208).  The kernel is ``csrc/tile_render_bp.cu``:
-one 256-thread block per tile; pass A replays the blend from the stash
+K2 replaces ``repro/kernels/tile_render_bp.py::tile_render_bwd`` (Pallas,
+``pallas_call`` at line 208), K5 its WSU-scheduled form
+``tile_render_bwd_sched`` (``pallas_call`` at line 302).  Both kernels are
+in ``csrc/tile_render_bp.cu`` and share one per-tile device function: K2
+runs one 256-thread block per tile, K5 one block per balanced pair of
+schedule slots, with the stash, cotangents and gradients in slot order.
+Per tile, pass A replays the blend from the stash
 with multiplies only, pass B forms the per-fragment gradients
 
     dL/dalpha_k = T_k s_k - (S_k + T_final g_T) / (1 - am_k),
@@ -15,9 +20,11 @@ by bytes: it reads each view's 315 MB stash twice for ~60 flops per
 (pixel, fragment), far below the fp32 ridge point; loads are coalesced
 and the per-pixel gradients never reach device memory.
 
-:func:`tile_render_bwd` launches the kernel on CUDA tensors and runs
-:func:`tile_render_bwd_plain` on CPU tensors.  ``tile_render_bwd.launches``
-and ``tile_render_bwd_plain.calls`` count them.
+:func:`tile_render_bwd` and :func:`tile_render_bwd_sched` launch the
+kernels on CUDA tensors and run :func:`tile_render_bwd_plain` /
+:func:`tile_render_bwd_sched_plain` on CPU tensors; their ``launches`` and
+``calls`` count them.  K5 guards ``perm`` and ``trips`` as K4 does (see
+``kernels/tile_render.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from repro_torch.core.sorting import TileGrid
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ALPHA_MAX, PIX, TERM_EPS
 from repro_torch.kernels.tile_render import (
-    DEFAULT_CHUNK, _check_cuda, _pixel_coords_rows, check_raster_operands,
+    DEFAULT_CHUNK, _check_cuda, _div_up, _pixel_coords_rows, _row_tiles,
+    check_raster_operands, check_sched_operands, sched_fault_word,
 )
 
 NUM_GRADS = 10  # mu_x, mu_y, conic_a, conic_b, conic_c, r, g, b, opacity, depth
@@ -42,6 +50,9 @@ def _lib():
     lib = _build.load("tile_render_bp")
     fn = lib.tile_render_bwd
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    fn = lib.tile_render_bwd_sched
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return lib
 
@@ -95,13 +106,84 @@ def tile_render_bwd_plain(attrs: torch.Tensor, count: torch.Tensor,
                           grid: TileGrid, chunk: int = DEFAULT_CHUNK,
                           tiles_per_view: int | None = None) -> torch.Tensor:
     """Plain PyTorch K2, vectorized over tiles, with K1's chunk skips
-    replayed.  A skipped chunk's alphas are zeroed (its carries stay
-    bit-unchanged) and its gradient rows stay zero."""
+    replayed."""
     tile_render_bwd_plain.calls += 1
     rows, cap, tiles = check_raster_operands(attrs, count, chunk, tiles_per_view)
+    _check_cotangents(rows, cap, stash, g_color, g_depth, g_finalt)
+    return _bwd_rows(attrs, _row_tiles(rows, tiles, attrs.device),
+                     _div_up(count, chunk), stash, g_color, g_depth, g_finalt,
+                     grid, chunk)
+
+
+tile_render_bwd_plain.calls = 0
+
+
+def tile_render_bwd_sched(attrs: torch.Tensor, perm: torch.Tensor,
+                          trips: torch.Tensor, stash: torch.Tensor,
+                          g_color: torch.Tensor, g_depth: torch.Tensor,
+                          g_finalt: torch.Tensor, grid: TileGrid,
+                          chunk: int = DEFAULT_CHUNK,
+                          tiles_per_view: int | None = None) -> torch.Tensor:
+    """K5: K2 replaying a WSU schedule.  The stash (straight from K4) and
+    the cotangents (gathered with ``perm``) arrive in slot order; the
+    per-fragment gradients (S, 10, K) return in slot order."""
+    rows, cap, tiles, slots = check_sched_operands(attrs, perm, trips, chunk,
+                                                   tiles_per_view)
+    _check_cotangents(slots, cap, stash, g_color, g_depth, g_finalt)
+    if attrs.device.type == "cpu":
+        return tile_render_bwd_sched_plain(attrs, perm, trips, stash, g_color,
+                                           g_depth, g_finalt, grid, chunk,
+                                           tiles_per_view)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"no K5 for device {attrs.device}")
+    _check_cuda(attrs, perm, trips, stash, g_color, g_depth, g_finalt)
+    grads = torch.empty((slots, NUM_GRADS, cap), dtype=torch.float32,
+                        device=attrs.device)
+    fault = sched_fault_word(attrs.device)
+    with torch.cuda.device(attrs.device):
+        err = _lib().tile_render_bwd_sched(
+            attrs.data_ptr(), perm.data_ptr(), trips.data_ptr(),
+            stash.data_ptr(), g_color.data_ptr(), g_depth.data_ptr(),
+            g_finalt.data_ptr(), grads.data_ptr(), fault.data_ptr(), rows,
+            slots, cap, chunk, tiles, grid.grid_w,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K5 tile_render_bwd_sched launch failed: cudaError {err}")
+    tile_render_bwd_sched.launches += 1
+    return grads
+
+
+tile_render_bwd_sched.launches = 0
+
+
+def tile_render_bwd_sched_plain(attrs: torch.Tensor, perm: torch.Tensor,
+                                trips: torch.Tensor, stash: torch.Tensor,
+                                g_color: torch.Tensor, g_depth: torch.Tensor,
+                                g_finalt: torch.Tensor, grid: TileGrid,
+                                chunk: int = DEFAULT_CHUNK,
+                                tiles_per_view: int | None = None) -> torch.Tensor:
+    """Plain PyTorch K5: K2's two passes over the slots' gathered attrs
+    rows, each slot bounded by its own trips."""
+    tile_render_bwd_sched_plain.calls += 1
+    _, cap, tiles, slots = check_sched_operands(attrs, perm, trips, chunk,
+                                                tiles_per_view)
+    _check_cotangents(slots, cap, stash, g_color, g_depth, g_finalt)
+    return _bwd_rows(attrs[perm.long()], perm % tiles, trips, stash, g_color,
+                     g_depth, g_finalt, grid, chunk)
+
+
+tile_render_bwd_sched_plain.calls = 0
+
+
+def _bwd_rows(attrs, tile_ids, trips, stash, g_color, g_depth, g_finalt,
+              grid: TileGrid, chunk: int) -> torch.Tensor:
+    """The plain two-pass backward over rows of attrs (R, 12, K), row ``r``
+    being in-view tile ``tile_ids[r]`` with ``trips[r]`` chunk trips.  A
+    skipped chunk's alphas are zeroed (its carries stay bit-unchanged) and
+    its gradient rows stay zero."""
+    rows, _, cap = attrs.shape
     dev = attrs.device
-    px, py = _pixel_coords_rows(grid, rows, tiles, dev)
-    trips = torch.div(count + chunk - 1, chunk, rounding_mode="floor")
+    px, py = _pixel_coords_rows(grid, tile_ids)
     g_r, g_g, g_b = g_color[:, 0], g_color[:, 1], g_color[:, 2]
     g_d, g_t = g_depth, g_finalt
     n_chunks = cap // chunk
@@ -171,5 +253,3 @@ def tile_render_bwd_plain(attrs: torch.Tensor, count: torch.Tensor,
             trans = trans * (1.0 - am)
     return grads
 
-
-tile_render_bwd_plain.calls = 0

@@ -5,9 +5,11 @@ The reference fuses each phase into one ``lax.scan`` dispatch.  PyTorch
 runs eagerly, so each scan becomes a Python loop over iterations, each
 ``lax.cond`` a host ``if`` and each ``vmap`` over the keyframe window a
 loop over views.  Every mapping iteration still renders the whole window
-as ONE batched raster call (one stacked K1 and one stacked K2 launch).
-The ported cores are the MonoGS slice: no pruning, no sparse
-stable/unstable mapping, no WSU schedule.
+as ONE batched raster call (one stacked forward and one stacked backward
+launch).  On the ``schedule`` backend a WSU schedule rides next to each
+cached fragment list and is rebuilt only where the list is.  The ported
+cores are the MonoGS slice: no pruning and no sparse stable/unstable
+mapping.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ from repro_torch.core.camera import Camera, Intrinsics
 from repro_torch.core.losses import slam_loss
 from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
+from repro_torch.core.schedule import scheduled_trips
 from repro_torch.core.sorting import (
     FragmentLists, build_fragment_lists, make_tile_grid, stack_fragment_lists,
     tile_trips, update_fragment_slot,
 )
 from repro_torch.core.projection import project
+from repro_torch.kernels.ops import build_plan_schedule
 from repro_torch.slam.metrics import DeviceWork, device_work_add
 from repro_torch.train.optimizer import Adam, AdamState, apply_updates
 
@@ -42,6 +46,11 @@ def _pose_adam_zero(device) -> AdamState:
                      mu={"xi": z}, nu={"xi": z})
 
 
+def _slot(stack, b: int):
+    """Window slot ``b`` of stacked fragment lists or schedules."""
+    return type(stack)(*(x[b] for x in stack))
+
+
 class _Stage:
     """The cores at one resolution (the slice runs only factor 1)."""
 
@@ -49,14 +58,17 @@ class _Stage:
         self.intr = intr
         self.grid = make_tile_grid(intr.height, intr.width)
         self.plan = RasterPlan(grid=self.grid, backend=cfg.backend,
-                               capacity=cfg.frag_capacity)
+                               capacity=cfg.frag_capacity,
+                               sched_bucket=cfg.sched_bucket)
+        # WSU: carry a schedule next to each cached fragment list.
+        self.scheduled = cfg.backend == "schedule"
         self.pixels = intr.height * intr.width
         self.cfg = cfg
         self.device = device
 
-    def _render(self, g, w2c, frags=None):
-        return render(g, Camera(self.intr, w2c), self.plan, frags=frags,
-                      device=self.device)
+    def _render(self, g, w2c, frags=None, sched=None):
+        return render(g, Camera(self.intr, w2c), self.plan.with_sched(sched),
+                      frags=frags, device=self.device)
 
     # ---- cores -----------------------------------------------------------
 
@@ -65,13 +77,26 @@ class _Stage:
         proj = project(silence(g, masked), Camera(self.intr, w2c))
         return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity)
 
+    def _sched_core(self, frags: FragmentLists):
+        """The WSU schedule of one view's cached fragment counts (device
+        math, no host sync)."""
+        return build_plan_schedule(frags, self.plan)
+
+    def _slot_programs_core(self, frags: FragmentLists, sched=None):
+        """() scheduled raster programs of one view in the WSU's subtile
+        unit: the schedule's total chunk trips on the ``schedule`` backend,
+        the per-tile loop's trips otherwise."""
+        if sched is not None:
+            return scheduled_trips(sched)
+        return tile_trips(frags.count, self.plan.chunk)
+
     def _track_iter_core(self, g, masked, xi, ostate, base_w2c, obs_rgb,
-                         obs_depth, frags):
+                         obs_depth, frags, sched=None):
         """One tracking iteration: render -> Eq. 6 loss -> pose Adam step.
         Only the pose needs a gradient here (no pruning in the slice)."""
         g_eff = silence(g, masked)
         xi_ = xi.detach().requires_grad_(True)
-        out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags)
+        out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags, sched)
         loss = slam_loss(out.image, out.depth, out.alpha, obs_rgb, obs_depth,
                          self.cfg.lambda_pho)
         (g_xi,) = torch.autograd.grad(loss, [xi_])
@@ -79,7 +104,7 @@ class _Stage:
         return loss.detach(), xi + upd["xi"], ostate
 
     def _map_iter_core(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
-                       cache, kf_valid):
+                       cache, kf_valid, scheds=None):
         """One mapping iteration over the whole keyframe window: one batched
         render, the valid-masked mean window loss, one Adam step."""
         # As in the reference, the differentiated params are g's own (the
@@ -88,7 +113,7 @@ class _Stage:
         g_eff = silence(g, masked)
         params_g = G.params_of(g)
         params = {k: p.detach().requires_grad_(True) for k, p in params_g.items()}
-        out = self._render(G.with_params(g_eff, params), kf_w2c, cache)
+        out = self._render(G.with_params(g_eff, params), kf_w2c, cache, scheds)
         w_len = kf_w2c.shape[0]
         vw = kf_valid.to(torch.float32)
         loss = sum(slam_loss(out.image[b], out.depth[b], out.alpha[b],
@@ -107,7 +132,10 @@ class _Stage:
 
     def _track_scan_noprune(self, g, masked, base_w2c, obs_rgb, obs_depth,
                             frags, work: DeviceWork):
-        """The K tracking iterations on the frame's fragment lists."""
+        """The K tracking iterations on the frame's fragment lists (and, on
+        the ``schedule`` backend, one schedule built from them for the
+        whole phase)."""
+        sched = self._sched_core(frags) if self.scheduled else None
         work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
         xi = torch.zeros(6, dtype=torch.float32, device=self.device)
         ostate = _pose_adam_zero(self.device)
@@ -115,7 +143,8 @@ class _Stage:
         losses = []
         for _ in range(self.cfg.iters_track):
             loss, xi, ostate = self._track_iter_core(
-                g, masked, xi, ostate, base_w2c, obs_rgb, obs_depth, frags)
+                g, masked, xi, ostate, base_w2c, obs_rgb, obs_depth, frags,
+                sched)
             work = device_work_add(work, frags.total, self.pixels, alive_eff,
                                    unstable=0)
             losses.append(loss)
@@ -128,7 +157,9 @@ class _Stage:
         """The mapping phase over the fixed-shape keyframe ring: the window
         has ``map_window`` slots, the first ``n_valid`` populated (oldest
         first).  Invalid slots render but add nothing to the loss, the
-        counters, the round-robin stride rebuild or the final eval."""
+        counters, the round-robin stride rebuild or the final eval.  On the
+        ``schedule`` backend each window slot's schedule is rebuilt with
+        its fragment list."""
         cfg = self.cfg
         stride = cfg.map_rebuild_stride
         w_len = kf_w2c.shape[0]
@@ -137,16 +168,22 @@ class _Stage:
         # One view at a time: a full-size view's membership matrix is ~0.8 GB.
         cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b])
                                       for b in range(w_len)])
+        scheds = (stack_fragment_lists([self._sched_core(_slot(cache, b))
+                                        for b in range(w_len)])
+                  if self.scheduled else None)
         work = work._replace(
             frag_build_rows=work.frag_build_rows
             + (n_valid + cfg.iters_map // stride + 1) * g.capacity)
         losses = []
         for it in range(cfg.iters_map):
             loss, g, opt_state = self._map_iter_core(
-                g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid)
+                g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid,
+                scheds)
             n_alive = g.alive.sum()
-            progs = torch.stack([tile_trips(cache.count[b], self.plan.chunk)
-                                 for b in range(w_len)])
+            progs = torch.stack([
+                self._slot_programs_core(
+                    _slot(cache, b), None if scheds is None else _slot(scheds, b))
+                for b in range(w_len)])
             work = device_work_add(
                 work, (cache.total.to(torch.int64) * valid_i).sum(),
                 n_valid * self.pixels, n_valid * n_alive,
@@ -154,7 +191,10 @@ class _Stage:
             losses.append(loss)
             if (it + 1) % stride == 0:
                 slot = ((it + 1) // stride - 1) % n_valid   # round-robin
-                cache = update_fragment_slot(
-                    cache, slot, self._build_core(g, masked, kf_w2c[slot]))
+                fresh = self._build_core(g, masked, kf_w2c[slot])
+                cache = update_fragment_slot(cache, slot, fresh)
+                if self.scheduled:
+                    scheds = update_fragment_slot(scheds, slot,
+                                                  self._sched_core(fresh))
         image = self._render_eval_core(g, masked, kf_w2c[n_valid - 1])
         return g, opt_state, work, torch.stack(losses), image

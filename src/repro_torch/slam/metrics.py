@@ -63,6 +63,31 @@ def device_work_totals(w: DeviceWork) -> dict:
     return dict(zip(DeviceWork._fields, vals))
 
 
+class ImbalanceStats(NamedTuple):
+    """WSU workload-imbalance counters over one grid's program loads.
+
+    ``tail_ratio`` (max / mean fragments per program) is what pairwise
+    scheduling attacks: how many times longer the heaviest program runs
+    than the average one."""
+
+    max_load: float    # fragments in the heaviest program
+    mean_load: float   # mean fragments per program
+    tail_ratio: float  # max / mean (1.0 = perfectly balanced)
+
+
+def imbalance_stats(loads) -> ImbalanceStats:
+    """Per-program fragment-load imbalance of ``loads`` (P,): per-tile
+    counts for the unscheduled grid, ``schedule.pair_loads`` for the WSU
+    grid.  A tensor is copied to the host (one sync)."""
+    if isinstance(loads, torch.Tensor):
+        loads = loads.cpu().numpy()
+    loads = np.asarray(loads, np.float64)
+    mx = float(loads.max()) if loads.size else 0.0
+    mean = float(loads.mean()) if loads.size else 0.0
+    return ImbalanceStats(max_load=mx, mean_load=mean,
+                          tail_ratio=mx / max(mean, 1e-9))
+
+
 def align_umeyama(src: np.ndarray, dst: np.ndarray):
     """Closed-form SE(3) alignment (no scale) of src -> dst, both (F, 3)."""
     mu_s, mu_d = src.mean(0), dst.mean(0)

@@ -36,7 +36,9 @@ from repro_torch.core.camera import Intrinsics
 from repro_torch.core.downsample import DownsampleConfig
 from repro_torch.core.keyframes import KeyframePolicy
 from repro_torch.core.losses import psnr as psnr_dev
+from repro_torch.core.schedule import TileSchedule
 from repro_torch.core.sorting import FragmentLists
+from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam.engine import _Stage
 from repro_torch.slam.metrics import (
     DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_totals,
@@ -55,7 +57,8 @@ class SLAMConfig:
     lambda_pho: float = 0.8
     capacity: int = 8192            # Gaussian pool size
     frag_capacity: int = 128        # K fragments per tile
-    backend: str = "kernel"         # K1/K2 on the card, plain on the CPU
+    backend: str = "kernel"         # K1/K2 on the card, plain on the CPU;
+                                    # "schedule": the WSU path, K4/K5
     map_window: int = 4             # keyframes optimized jointly per iter
     densify_per_kf: int = 384
     seed_stride: int = 3
@@ -68,9 +71,11 @@ class SLAMConfig:
         default_factory=lambda: DownsampleConfig(enabled=False))
     sparse_opt: bool = False
     paged: Optional[object] = None
-    sched_bucket: int = 1
+    sched_bucket: int = 1           # WSU trip bucketing (schedule backend)
 
     def __post_init__(self):
+        if self.sched_bucket < 1:
+            raise ValueError(f"sched_bucket must be >= 1, got {self.sched_bucket}")
         unported = {
             "base_algo": self.base_algo != "monogs",
             "keyframe.kind": self.keyframe.kind != "monogs",
@@ -78,7 +83,6 @@ class SLAMConfig:
             "downsample": self.downsample.enabled,
             "sparse_opt": self.sparse_opt,
             "paged": self.paged is not None,
-            "sched_bucket": self.sched_bucket != 1,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -134,6 +138,7 @@ class SlamSession:
     alive_log: torch.Tensor     # (F,) int64
     work: DeviceWork            # run-cumulative counters (int64)
     frags: FragmentLists        # lists of the map at the last keyframe pose
+    sched: Optional[TileSchedule]  # their WSU schedule (schedule backend)
     rng: torch.Generator        # densify draws
 
     @property
@@ -276,13 +281,19 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     traj[0] = pose0
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
+    frags = st._build_core(g, masked, kf_w2c[0])
     return SlamSession(
         cfg=cfg, intr=intr, stage=st, g=g, map_opt=map_opt, masked=masked,
         pose=pose0, velocity=torch.eye(4, dtype=torch.float32, device=dev),
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
         kf_w2c=kf_w2c, kf_count=1, kf_total=1, last_kf_idx=0,
         kf_psnr=kf_psnr, alive_log=alive_log, work=work_m,
-        frags=st._build_core(g, masked, kf_w2c[0]), rng=rng)
+        frags=frags, sched=_serving_sched(st, frags), rng=rng)
+
+
+def _serving_sched(st, frags: FragmentLists) -> Optional[TileSchedule]:
+    """The schedule of the session's cached lists (None off the WSU)."""
+    return st._sched_core(frags) if st.scheduled else None
 
 
 @torch.no_grad()
@@ -307,10 +318,11 @@ def _map_branch(sess: SlamSession, g, rgb, depth, new_pose, perm):
         frag_build_rows=work_m.frag_build_rows + 2 * g.capacity)
     psnr_v = psnr_dev(image, rgb)
     sess.kf_psnr[sess.kf_total] = psnr_v
+    frags = st._build_core(g, sess.masked, new_pose)
     return sess.replace(
         g=g, map_opt=map_opt, kf_rgb=kf_rgb, kf_depth=kf_depth, kf_w2c=kf_w2c,
-        kf_count=n2, kf_total=sess.kf_total + 1,
-        frags=st._build_core(g, sess.masked, new_pose)), work_m, map_losses, psnr_v
+        kf_count=n2, kf_total=sess.kf_total + 1, frags=frags,
+        sched=_serving_sched(st, frags)), work_m, map_losses, psnr_v
 
 
 def session_step(sess: SlamSession, frame, *,
@@ -353,8 +365,11 @@ def session_step(sess: SlamSession, frame, *,
 
 def session_finalize(sess: SlamSession, gt_w2c=None, *,
                      wall_time_s: float = 0.0) -> SLAMResult:
-    """Fetch the session's logs and assemble a :class:`SLAMResult`."""
+    """Fetch the session's logs and assemble a :class:`SLAMResult`.  On the
+    card's WSU path it also reads the scheduled kernels' fault word."""
     n = sess.frame_idx
+    if sess.stage.scheduled and sess.device.type == "cuda":
+        raise_on_sched_fault(sess.device)
     traj = sess.traj[:n].cpu().numpy()
     est = [traj[i] for i in range(n)]
     gt = [np.asarray(p) for p in gt_w2c] if gt_w2c is not None else []

@@ -34,6 +34,7 @@ from repro_torch.core import sorting as tsort
 from repro_torch.core.camera import Camera as TCamera
 from repro_torch.core.camera import Intrinsics as TIntr
 from repro_torch.core.camera import look_at as tlook_at
+from repro_torch.core.downsample import DownsampleConfig as TDownsample
 from repro_torch.core.projection import project as tproject
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -371,7 +372,7 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("base_algo", "splatam"), ("sparse_opt", True), ("paged", object()),
-    ("prune", object()), ("sched_bucket", 2)])
+    ("prune", object()), ("downsample", TDownsample(enabled=True))])
 def test_unported_config_fields_raise(field, value):
     from repro_torch.slam.session import SLAMConfig
     with pytest.raises(NotImplementedError, match=field):

@@ -1,6 +1,7 @@
-"""The port on a card: the CUDA kernels K1 and K2 against their plain
-versions, the ``kernel`` backend against the ``ref`` backend, and the
-default entry points.  Every test here is marked ``cuda`` and skips where
+"""The port on a card: the CUDA kernels K1-K5 against their plain
+versions, the scheduled kernels K4/K5 against K1/K2 bit for bit, the
+``kernel`` backend against the ``ref`` backend, the ``schedule`` session
+against the ``kernel`` one, and the default entry points.  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.
 
 The file imports neither JAX nor ``repro``, so it runs on a machine that
@@ -18,9 +19,17 @@ from repro_torch.core import gaussians as G
 from repro_torch.core.camera import Camera, Intrinsics, look_at
 from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
+from repro_torch.core.schedule import build_schedule
 from repro_torch.core.sorting import make_tile_grid
-from repro_torch.kernels.tile_render import tile_render_fwd, tile_render_fwd_plain
-from repro_torch.kernels.tile_render_bp import tile_render_bwd, tile_render_bwd_plain
+from repro_torch.kernels import gmu
+from repro_torch.kernels.tile_render import (
+    raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
+    tile_render_fwd_sched, tile_render_fwd_sched_plain,
+)
+from repro_torch.kernels.tile_render_bp import (
+    tile_render_bwd, tile_render_bwd_plain, tile_render_bwd_sched,
+    tile_render_bwd_sched_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +96,107 @@ def test_cuda_wrappers_reject_non_contiguous_operands(dev):
         tile_render_fwd(a, count.to(dev), grid)
 
 
+def _stacked_schedule(count, tiles, views, cap, chunk):
+    """Flattened per-view schedules (perm offset to global rows) and the
+    per-view tile -> global slot gather."""
+    perms, trips, invs = [], [], []
+    for b in range(views):
+        s = build_schedule(count[b * tiles:(b + 1) * tiles], chunk,
+                           max_trips=cap // chunk)
+        slots = s.perm.shape[0]
+        perms.append(s.perm + b * tiles)
+        trips.append(s.trips)
+        invs.append(s.inv.long() + b * slots)
+    return torch.cat(perms), torch.cat(trips), torch.cat(invs)
+
+
+@pytest.mark.parametrize("hw,cap,chunk,views,near_tile", [
+    ((48, 48), 32, 8, 1, False),      # 9 tiles: slot 1 is the zero-work pad
+    ((48, 48), 64, 16, 2, True),      # two odd views, saturated tiles
+    ((64, 64), 128, 32, 1, False),
+    ((480, 640), 256, 16, 2, True),   # the slice's shapes
+])
+def test_cuda_sched_kernels_match_plain_and_unscheduled(dev, hw, cap, chunk,
+                                                        views, near_tile):
+    """K4 and K5 against their plain versions, and gathered by ``inv``
+    against K1 and K2 bit for bit."""
+    grid = make_tile_grid(*hw)
+    tiles = grid.num_tiles
+    attrs, count = _attrs(9, views * tiles, cap, *hw, near_tile=near_tile)
+    a, c = attrs.to(dev), count.to(dev)
+    perm, trips, inv = _stacked_schedule(c, tiles, views, cap, chunk)
+    kw = dict(chunk=chunk, tiles_per_view=tiles)
+    got = tile_render_fwd_sched(a, perm, trips, grid, **kw)
+    want = tile_render_fwd_sched_plain(a, perm, trips, grid, **kw)
+    base = tile_render_fwd(a, c, grid, **kw)
+    torch.cuda.synchronize()
+    for name, g, w, u in zip(("color", "depth", "final_T", "stash"), got, want, base):
+        tol = DEPTH_TOL if name == "depth" else FWD_ATOL
+        rtol = DEPTH_TOL if name == "depth" else FWD_RTOL
+        _close(g, w, tol, rtol)
+        assert torch.equal(g[inv], u), name
+    r = np.random.default_rng(10)
+    cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
+            for s in ((views * tiles, 3, 256), (views * tiles, 256),
+                      (views * tiles, 256))]
+    base_g = tile_render_bwd(a, c, base[3], *cots, grid, **kw)
+    slot_cots = [x[perm.long()].contiguous() for x in cots]
+    gg = tile_render_bwd_sched(a, perm, trips, got[3], *slot_cots, grid, **kw)
+    gw = tile_render_bwd_sched_plain(a, perm, trips, got[3], *slot_cots, grid, **kw)
+    torch.cuda.synchronize()
+    _close(gg, gw, _grad_atol(gw))
+    assert torch.equal(gg[inv], base_g)
+    raise_on_sched_fault(dev)
+
+
+@pytest.mark.parametrize("bad", ["strided", "int64", "perm_range", "trips_range"])
+def test_cuda_sched_wrappers_reject_bad_schedules(dev, bad):
+    """Layout and type are checked before the launch; the values of perm
+    and trips by the kernels, which set the fault word instead of reading
+    out of bounds."""
+    grid = make_tile_grid(48, 48)
+    attrs, count = _attrs(4, grid.num_tiles, 32, 48, 48)
+    a = attrs.to(dev)
+    s = build_schedule(count.to(dev), 8, max_trips=4)
+    perm, trips = s.perm.clone(), s.trips.clone()
+    if bad == "strided":
+        perm = torch.stack([perm, perm], 1)[:, 0]
+    elif bad == "int64":
+        trips = trips.long()
+    elif bad == "perm_range":
+        perm[4] = grid.num_tiles
+    else:
+        trips[2] = 5
+    if bad in ("strided", "int64"):
+        with pytest.raises((TypeError, ValueError)):
+            tile_render_fwd_sched(a, perm, trips, grid, chunk=8)
+        return
+    raise_on_sched_fault(dev)
+    out = tile_render_fwd_sched(a, perm, trips, grid, chunk=8)
+    z = torch.zeros((perm.shape[0], 3, 256), device=dev)
+    tile_render_bwd_sched(a, perm, trips, out[3], z, z[:, 0].contiguous(),
+                          z[:, 0].contiguous(), grid, chunk=8)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="perm" if bad == "perm_range" else "trips"):
+        raise_on_sched_fault(dev)
+    raise_on_sched_fault(dev)  # the fault word was cleared
+
+
+@pytest.mark.parametrize("m,g", [(256, 1), (4096, 10), (307200, 10), (1024, 32)])
+def test_cuda_block_cumsum_matches_plain(dev, m, g):
+    """K3 against its plain version, and both against a float64 prefix sum:
+    within 1e-5 of the float64 prefix of |x| plus 1e-6."""
+    x = torch.as_tensor(np.random.default_rng(m).normal(size=(m, g)).astype(np.float32),
+                        device=dev)
+    got = gmu.block_cumsum(x)
+    want = gmu.block_cumsum_plain(x)
+    torch.cuda.synchronize()
+    exact = torch.cumsum(x.double(), 0)
+    scale = torch.cumsum(x.double().abs(), 0)
+    assert bool(((got.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
+    assert bool(((want.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
+
+
 def _scene(dev):
     r = np.random.default_rng(0)
     pts = r.uniform(-1, 1, (200, 3)) * np.array([1.5, 1.0, 0.5]) + np.array([0, 0, 3.0])
@@ -139,3 +249,28 @@ def test_cuda_session_runs_through_the_kernels(dev):
     assert after[2:] == counts[2:]
     assert np.isfinite(res.ate) and len(res.keyframe_psnr) == 3
     assert all(np.isfinite(p) for p in res.keyframe_psnr)
+
+
+def test_cuda_schedule_session_equals_kernel_session(dev):
+    """A tiny session on the ``schedule`` backend runs through K4 and K5 and
+    equals the same session on the ``kernel`` backend bit for bit."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SLAMConfig, run_sequence
+
+    ds = make_dataset("room0", num_frames=5, height=48, width=48,
+                      num_gaussians=300, frag_capacity=32)
+    rng = np.random.default_rng(2)
+    perms = {i: torch.as_tensor(rng.permutation(2 * 384)) for i in range(1, 5)}
+    res = {}
+    for backend in ("kernel", "schedule"):
+        k4, k5 = tile_render_fwd_sched.launches, tile_render_bwd_sched.launches
+        res[backend] = run_sequence(ds, SLAMConfig(
+            iters_track=3, iters_map=4, capacity=768, frag_capacity=32,
+            map_window=2, backend=backend, keyframe=KeyframePolicy(interval=2)),
+            perms=perms)
+        ran = (tile_render_fwd_sched.launches > k4, tile_render_bwd_sched.launches > k5)
+        assert ran == ((True, True) if backend == "schedule" else (False, False))
+    for a, b in zip(res["kernel"].est_w2c, res["schedule"].est_w2c):
+        assert np.array_equal(a, b)
+    assert res["kernel"].keyframe_psnr == res["schedule"].keyframe_psnr
