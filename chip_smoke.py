@@ -17,12 +17,13 @@ Run from the root of a checkout.  In order, it
    to tile order against K1 and K2 bit for bit, and times all of them with
    CUDA events; the packed attrs are wide splats near their own tile
    (``tests/_kernel_inputs``), so most tiles saturate and skip chunks while
-   the rest blend them all; holds K3 against its plain version and a
-   float64 prefix sum at (307200, 10) and times it beside ``torch.cumsum``;
+   the rest blend them all; holds K3 against its plain version (bit for
+   bit: the plain version adds in K3's order) and a float64 prefix sum at
+   (307200, 10) and times it beside ``torch.cumsum``;
 4. repeats the comparisons and times of step 3 on the packed attrs of a
    full-size ground-truth view (uneven tile loads), prints their tile-load
-   and pair-load imbalance, and checks GMU level 2 with K3's prefix sum
-   against the torch-op one on that view's K2 gradients;
+   and pair-load imbalance, and checks GMU level 2 (its prefix sum is K3)
+   against a float64 segment sum on that view's K2 gradients;
 5. renders the full-size ground-truth scene through the ``kernel`` backend
    and the pure-tensor ``ref`` backend and compares images and gradients;
    checks that the ``schedule`` backend equals the ``kernel`` backend bit
@@ -32,10 +33,10 @@ Run from the root of a checkout.  In order, it
    and compares poses and PSNR;
 7. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
    12 frames, a 131072-Gaussian pool) with every launch counter set to 0
-   just before, and checks that K1 and K2 carried it, that no plain version
-   ran, and that ATE < 0.30 m and mean keyframe PSNR > 17 dB;
+   just before, and checks that K1, K2 and K3 carried it, that no plain
+   version ran, and that ATE < 0.30 m and mean keyframe PSNR > 17 dB;
 8. runs the same session on the ``schedule`` backend, counters set to 0
-   again, and checks that K4 and K5 carried it (no K1, K2 or plain run),
+   again, and checks that K4, K5 and K3 carried it (no K1, K2 or plain run),
    the same bounds, the same keyframes, and camera centres within 1 mm of
    step 7's;
 9. with ``profile``, traces one tracking-only frame and one keyframe of a
@@ -324,10 +325,10 @@ def phase_gmu(dev):
     got = gmu.block_cumsum(x)
     want = gmu.block_cumsum_plain(x)
     torch.cuda.synchronize()
-    ratio, ratio_plain = cumsum_bound_ratio(got, x), cumsum_bound_ratio(want, x)
+    ratio = cumsum_bound_ratio(got, x)
     require(ratio <= 1.0, f"K3 off a float64 prefix sum: {ratio:.3g} of its bound")
-    require(ratio_plain <= 1.0, f"plain K3 off a float64 prefix sum: {ratio_plain:.3g}")
     err = max_err(got, want)
+    require(torch.equal(got, want), f"K3 differs from its plain version: max |d| {err:.3g}")
     b, by = bound(2 * 4 * m * g, m * g)   # one read and one write; one add each
     res = dict(max_abs_err=err, ms=cuda_ms(lambda: gmu.block_cumsum(x), 40),
                plain_ms=cuda_ms(lambda: gmu.block_cumsum_plain(x), 5),
@@ -335,10 +336,10 @@ def phase_gmu(dev):
                library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
                inner_ms=cuda_ms(lambda: torch.cumsum(x.t().contiguous(), 1).t(), 40))
     log(f"[kernels] K3 ({m}, {g}): {res['ms']:.4f} ms (plain {res['plain_ms']:.3f} ms, "
-        f"bound {b:.4f} ms by {by}, max |d| vs plain {err:.2e}); worst error "
-        f"{ratio:.3f} of 1e-5 x prefix|x| + 1e-6 (plain {ratio_plain:.3f}); "
+        f"bound {b:.4f} ms by {by}, bitwise equal to plain); worst error "
+        f"{ratio:.3f} of 1e-5 x prefix|x| + 1e-6 from a float64 prefix sum; "
         f"torch.cumsum(x, 0) {res['library_ms']:.3f} ms, transposed inner-dim "
-        f"cumsum (gmu.py's default) {res['inner_ms']:.3f} ms")
+        f"cumsum {res['inner_ms']:.3f} ms")
     return res
 
 
@@ -360,7 +361,8 @@ def gt_view(dev, ds):
 
 def phase_real_view(dev, ds):
     """The kernel suite on the packed attrs of a real view, its load
-    imbalance, and GMU level 2 with K3 on that view's K2 gradients."""
+    imbalance, and GMU level 2 (K3's prefix sum) on that view's K2
+    gradients."""
     import torch
     from repro_torch.core.schedule import pair_loads
     from repro_torch.kernels import gmu, ops
@@ -380,24 +382,23 @@ def phase_real_view(dev, ds):
         f"{tile_l.tail_ratio:.2f}), pair loads max {pair_l.max_load:.0f} / mean "
         f"{pair_l.mean_load:.2f} (tail ratio {pair_l.tail_ratio:.2f})")
 
-    # GMU level 2 on the K2 gradients: K3's prefix sum against the torch-op
-    # one, both against a float64 segment sum.  A run sum is a difference of
-    # two prefix sums, so each may be off by twice the prefix bound.
+    # GMU level 2 on the K2 gradients against a float64 segment sum.  A run
+    # sum is a difference of two K3 prefix sums, so it may be off by twice
+    # the prefix bound.
     flat = grads.transpose(1, 2).reshape(-1, NUM_GRADS).contiguous()
     ids = frags.idx.reshape(-1)
     n = proj.mu2d.shape[0]
-    by_kernel = gmu.segment_merge(flat, ids, n, use_kernel=True)
-    by_ops = gmu.segment_merge(flat, ids, n)
+    before = gmu.block_cumsum.launches
+    merged = gmu.segment_merge(flat, ids, n)
+    require(gmu.block_cumsum.launches == before + 1, "GMU level 2 did not launch K3")
     ok = ids >= 0
     exact = torch.zeros((n, NUM_GRADS), dtype=torch.float64, device=dev)
     exact.index_add_(0, ids[ok].long(), flat[ok].double())
     tol = 2 * (1e-5 * float(flat[ok].double().abs().sum(0).max()) + 1e-6)
-    for what, got in (("K3", by_kernel), ("torch-op", by_ops)):
-        e = float((got.double() - exact).abs().max())
-        require(e <= tol, f"GMU level 2 with the {what} prefix sum off by {e:.3g} > {tol:.3g}")
-    log(f"[kernels] real view GMU level 2: K3 prefix vs torch-op prefix max |d| "
-        f"{max_err(by_kernel, by_ops):.2e}; both within {tol:.2e} of a float64 "
-        f"segment sum")
+    e = float((merged.double() - exact).abs().max())
+    require(e <= tol, f"GMU level 2 off a float64 segment sum by {e:.3g} > {tol:.3g}")
+    log(f"[kernels] real view GMU level 2 (K3 prefix): max |d| {e:.2e} from a "
+        f"float64 segment sum, bound {tol:.2e}")
     return out
 
 
@@ -541,7 +542,9 @@ def phase_small_session(dev):
     # The card sums in other orders than the CPU (K2's warp tree, cuBLAS),
     # and five frames of optimization grow those last-bit differences: on an
     # H100 80GB HBM3 the camera centres read 0.19-0.33 mm apart (pose
-    # entries up to 2.9e-3) in three runs.  1 mm is three times the largest.
+    # entries up to 2.9e-3) in three runs with a torch.cumsum prefix in GMU
+    # level 2, and 0.53 mm (pose entries up to 8.8e-3) with K3's prefix,
+    # whose plain version adds in K3's order.
     require(centre_d < 1e-3, f"card and CPU camera centres differ by {centre_d:.3g} m")
     require(psnr_d < 0.1, f"card and CPU PSNR differ by {psnr_d:.3g} dB")
 
@@ -613,7 +616,7 @@ def phase_main(dev, ds, backend="kernel"):
         + f", plain versions {plain_calls}; peak device memory {peak_gb:.2f} GB; "
         f"cached-list fragments {int(sess.frags.total)}, overflow "
         f"{int(sess.frags.overflow)}; work {res.work}")
-    ours = ("K1", "K2") if backend == "kernel" else ("K4", "K5")
+    ours = ("K1", "K2", "K3") if backend == "kernel" else ("K4", "K5", "K3")
     others = [k for k in ("K1", "K2", "K4", "K5") if k not in ours]
     require(all(launches[k] > 0 for k in ours),
             f"the {backend} path did not launch {ours}: {launches}")
@@ -747,15 +750,15 @@ def main(argv) -> int:
     kernels.insert(2, {
         "name": "K3 block_cumsum", "route": "cuda", "source": "src/repro_torch/csrc/gmu.cu",
         "replaces": "src/repro/kernels/gmu.py:83",
-        # Off the main paths, as in the reference (segment_merge's default is
-        # the torch-op prefix sum): the count from [main] and [main-sched].
-        "launches": launches["K3"] + launches_s["K3"],
+        # GMU level 2's prefix sum on both paths: [main]'s count, then
+        # [main-sched]'s, then the checks' and timings' before them.
+        "launches": launches["K3"], "launches_sched": launches_s["K3"],
         "check_launches": k3_check_launches,
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"], "inner_cumsum_ms": k3["inner_ms"],
         "shape": f"({tiles * K}, 10) float32; library_ms is torch.cumsum(x, 0), "
-                 "inner_cumsum_ms the transposed inner-dim cumsum gmu.py uses; "
+                 "inner_cumsum_ms the transposed inner-dim torch.cumsum; "
                  "one view per call at every B, so no *_b4 keys",
     })
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.core import gaussians as G
 from repro_torch.core.camera import Intrinsics
-from repro_torch.core.schedule import TileSchedule
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.slam import datasets as D
 from repro_torch.slam.engine import _Stage
@@ -59,15 +58,6 @@ def dataset_from_numpy(src, device="cpu") -> D.SLAMDataset:
                          gt_field=field_from_numpy(src.gt_field, device))
 
 
-def schedule_from_numpy(src, device="cpu"):
-    """A ``TileSchedule`` from an object with numpy ``perm``, ``inv``,
-    ``trips`` and ``load`` (int32), or ``None`` for ``None``."""
-    if src is None:
-        return None
-    return TileSchedule(*(_t(getattr(src, f), device, torch.int32)
-                          for f in TileSchedule._fields))
-
-
 def _work_totals(src) -> list:
     """Counter totals of a reference work record: a hi/lo split record
     (``total = hi * 2**30 + lo``) or a flat one."""
@@ -108,6 +98,5 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
         work=DeviceWork(*(torch.tensor(v, dtype=torch.int64, device=dev)
                           for v in _work_totals(src.work))),
         frags=FragmentLists(*(_t(x, dev, torch.int32) for x in f)),
-        sched=schedule_from_numpy(src.sched, dev),
         rng=rng,
     )

@@ -5,7 +5,7 @@
   per-tile :class:`FragmentLists`; a leading view axis ``B`` on every
   tensor means batched multi-view rasterization.
 * :class:`RasterPlan` — how to rasterize: tile grid, backend name, chunk,
-  fragment capacity, the WSU trip bucketing, and an optional carried
+  fragment capacity, and an optional carried
   :class:`~repro_torch.core.schedule.TileSchedule` for the ``schedule``
   backend.
 * the registry — backends register under a name (``kernels/ops.py`` holds
@@ -50,7 +50,6 @@ class RasterPlan:
     backend: str = "kernel"   # registry name
     chunk: int = 16           # kernel chunk size (C)
     capacity: int = 128       # fragments per tile (K)
-    sched_bucket: int = 1     # WSU trip bucketing (schedule backend)
     # A carried schedule (schedule backend): (S,) tensors for one view,
     # (B, S) for B views.  None: the backend builds one from the counts.
     sched: Optional[TileSchedule] = dataclasses.field(default=None,

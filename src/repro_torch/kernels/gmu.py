@@ -9,16 +9,19 @@ becomes an ``index_add_`` into ``N + 1`` rows whose last row collects the
 padding and is sliced off.  Each real row receives at most one end and one
 start write, so the result does not depend on the order the adds land in.
 
-The prefix sum comes from torch ops by default, as the reference's main
-path takes it from ``jnp.cumsum`` (``segment_merge(..., use_pallas=False)``).
-``use_kernel=True`` takes it from K3, :func:`block_cumsum`, the port of
-the Pallas ``block_cumsum`` (``pallas_call`` at ``gmu.py:83``):
-``csrc/gmu.cu``, an inclusive prefix sum over 256-row blocks whose carry
-across blocks is a second pass (block totals, their scan, then each block's
-local scan plus its carry), since Hopper blocks run in no order.  It is
-bound by bytes: it reads the tensor twice and writes it once.
-``block_cumsum.launches`` counts calls that launch it (each call is three
-kernel launches) and ``block_cumsum_plain.calls`` counts plain runs.
+The prefix sum is K3, :func:`block_cumsum`, the port of the Pallas
+``block_cumsum`` (``pallas_call`` at ``gmu.py:83``): ``csrc/gmu.cu``, an
+inclusive prefix sum over 256-row blocks whose carry across blocks is a
+second pass (block totals, their scan, then each block's local scan plus
+its carry), since Hopper blocks run in no order.  It is bound by bytes: it
+reads the tensor twice and writes it once.  The reference's main path takes
+its prefix sum from ``jnp.cumsum`` instead (``use_pallas=False``); here
+K3 serves every call, as PyTorch's CUDA scan over the outer dimension of a
+thin (M, 10) tensor is slow.  The level-2 sum is then held to a float64
+segment sum, not bit for bit to the reference (whose scan sums in yet
+another order).  ``block_cumsum.launches`` counts calls that launch K3
+(each call is three kernel launches) and ``block_cumsum_plain.calls``
+counts plain runs.
 """
 
 from __future__ import annotations
@@ -83,17 +86,40 @@ def block_cumsum(vals: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
 block_cumsum.launches = 0
 
 
+def _warp_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive log-step scan along dim 1 of (N, 32, G) lanes, adding as
+    the kernel's ``warp_inclusive_scan`` does (lane i adds lane i - off)."""
+    for off in (1, 2, 4, 8, 16):
+        x = torch.cat([x[:, :off], x[:, off:] + x[:, :-off]], dim=1)
+    return x
+
+
 def block_cumsum_plain(vals: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
-    """Plain PyTorch K3 with the kernel's structure: a prefix sum inside
-    each block, the exclusive prefix of the block totals as each block's
-    carry, their sum."""
+    """Plain PyTorch K3, adding in the kernel's order: a log-step scan in
+    each 32-row warp, the earlier warps' totals summed in turn, then each
+    block's carry, an exclusive scan of the block totals taken 32 blocks at
+    a time with a running sum.  Float adds are exact IEEE operations, so
+    it equals K3 bit for bit."""
     block_cumsum_plain.calls += 1
     _check_block_operand(vals, block)
     m, g = vals.shape
-    local = torch.cumsum(vals.reshape(m // block, block, g), dim=1)
-    totals = local[:, -1]
-    carries = torch.cumsum(totals, dim=0) - totals
-    return (local + carries[:, None]).reshape(m, g)
+    nb, warps = m // block, block // 32
+    lanes = _warp_scan(vals.reshape(nb * warps, 32, g)).reshape(nb, warps, 32, g)
+    warp_tot = lanes[:, :, 31]
+    before = [torch.zeros_like(warp_tot[:, 0])]
+    for w in range(1, warps):
+        before.append(before[-1] + warp_tot[:, w - 1])
+    local = torch.stack(before, 1)[:, :, None] + lanes      # (nb, warps, 32, g)
+    totals = local[:, -1, 31]                                # (nb, g)
+    padded = torch.cat([totals, totals.new_zeros(((-nb) % 32, g))])
+    incl = _warp_scan(padded.reshape(-1, 32, g))
+    excl = incl - padded.reshape(-1, 32, g)
+    run, carries = torch.zeros_like(totals[0]), []
+    for c in range(incl.shape[0]):
+        carries.append(run + excl[c])
+        run = run + incl[c, 31]
+    carry = torch.cat(carries)[:nb]
+    return (local + carry[:, None, None]).reshape(m, g)
 
 
 block_cumsum_plain.calls = 0
@@ -110,11 +136,10 @@ def segment_merge_scatter(vals: torch.Tensor, ids: torch.Tensor,
     return out[:num_segments]
 
 
-def segment_merge(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
-                  use_kernel: bool = False) -> torch.Tensor:
-    """Sorted run-reduction merge: vals (M, G), ids (M,) -> (N, G).
-    ``use_kernel`` takes the prefix sum from K3 (the counterpart of the
-    reference's ``use_pallas``)."""
+def segment_merge(vals: torch.Tensor, ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Sorted run-reduction merge: vals (M, G), ids (M,) -> (N, G), with
+    the prefix sum from K3."""
     m, g = vals.shape
     ok = ids >= 0
     keys = torch.where(ok, ids, torch.full_like(ids, num_segments))
@@ -122,15 +147,8 @@ def segment_merge(vals: torch.Tensor, ids: torch.Tensor, num_segments: int,
     ids_s = keys[order]
     valid = ids_s < num_segments
     vals_s = torch.where(valid[:, None], vals[order], torch.zeros_like(vals))
-    if use_kernel:
-        pad = torch.zeros(((-m) % BLOCK, g), dtype=vals.dtype, device=vals.device)
-        pref = block_cumsum(torch.cat([vals_s, pad]))[:m]
-    else:
-        # Scan along the innermost dimension: PyTorch's CUDA scan over the
-        # outer dimension of an (M, 10) tensor runs ~50 ms at M = 307200
-        # (the slice's 1200 tiles x K=256), the innermost one a fraction of
-        # a millisecond.
-        pref = torch.cumsum(vals_s.t().contiguous(), dim=1).t()
+    pad = torch.zeros(((-m) % BLOCK, g), dtype=vals.dtype, device=vals.device)
+    pref = block_cumsum(torch.cat([vals_s, pad]))[:m]
     pref_excl = pref - vals_s
 
     differs = ids_s[1:] != ids_s[:-1]

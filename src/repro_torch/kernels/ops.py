@@ -253,8 +253,7 @@ def build_plan_schedule(frags: FragmentLists, plan: RasterPlan) -> TileSchedule:
     """The schedule of ``frags`` under ``plan``: (S,) fields for one view,
     (B, S) / (B, T) when ``frags`` carries a leading view axis."""
     def one(count):
-        return build_schedule(count, plan.chunk, bucket=plan.sched_bucket,
-                              max_trips=plan.max_trips)
+        return build_schedule(count, plan.chunk, max_trips=plan.max_trips)
 
     if frags.count.ndim == 1:
         return one(frags.count)

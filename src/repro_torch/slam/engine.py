@@ -58,8 +58,7 @@ class _Stage:
         self.intr = intr
         self.grid = make_tile_grid(intr.height, intr.width)
         self.plan = RasterPlan(grid=self.grid, backend=cfg.backend,
-                               capacity=cfg.frag_capacity,
-                               sched_bucket=cfg.sched_bucket)
+                               capacity=cfg.frag_capacity)
         # WSU: carry a schedule next to each cached fragment list.
         self.scheduled = cfg.backend == "schedule"
         self.pixels = intr.height * intr.width

@@ -36,7 +36,6 @@ from repro_torch.core.camera import Intrinsics
 from repro_torch.core.downsample import DownsampleConfig
 from repro_torch.core.keyframes import KeyframePolicy
 from repro_torch.core.losses import psnr as psnr_dev
-from repro_torch.core.schedule import TileSchedule
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam.engine import _Stage
@@ -71,11 +70,9 @@ class SLAMConfig:
         default_factory=lambda: DownsampleConfig(enabled=False))
     sparse_opt: bool = False
     paged: Optional[object] = None
-    sched_bucket: int = 1           # WSU trip bucketing (schedule backend)
+    sched_bucket: int = 1           # WSU trip bucketing: only 1 (no rounding)
 
     def __post_init__(self):
-        if self.sched_bucket < 1:
-            raise ValueError(f"sched_bucket must be >= 1, got {self.sched_bucket}")
         unported = {
             "base_algo": self.base_algo != "monogs",
             "keyframe.kind": self.keyframe.kind != "monogs",
@@ -83,6 +80,7 @@ class SLAMConfig:
             "downsample": self.downsample.enabled,
             "sparse_opt": self.sparse_opt,
             "paged": self.paged is not None,
+            "sched_bucket": self.sched_bucket != 1,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -138,7 +136,6 @@ class SlamSession:
     alive_log: torch.Tensor     # (F,) int64
     work: DeviceWork            # run-cumulative counters (int64)
     frags: FragmentLists        # lists of the map at the last keyframe pose
-    sched: Optional[TileSchedule]  # their WSU schedule (schedule backend)
     rng: torch.Generator        # densify draws
 
     @property
@@ -288,12 +285,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
         kf_w2c=kf_w2c, kf_count=1, kf_total=1, last_kf_idx=0,
         kf_psnr=kf_psnr, alive_log=alive_log, work=work_m,
-        frags=frags, sched=_serving_sched(st, frags), rng=rng)
-
-
-def _serving_sched(st, frags: FragmentLists) -> Optional[TileSchedule]:
-    """The schedule of the session's cached lists (None off the WSU)."""
-    return st._sched_core(frags) if st.scheduled else None
+        frags=frags, rng=rng)
 
 
 @torch.no_grad()
@@ -321,8 +313,8 @@ def _map_branch(sess: SlamSession, g, rgb, depth, new_pose, perm):
     frags = st._build_core(g, sess.masked, new_pose)
     return sess.replace(
         g=g, map_opt=map_opt, kf_rgb=kf_rgb, kf_depth=kf_depth, kf_w2c=kf_w2c,
-        kf_count=n2, kf_total=sess.kf_total + 1, frags=frags,
-        sched=_serving_sched(st, frags)), work_m, map_losses, psnr_v
+        kf_count=n2, kf_total=sess.kf_total + 1,
+        frags=frags), work_m, map_losses, psnr_v
 
 
 def session_step(sess: SlamSession, frame, *,

@@ -9,16 +9,22 @@ T and the stash and 1e-4 on depth; backward atol max(3e-6, 3e-5 max|g|).
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 FWD_ATOL, FWD_RTOL, DEPTH_TOL = 2e-5, 1e-4, 1e-4
 
-# The first CPU ``torch.exp`` of a process occasionally returns values up to
-# ~1.5e-4 (relative) off those of every later call on the same input
-# (ROADMAP, Queue 3; 1 process in 12 in one probe).  One call here, before
-# any test, spends that first call where no result is compared (0 in 24
-# processes with it).
-torch.exp(torch.linspace(-40.0, 0.0, 20480))
+
+@pytest.fixture(scope="module", autouse=True)
+def first_cpu_exp_spent():
+    """Spend a process's first CPU ``torch.exp`` before a module's forward
+    tolerances are checked.  Once, in a full run, a forward parity case of
+    the plain scheduled kernels failed by ~1.5e-4 (relative), and the first
+    ``torch.exp`` of a fresh process was seen off every later call's on the
+    same input; the cause is not known and later probes did not reproduce
+    it (ROADMAP, Queue 3).  Modules whose plain-kernel forward outputs are
+    held to the reference's tolerances import this fixture."""
+    torch.exp(torch.linspace(-40.0, 0.0, 20480))
 
 
 def grad_atol(ref_grad) -> float:

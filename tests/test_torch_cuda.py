@@ -184,8 +184,9 @@ def test_cuda_sched_wrappers_reject_bad_schedules(dev, bad):
 
 @pytest.mark.parametrize("m,g", [(256, 1), (4096, 10), (307200, 10), (1024, 32)])
 def test_cuda_block_cumsum_matches_plain(dev, m, g):
-    """K3 against its plain version, and both against a float64 prefix sum:
-    within 1e-5 of the float64 prefix of |x| plus 1e-6."""
+    """K3 equals its plain version bit for bit (the plain version adds in
+    K3's order), and both lie within 1e-5 of the float64 prefix of |x|
+    plus 1e-6 from a float64 prefix sum."""
     x = torch.as_tensor(np.random.default_rng(m).normal(size=(m, g)).astype(np.float32),
                         device=dev)
     got = gmu.block_cumsum(x)
@@ -194,7 +195,24 @@ def test_cuda_block_cumsum_matches_plain(dev, m, g):
     exact = torch.cumsum(x.double(), 0)
     scale = torch.cumsum(x.double().abs(), 0)
     assert bool(((got.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
-    assert bool(((want.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(got, want)
+
+
+def test_cuda_segment_merge_matches_float64_segment_sum(dev):
+    """GMU level 2 with K3's prefix sum: each run sum is a difference of two
+    prefix sums, so it is held to twice the prefix bound."""
+    r = np.random.default_rng(4)
+    m, n = 40000, 3000
+    ids = torch.as_tensor(r.integers(-1, n, m).astype(np.int32), device=dev)
+    vals = torch.as_tensor(r.normal(size=(m, 10)).astype(np.float32), device=dev)
+    before = gmu.block_cumsum.launches
+    got = gmu.segment_merge(vals, ids, n)
+    assert gmu.block_cumsum.launches == before + 1
+    ok = ids >= 0
+    exact = torch.zeros((n, 10), dtype=torch.float64, device=dev)
+    exact.index_add_(0, ids[ok].long(), vals[ok].double())
+    tol = 2 * (1e-5 * float(vals[ok].double().abs().sum(0).max()) + 1e-6)
+    assert float((got.double() - exact).abs().max()) <= tol
 
 
 def _scene(dev):
@@ -230,7 +248,7 @@ def test_cuda_kernel_backend_matches_ref_backend(dev):
 
 def test_cuda_session_runs_through_the_kernels(dev):
     """The default entry points run on the card, and the SLAM session goes
-    through K1 and K2, never through their plain versions."""
+    through K1, K2 and K3, never through their plain versions."""
     from repro_torch.core.keyframes import KeyframePolicy
     from repro_torch.slam.datasets import make_dataset
     from repro_torch.slam.session import SLAMConfig, run_sequence
@@ -238,15 +256,18 @@ def test_cuda_session_runs_through_the_kernels(dev):
     ds = make_dataset("room0", num_frames=5, height=64, width=64,
                       num_gaussians=400, frag_capacity=48)
     assert ds.frames[0].rgb.device.type == "cuda"
-    counts = (tile_render_fwd.launches, tile_render_bwd.launches,
-              tile_render_fwd_plain.calls, tile_render_bwd_plain.calls)
+    def counts():
+        return (tile_render_fwd.launches, tile_render_bwd.launches,
+                gmu.block_cumsum.launches, tile_render_fwd_plain.calls,
+                tile_render_bwd_plain.calls, gmu.block_cumsum_plain.calls)
+
+    before = counts()
     res = run_sequence(ds, SLAMConfig(iters_track=3, iters_map=4, capacity=1024,
                                       frag_capacity=48, map_window=2,
                                       keyframe=KeyframePolicy(interval=2)))
-    after = (tile_render_fwd.launches, tile_render_bwd.launches,
-             tile_render_fwd_plain.calls, tile_render_bwd_plain.calls)
-    assert after[0] > counts[0] and after[1] > counts[1]
-    assert after[2:] == counts[2:]
+    after = counts()
+    assert all(a > b for a, b in zip(after[:3], before[:3]))
+    assert after[3:] == before[3:]
     assert np.isfinite(res.ate) and len(res.keyframe_psnr) == 3
     assert all(np.isfinite(p) for p in res.keyframe_psnr)
 

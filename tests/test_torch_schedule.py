@@ -22,6 +22,7 @@ from _torch_parity import (
     DEPTH_TOL, FWD_ATOL, FWD_RTOL, assert_grads_close, grad_atol, jx, np_, th,
     tiny_cloud,
 )
+from _torch_parity import first_cpu_exp_spent  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core import schedule as jsched
 from repro.core.camera import Camera as JCamera
@@ -30,6 +31,7 @@ from repro.core.camera import look_at as jlook_at
 from repro.core.projection import project as jproject
 from repro.core.raster_api import RasterInputs as JInputs
 from repro.core.raster_api import RasterPlan as JPlan
+from repro.core.sorting import FragmentLists as JFrags
 from repro.core.sorting import balanced_pair_permutation as j_bpp
 from repro.core.sorting import build_fragment_lists as jbuild
 from repro.core.sorting import make_tile_grid as jgrid
@@ -283,17 +285,64 @@ def test_block_cumsum_plain_matches_pallas(m, g):
         tgmu.block_cumsum(th(x[:-1]))
 
 
+def _k3_order_emulation(x):
+    """K3's additions one float32 at a time, in ``csrc/gmu.cu``'s order:
+    a log-step scan per 32-row warp, earlier warp totals summed in turn,
+    block carries scanned 32 blocks at a time plus a running sum."""
+    f = np.float32
+
+    def warp_scan(v):
+        for off in (1, 2, 4, 8, 16):
+            v = np.concatenate([v[:off], v[off:] + v[:-off]]).astype(np.float32)
+        return v
+
+    nb, g = x.shape[0] // 256, x.shape[1]
+    local = np.zeros_like(x)
+    for b in range(nb):
+        for c in range(g):
+            warps = [warp_scan(x[b * 256 + w * 32:b * 256 + (w + 1) * 32, c])
+                     for w in range(8)]
+            before = f(0)
+            for w in range(8):
+                local[b * 256 + w * 32:b * 256 + (w + 1) * 32, c] = before + warps[w]
+                before = f(before + warps[w][31])
+    totals = local[255::256]
+    carry = np.zeros((nb, g), np.float32)
+    for c in range(g):
+        run = f(0)
+        for base in range(0, nb, 32):
+            xs = np.zeros(32, np.float32)
+            xs[:min(32, nb - base)] = totals[base:base + 32, c]
+            incl = warp_scan(xs)
+            n = min(32, nb - base)
+            carry[base:base + n, c] = run + (incl - xs)[:n]
+            run = f(run + incl[31])
+    return local + np.repeat(carry, 256, axis=0)
+
+
+def test_block_cumsum_plain_adds_in_the_kernel_order():
+    """The plain K3 equals a one-add-at-a-time emulation of the kernel's
+    order bit for bit (33 blocks: the carry scan crosses a 32-block step);
+    on the card K3 equals the plain version bit for bit
+    (``test_torch_cuda.py``)."""
+    x = np.random.default_rng(8).normal(size=(33 * 256, 2)).astype(np.float32)
+    assert np.array_equal(np_(tgmu.block_cumsum(th(x))), _k3_order_emulation(x))
+
+
 @pytest.mark.parametrize("m,n,seed", [(1, 3, 0), (300, 20, 1), (2048, 600, 3)])
 def test_segment_merge_kernel_path_matches_pallas_path(m, n, seed):
+    """The port's merge takes its prefix sum from K3 (here its plain
+    version) and agrees with both of the reference's prefix sums."""
     r = np.random.default_rng(seed)
     ids = r.integers(-1, n, m).astype(np.int32)
     vals = r.normal(size=(m, 10)).astype(np.float32)
-    want = jgmu.segment_merge(jx(vals), jx(ids), n, use_pallas=True)
-    got = tgmu.segment_merge(th(vals), th(ids), n, use_kernel=True)
+    before = tgmu.block_cumsum_plain.calls
+    got = tgmu.segment_merge(th(vals), th(ids), n)
+    assert tgmu.block_cumsum_plain.calls == before + 1
     # The reference's own GMU bound (tests/test_kernels.py, atol 1e-4).
-    np.testing.assert_allclose(np_(got), np.asarray(want), atol=1e-4)
-    np.testing.assert_allclose(
-        np_(got), np_(tgmu.segment_merge(th(vals), th(ids), n)), atol=1e-4)
+    for use_pallas in (True, False):
+        want = jgmu.segment_merge(jx(vals), jx(ids), n, use_pallas=use_pallas)
+        np.testing.assert_allclose(np_(got), np.asarray(want), atol=1e-4)
 
 
 def test_imbalance_stats_match():
@@ -342,22 +391,34 @@ def test_schedule_session_matches_kernel_session(cpu_sessions):
         assert getattr(r_s.work, f) == getattr(r_k.work, f), f
 
 
-def test_sessions_carry_a_schedule_only_on_the_wsu_backend(cpu_sessions):
+def test_only_the_schedule_backend_builds_schedules(cpu_sessions):
+    """The session stages schedule only on the WSU backend; trip bucketing
+    other than 1 is not ported and raises."""
     s_s, s_k = cpu_sessions["schedule"][0], cpu_sessions["kernel"][0]
-    assert s_k.sched is None
-    want = tsched.build_schedule(s_s.frags.count, 16,
-                                 max_trips=s_s.cfg.frag_capacity // 16)
-    for a, b in zip(s_s.sched, want):
-        assert torch.equal(a, b)
-    tsession.SLAMConfig(backend="schedule", sched_bucket=3)  # ported: no raise
-    with pytest.raises(ValueError, match="sched_bucket"):
-        tsession.SLAMConfig(sched_bucket=0)
+    assert s_s.stage.scheduled and not s_k.stage.scheduled
+    tsession.SLAMConfig(backend="schedule", sched_bucket=1)
+    for bucket in (0, 2):
+        with pytest.raises(NotImplementedError, match="sched_bucket"):
+            tsession.SLAMConfig(backend="schedule", sched_bucket=bucket)
 
 
-def test_converters_carry_the_schedule():
-    count = _counts(9, 3, True)
-    sched = jax.device_get(jsched.build_schedule(jx(count), 8, max_trips=4))
-    got = convert.schedule_from_numpy(sched)
+@pytest.mark.parametrize("views", [None, 3])
+def test_build_plan_schedule_matches_reference(views):
+    """Per-view schedules of one view or of stacked views, bitwise."""
+    hw = (48, 64)
+    tiles = tgrid(*hw).num_tiles
+    count = _counts((views or 1) * tiles, 21, True).reshape(views or 1, tiles)
+    count = count[0] if views is None else count
+    leaves = dict(idx=np.zeros(count.shape + (CAP,), np.int32), count=count,
+                  overflow=np.zeros(count.shape[:-1], np.int32),
+                  total=count.sum(-1).astype(np.int32))
+    want = jops.build_plan_schedule(
+        JFrags(**{k: jx(v) for k, v in leaves.items()}),
+        JPlan(grid=jgrid(*hw), backend="schedule", capacity=CAP, chunk=CHUNK))
+    got = tops.build_plan_schedule(
+        FragmentLists(**{k: th(v) for k, v in leaves.items()}),
+        TPlan(grid=tgrid(*hw), backend="schedule", capacity=CAP, chunk=CHUNK))
     for name in tsched.TileSchedule._fields:
-        assert np.array_equal(np_(getattr(got, name)), np.asarray(getattr(sched, name)))
-    assert convert.schedule_from_numpy(None) is None
+        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        assert g.dtype == torch.int32 and g.shape == w.shape, name
+        assert np.array_equal(np_(g), w), name

@@ -1,8 +1,8 @@
 """Parity of the port's scheduled SLAM engine with ``repro``'s: one
 tracking phase and one mapping phase (stride rebuilds included) on the
-``schedule`` backend with ``sched_bucket=2``, from the same seeded map.
-The pose, the losses and every work counter, ``sched_programs`` (the
-bucketed schedules' trips) included, are compared.
+``schedule`` backend, from the same seeded map.  The pose, the losses and
+every work counter, ``sched_programs`` (the schedules' trips) included,
+are compared.
 """
 
 import jax
@@ -26,8 +26,7 @@ from repro_torch.slam import metrics as tmetrics
 from repro_torch.slam import session as tsession
 
 ENGINE_CFG = dict(iters_track=3, iters_map=6, capacity=1024, frag_capacity=48,
-                  map_window=2, map_rebuild_stride=3, backend="schedule",
-                  sched_bucket=2)
+                  map_window=2, map_rebuild_stride=3, backend="schedule")
 
 
 @pytest.fixture(scope="module")
@@ -90,8 +89,8 @@ def test_engine_scheduled_tracking_phase_matches(engine_runs):
 
 
 def test_engine_scheduled_mapping_phase_matches(engine_runs):
-    """Every work counter (``sched_programs`` counts the bucketed
-    schedules' trips, rebuilt on the stride) is equal; the losses agree to
+    """Every work counter (``sched_programs`` counts the schedules'
+    trips, rebuilt on the stride) is equal; the losses agree to
     1e-3 relative and the eval image's PSNR to 0.1 dB.  Over six Adam steps
     the losses drift apart by ~2e-4 relative and a few eval pixels by up to
     7e-3 (measured): Adam moves a Gaussian whose gradient is at rounding
