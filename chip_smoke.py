@@ -9,13 +9,16 @@ Run from the root of a checkout.  In order, it
 1. prints the PyTorch version and the card's name and power limit;
 2. builds the CUDA kernels K1 (forward tile rasterizer), K2 (backward),
    K4 and K5 (the two under a WSU schedule) and K3 (GMU level 2's block
-   prefix sum) from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``
-   and prints the ``-Xptxas -v`` register and shared-memory lines;
+   prefix sum) from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``,
+   prints the ``-Xptxas -v`` lines and each kernel's registers and spills,
+   and checks that K2 and K5 spill nothing;
 3. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
    card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
    fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
    to tile order against K1 and K2 bit for bit, and times all of them with
-   CUDA events; the packed attrs are wide splats near their own tile
+   CUDA events (K2 and K5 take K1's and K4's outputs, and the share of
+   (warp, fragment) pairs their warp skips leave out and their achieved
+   GB/s are printed); the packed attrs are wide splats near their own tile
    (``tests/_kernel_inputs``), so most tiles saturate and skip chunks while
    the rest blend them all; holds K3 against its plain version (bit for
    bit: the plain version adds in K3's order) and a float64 prefix sum at
@@ -71,10 +74,11 @@ PEAK_FP32_S = 67e12
 # opacity and clips (4), the blend weight and four accumulations (11),
 # the transmittance update (2).
 OPS_K1 = 31
-# K2: pass A replay (14); pass B replay and prefix (13), dL/dalpha (6),
-# the chain to q and the 10 per-pixel gradients (31), the sum over the
-# tile's pixels (10), the transmittance update (2).
-OPS_K2 = 76
+# K2: the replay and prefix (13), dL/dalpha (6), the chain to q and the 10
+# per-pixel gradients (31), the sum over the tile's pixels (10), the
+# transmittance update (2).  One pass: sum(w * s) and the final T come from
+# the forward's outputs (9 operations per pixel, not per pair: not counted).
+OPS_K2 = 62
 
 H, W, K, CHUNK = 480, 640, 256, 16
 FWD_ATOL, FWD_RTOL, DEPTH_TOL = 2e-5, 1e-4, 1e-4
@@ -125,6 +129,32 @@ def processed_chunks(stash, count, chunk):
     return alive & (torch.arange(n, device=stash.device)[None] < trips[:, None])
 
 
+def warp_skips(stash, count, chunk, group):
+    """Shares of the (warp, fragment) pairs of processed chunks that K2 and
+    K5 leave out: pairs no lane of the warp draws (their arithmetic is
+    skipped), and pairs in a group of ``group`` fragments no lane draws
+    (their shuffles are skipped too).  Replays the kernels' transmittance
+    chain in float32."""
+    import torch
+    rows, cap, pix = stash.shape
+    trips = torch.div(count + chunk - 1, chunk, rounding_mode="floor")
+    trans = torch.ones((rows, pix), dtype=torch.float32, device=stash.device)
+    idle = torch.zeros((rows, cap, pix // 32), dtype=torch.bool, device=stash.device)
+    ran = torch.zeros((rows, cap), dtype=torch.bool, device=stash.device)
+    for c in range(cap // chunk):
+        live = (c < trips) & (trans > 1e-4).any(-1)
+        ran[:, c * chunk:(c + 1) * chunk] = live[:, None]
+        for k in range(c * chunk, (c + 1) * chunk):
+            am = stash[:, k] * (trans > 1e-4).to(torch.float32)
+            idle[:, k] = (am == 0).view(rows, -1, 32).all(-1)
+            trans = trans * (1.0 - am)
+    pairs = ran[:, :, None].expand_as(idle)
+    in_idle_group = idle.view(rows, cap // group, group, -1).all(2, keepdim=True)
+    in_idle_group = in_idle_group.expand(-1, -1, group, -1).reshape(idle.shape)
+    return (float(idle[pairs].double().mean()),
+            float(in_idle_group[pairs].double().mean()))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after warm-up."""
     import torch
@@ -146,16 +176,50 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+KERNEL_SYMBOLS = {"K1": "tile_render_fwd_kernel", "K2": "tile_render_bwd_kernel",
+                  "K4": "tile_render_fwd_sched_kernel",
+                  "K5": "tile_render_bwd_sched_kernel"}
+
+
+def ptxas_usage(report: str) -> dict:
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from an ``-Xptxas -v`` report."""
+    import re
+    usage, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            usage[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all(force=True)
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    usage = {}
     for name in _build.SOURCES:
         for line in _build.PTXAS_REPORT[name].splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling")):
                 log(f"[build] {name}: {line.strip()}")
+        usage.update(ptxas_usage(_build.PTXAS_REPORT[name]))
+    for key, sym in KERNEL_SYMBOLS.items():
+        found = [v for k, v in usage.items() if sym + "E" in k]
+        require(len(found) == 1, f"ptxas reported no single {sym}: {sorted(usage)}")
+        regs, st, ld = found[0]
+        log(f"[build] {key} {sym}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+        if key in ("K2", "K5"):
+            require(st == 0 and ld == 0, f"{key} spills: {st} B stored, {ld} B loaded")
 
 
 def sched_flat(count, tiles: int, views: int):
@@ -205,8 +269,8 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
         raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
         tile_render_fwd_sched, tile_render_fwd_sched_plain)
     from repro_torch.kernels.tile_render_bp import (
-        tile_render_bwd, tile_render_bwd_plain, tile_render_bwd_sched,
-        tile_render_bwd_sched_plain)
+        REDUCE_GROUP, tile_render_bwd, tile_render_bwd_plain,
+        tile_render_bwd_sched, tile_render_bwd_sched_plain)
 
     tiles = grid.num_tiles
     kw = dict(chunk=CHUNK, tiles_per_view=tiles)
@@ -219,18 +283,18 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
                      label)
     for out, g4, g1 in zip(("color", "depth", "final_T", "stash"), got4, got):
         require(torch.equal(g4[inv], g1), f"K4 {out} gathered by inv is not K1's ({label})")
-    stash, stash4 = got[3], got4[3]
+    stash = got[3]
 
     r = np.random.default_rng(seed)
     rows = views * tiles
     g_color = torch.as_tensor(r.normal(size=(rows, 3, 256)).astype(np.float32), device=dev)
     g_depth = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
     g_finalt = torch.as_tensor(r.normal(size=(rows, 256)).astype(np.float32), device=dev)
-    bargs = (attrs, count, stash, g_color, g_depth, g_finalt, grid)
+    bargs = (attrs, count, *got, g_color, g_depth, g_finalt, grid)
     got2 = tile_render_bwd(*bargs, **kw)
     err2 = check_bwd("K2", got2, tile_render_bwd_plain(*bargs, **kw), label)
     pl = perm.long()
-    sargs = (attrs, perm, trips, stash4, g_color[pl].contiguous(),
+    sargs = (attrs, perm, trips, *got4, g_color[pl].contiguous(),
              g_depth[pl].contiguous(), g_finalt[pl].contiguous(), grid)
     got5 = tile_render_bwd_sched(*sargs, **kw)
     err5 = check_bwd("K5", got5, tile_render_bwd_sched_plain(*sargs, **kw), label)
@@ -240,8 +304,9 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
 
     # Bounds count what this data needs: the forward reads the attrs of the
     # chunks it runs and writes every output (zeros included); the backward
-    # reads the attrs and stash of those chunks and the cotangents, and
-    # writes every gradient.  K4/K5 also read their perm and trips.
+    # reads the attrs and stash of those chunks, the forward's color, depth
+    # and final T and the cotangents, and writes every gradient.  K4/K5
+    # also read their perm and trips.
     ran = processed_chunks(stash, count, CHUNK)
     n_ran = int(ran.sum())
     n_trips = int(torch.div(count + CHUNK - 1, CHUNK, rounding_mode="floor").sum())
@@ -249,7 +314,8 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
     pairs = n_ran * CHUNK * 256
     elt = 4
     fwd_bytes = elt * (n_ran * CHUNK * 12 + count.numel() + sum(t.numel() for t in got))
-    bwd_bytes = elt * (n_ran * CHUNK * (12 + 256) + count.numel() + g_color.numel()
+    bwd_bytes = elt * (n_ran * CHUNK * (12 + 256) + count.numel()
+                       + sum(t.numel() for t in got[:3]) + g_color.numel()
                        + g_depth.numel() + g_finalt.numel() + got2.numel())
     slot_extra = elt * (perm.numel() + trips.numel() - count.numel())
     bounds = {"K1": bound(fwd_bytes, pairs * OPS_K1),
@@ -271,12 +337,18 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
         b, by = bounds[name]
         out[name] = dict(max_abs_err=err, ms=cuda_ms(kernel, 40),
                          plain_ms=cuda_ms(plain, 2), bound_ms=b, bound_by=by)
+    frag_skip, group_skip = warp_skips(stash, count, CHUNK, REDUCE_GROUP)
     log(f"[kernels] {label}: {n_ran} of {n_trips} chunks below the trip count ran, "
         f"{100 * saturated:.1f}% of tiles saturated; K4 == K1 and K5 == K2 bitwise "
-        f"after inv")
+        f"after inv; backward warp skips: {100 * frag_skip:.1f}% of (warp, fragment) "
+        f"pairs drawn by no lane, {100 * group_skip:.1f}% in idle groups of "
+        f"{REDUCE_GROUP}")
     for name, o in out.items():
+        rate = (f", {bwd_bytes / o['ms'] / 1e6:.0f} GB/s of the backward's bytes"
+                if name in ("K2", "K5") else "")
         log(f"[kernels] {label}: {name} {o['ms']:.3f} ms (plain {o['plain_ms']:.1f} ms, "
-            f"bound {o['bound_ms']:.3f} ms by {o['bound_by']}, max |d| {o['max_abs_err']:.2e})")
+            f"bound {o['bound_ms']:.3f} ms by {o['bound_by']}, max |d| "
+            f"{o['max_abs_err']:.2e}{rate})")
     return out, got2
 
 

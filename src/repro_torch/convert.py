@@ -2,9 +2,10 @@
 
 Each function takes numpy arrays (or objects whose attributes are numpy
 arrays, such as a ``jax.device_get`` of the reference's pytrees) and builds
-the port's counterpart on ``device``.  With them a test starts both
-packages from identical state.  This module imports no JAX: the objects
-are read by attribute name only.
+the port's counterpart on ``device``: the card unless the caller asks for
+the CPU (``device="cpu"``), as for the entry points.  With them a test
+starts both packages from identical state.  This module imports no JAX: the
+objects are read by attribute name only.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import gaussians as G
 from repro_torch.core.camera import Intrinsics
 from repro_torch.core.sorting import FragmentLists
@@ -28,34 +30,37 @@ def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def field_from_numpy(src, device="cpu") -> G.GaussianField:
+def field_from_numpy(src, device=None) -> G.GaussianField:
     """A ``GaussianField`` from an object with numpy ``mu``, ``log_scale``,
     ``quat``, ``logit_o``, ``color`` and ``alive`` attributes."""
-    return G.GaussianField(**{f: _t(getattr(src, f), device)
+    dev = resolve_device(device)
+    return G.GaussianField(**{f: _t(getattr(src, f), dev)
                               for f in G.PARAM_FIELDS + ("alive",)})
 
 
-def adam_from_numpy(src, device="cpu") -> AdamState:
+def adam_from_numpy(src, device=None) -> AdamState:
     """An ``AdamState`` from an object with ``step``, ``mu`` and ``nu``
     (the moments as dicts of numpy arrays)."""
-    return AdamState(step=_t(src.step, device, torch.int32),
-                     mu={k: _t(v, device) for k, v in src.mu.items()},
-                     nu={k: _t(v, device) for k, v in src.nu.items()})
+    dev = resolve_device(device)
+    return AdamState(step=_t(src.step, dev, torch.int32),
+                     mu={k: _t(v, dev) for k, v in src.mu.items()},
+                     nu={k: _t(v, dev) for k, v in src.nu.items()})
 
 
-def dataset_from_numpy(src, device="cpu") -> D.SLAMDataset:
+def dataset_from_numpy(src, device=None) -> D.SLAMDataset:
     """A dataset from an object with ``name``, ``intrinsics`` (fx, fy, cx,
     cy, width, height), ``frames`` (each with ``rgb``, ``depth``,
     ``w2c_gt``) and ``gt_field``."""
+    dev = resolve_device(device)
     i = src.intrinsics
     intr = Intrinsics(float(i.fx), float(i.fy), float(i.cx), float(i.cy),
                       int(i.width), int(i.height))
-    frames = [D.Frame(rgb=_t(f.rgb, device, torch.float32),
-                      depth=_t(f.depth, device, torch.float32),
+    frames = [D.Frame(rgb=_t(f.rgb, dev, torch.float32),
+                      depth=_t(f.depth, dev, torch.float32),
                       w2c_gt=np.asarray(f.w2c_gt, np.float32))
               for f in src.frames]
     return D.SLAMDataset(name=src.name, intrinsics=intr, frames=frames,
-                         gt_field=field_from_numpy(src.gt_field, device))
+                         gt_field=field_from_numpy(src.gt_field, dev))
 
 
 def _work_totals(src) -> list:
@@ -69,13 +74,13 @@ def _work_totals(src) -> list:
 
 
 def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
-                       device="cpu", seed: int = 0) -> SlamSession:
+                       device=None, seed: int = 0) -> SlamSession:
     """A MonoGS session from every leaf of a reference session (numpy).
 
     The reference's densify PRNG key has no torch counterpart; the new
     session draws from a generator seeded with ``seed`` (tests inject the
     reference's permutation instead)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     f = src.frags

@@ -5,9 +5,10 @@ Three built-in backends:
 
   ref       the pure-tensor oracle; gradients by torch autograd.
   kernel    the counterpart of the reference's ``pallas`` backend: a
-            ``torch.autograd.Function`` whose forward runs K1 and keeps the
-            R&B stash, and whose backward runs K2 on the stash (GMU level 1)
-            and then GMU level 2 per view.
+            ``torch.autograd.Function`` whose forward runs K1 and keeps its
+            tile outputs (the R&B stash, color, depth and final T), and
+            whose backward runs K2 on them (GMU level 1) and then GMU level
+            2 per view.
   schedule  the WSU backend (the reference's ``schedule``): the same under a
             pairwise tile schedule, through K4 and K5.  The images and the
             gradients go back to tile order before the level-2 merge, so
@@ -153,8 +154,8 @@ def _merge_views(tile_grads, frag_idx, views, n, rows=None):
 
 
 class KernelRasterize(torch.autograd.Function):
-    """Forward: pack, K1 (stash kept).  Backward: cotangents to tiles, K2
-    on the stash, GMU level 2 per view.  ``frag_idx``/``count`` are index
+    """Forward: pack, K1 (its tile outputs kept).  Backward: cotangents to
+    tiles, K2 on K1's outputs, GMU level 2 per view.  ``frag_idx``/``count`` are index
     plumbing (no gradient)."""
 
     @staticmethod
@@ -166,16 +167,17 @@ class KernelRasterize(torch.autograd.Function):
         cnt = count.reshape(-1)
         color_t, depth_t, finalt_t, stash = tile_render_fwd(
             attrs, cnt, grid, chunk=chunk, tiles_per_view=grid.num_tiles)
-        ctx.save_for_backward(attrs, cnt, frag_idx, stash)
+        ctx.save_for_backward(attrs, cnt, frag_idx, color_t, depth_t, finalt_t,
+                              stash)
         ctx.grid, ctx.chunk, ctx.views, ctx.n = grid, chunk, views, mu2d.shape[-2]
         return _images(color_t, depth_t, finalt_t, grid, views)
 
     @staticmethod
     def backward(ctx, g_img, g_depth, g_finalt):
-        attrs, cnt, frag_idx, stash = ctx.saved_tensors
+        attrs, cnt, frag_idx, *fwd = ctx.saved_tensors
         grid, views = ctx.grid, ctx.views
         cots = _cotangent_tiles(g_img, g_depth, g_finalt, grid, views)
-        tile_grads = tile_render_bwd(attrs, cnt, stash, *cots, grid,
+        tile_grads = tile_render_bwd(attrs, cnt, *fwd, *cots, grid,
                                      chunk=ctx.chunk,
                                      tiles_per_view=grid.num_tiles)  # (B*T, 10, K)
         return _merge_views(tile_grads, frag_idx, views, ctx.n) + (None,) * 4
@@ -211,7 +213,7 @@ def _view_rows(idx, views, slots_per_view: int):
 
 
 class SchedRasterize(torch.autograd.Function):
-    """Forward: pack, K4 (slot-order stash kept), back to tile order with
+    """Forward: pack, K4 (its slot-order outputs kept), back to tile order with
     ``inv``.  Backward: cotangents to slot order with ``perm`` (a pad slot
     duplicates its tile's cotangent), K5, back to tile order with ``inv``
     BEFORE GMU level 2, so the merge sums in the unscheduled path's order.
@@ -227,14 +229,15 @@ class SchedRasterize(torch.autograd.Function):
         perm_flat, trips_flat = _flatten_sched(perm, trips, tiles, views)
         color_s, depth_s, finalt_s, stash_s = tile_render_fwd_sched(
             attrs, perm_flat, trips_flat, grid, chunk=chunk, tiles_per_view=tiles)
-        ctx.save_for_backward(attrs, frag_idx, perm, inv, trips, stash_s)
+        ctx.save_for_backward(attrs, frag_idx, perm, inv, trips, color_s,
+                              depth_s, finalt_s, stash_s)
         ctx.grid, ctx.chunk, ctx.views, ctx.n = grid, chunk, views, mu2d.shape[-2]
         rows = _view_rows(inv, views, perm.shape[-1])
         return _images(color_s, depth_s, finalt_s, grid, views, rows)
 
     @staticmethod
     def backward(ctx, g_img, g_depth, g_finalt):
-        attrs, frag_idx, perm, inv, trips, stash_s = ctx.saved_tensors
+        attrs, frag_idx, perm, inv, trips, *fwd_s = ctx.saved_tensors
         grid, views = ctx.grid, ctx.views
         tiles = grid.num_tiles
         perm_flat, trips_flat = _flatten_sched(perm, trips, tiles, views)
@@ -242,7 +245,7 @@ class SchedRasterize(torch.autograd.Function):
         cots = _cotangent_tiles(g_img, g_depth, g_finalt, grid, views,
                                 [p.long() for p in perm_v])
         slot_grads = tile_render_bwd_sched(
-            attrs, perm_flat, trips_flat, stash_s, *cots, grid,
+            attrs, perm_flat, trips_flat, *fwd_s, *cots, grid,
             chunk=ctx.chunk, tiles_per_view=tiles)  # (B*S, 10, K) slot order
         rows = _view_rows(inv, views, perm.shape[-1])
         return (_merge_views(slot_grads, frag_idx, views, ctx.n, rows)

@@ -325,7 +325,8 @@ def test_monogs_keyframes_and_factor_one_downsampling_match():
 
 def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "_kernel_inputs.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "_kernel_inputs.py",
+        *sorted((REPO / "tools").glob("*.py"))]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -368,6 +369,34 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         run_sequence(ds, cfg)
     out = render(g_t, c_t, plan, device="cpu")
     assert out.image.shape == (64, 64, 3)
+
+
+@pytest.mark.parametrize("which", ["field", "adam", "dataset", "session"])
+def test_carry_across_needs_a_card_unless_told_cpu(monkeypatch, which):
+    """``convert.*_from_numpy`` resolve their device as the entry points do:
+    with no CUDA device and no ``device`` they raise and name the CPU
+    option; with ``device="cpu"`` they build on the CPU."""
+    from types import SimpleNamespace
+
+    from repro_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g_np = jax.device_get(_fields()[0])
+    moments = {f: np.asarray(getattr(g_np, f)) for f in TG.PARAM_FIELDS}
+    calls = {
+        "field": lambda **kw: convert.field_from_numpy(g_np, **kw),
+        "adam": lambda **kw: convert.adam_from_numpy(
+            SimpleNamespace(step=np.int32(3), mu=moments, nu=moments), **kw),
+        "dataset": lambda **kw: convert.dataset_from_numpy(SimpleNamespace(), **kw),
+        "session": lambda **kw: convert.session_from_numpy(
+            SimpleNamespace(), None, TIntr(**INTR), **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[which]()
+    if which == "field":
+        assert calls[which](device="cpu").mu.device.type == "cpu"
+    elif which == "adam":
+        assert calls[which](device="cpu").step.device.type == "cpu"
 
 
 @pytest.mark.parametrize("field,value", [

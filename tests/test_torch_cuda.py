@@ -82,8 +82,8 @@ def test_cuda_kernels_match_plain(dev, hw, cap, chunk, views, near_tile):
     cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
             for s in ((views * tiles, 3, 256), (views * tiles, 256),
                       (views * tiles, 256))]
-    gg = tile_render_bwd(a, c, got[3], *cots, grid, **kw)
-    gw = tile_render_bwd_plain(a, c, got[3], *cots, grid, **kw)
+    gg = tile_render_bwd(a, c, *got, *cots, grid, **kw)
+    gw = tile_render_bwd_plain(a, c, *got, *cots, grid, **kw)
     torch.cuda.synchronize()
     _close(gg, gw, _grad_atol(gw))
 
@@ -139,13 +139,49 @@ def test_cuda_sched_kernels_match_plain_and_unscheduled(dev, hw, cap, chunk,
     cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
             for s in ((views * tiles, 3, 256), (views * tiles, 256),
                       (views * tiles, 256))]
-    base_g = tile_render_bwd(a, c, base[3], *cots, grid, **kw)
+    base_g = tile_render_bwd(a, c, *base, *cots, grid, **kw)
     slot_cots = [x[perm.long()].contiguous() for x in cots]
-    gg = tile_render_bwd_sched(a, perm, trips, got[3], *slot_cots, grid, **kw)
-    gw = tile_render_bwd_sched_plain(a, perm, trips, got[3], *slot_cots, grid, **kw)
+    gg = tile_render_bwd_sched(a, perm, trips, *got, *slot_cots, grid, **kw)
+    gw = tile_render_bwd_sched_plain(a, perm, trips, *got, *slot_cots, grid, **kw)
     torch.cuda.synchronize()
     _close(gg, gw, _grad_atol(gw))
     assert torch.equal(gg[inv], base_g)
+    raise_on_sched_fault(dev)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+def test_cuda_backward_skips_fragments_no_warp_draws(dev, chunk):
+    """Narrow splats cover only part of each tile, so whole warps draw none
+    of many fragments (and of whole groups of them) and skip them: K2 and K5
+    against their plain versions, and K5 gathered by ``inv`` against K2 bit
+    for bit."""
+    hw, cap, views = (64, 96), 64, 2
+    grid = make_tile_grid(*hw)
+    tiles = grid.num_tiles
+    attrs, count = _attrs(12, views * tiles, cap, *hw, near_tile=True)
+    attrs[:, 2:5] *= 25.0            # conics: splats ~5x narrower
+    a, c = attrs.to(dev), count.to(dev)
+    kw = dict(chunk=chunk, tiles_per_view=tiles)
+    fwd = tile_render_fwd(a, c, grid, **kw)
+    warp_idle = (fwd[3].view(views * tiles, cap, 8, 32) == 0).all(-1)
+    drawn = fwd[3].abs().amax(-1) > 0                        # (rows, cap)
+    idle_share = float(warp_idle[drawn].double().mean())
+    assert 0.2 < idle_share < 0.95, idle_share
+    r = np.random.default_rng(13)
+    cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
+            for s in ((views * tiles, 3, 256), (views * tiles, 256),
+                      (views * tiles, 256))]
+    gg = tile_render_bwd(a, c, *fwd, *cots, grid, **kw)
+    gw = tile_render_bwd_plain(a, c, *fwd, *cots, grid, **kw)
+    perm, trips, inv = _stacked_schedule(c, tiles, views, cap, chunk)
+    fwd_s = tile_render_fwd_sched(a, perm, trips, grid, **kw)
+    slot_cots = [x[perm.long()].contiguous() for x in cots]
+    g5 = tile_render_bwd_sched(a, perm, trips, *fwd_s, *slot_cots, grid, **kw)
+    g5_plain = tile_render_bwd_sched_plain(a, perm, trips, *fwd_s, *slot_cots, grid, **kw)
+    torch.cuda.synchronize()
+    _close(gg, gw, _grad_atol(gw))
+    _close(g5, g5_plain, _grad_atol(g5_plain))
+    assert torch.equal(g5[inv], gg)
     raise_on_sched_fault(dev)
 
 
@@ -174,7 +210,7 @@ def test_cuda_sched_wrappers_reject_bad_schedules(dev, bad):
     raise_on_sched_fault(dev)
     out = tile_render_fwd_sched(a, perm, trips, grid, chunk=8)
     z = torch.zeros((perm.shape[0], 3, 256), device=dev)
-    tile_render_bwd_sched(a, perm, trips, out[3], z, z[:, 0].contiguous(),
+    tile_render_bwd_sched(a, perm, trips, *out, z, z[:, 0].contiguous(),
                           z[:, 0].contiguous(), grid, chunk=8)
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="perm" if bad == "perm_range" else "trips"):

@@ -170,7 +170,9 @@ def test_plain_sched_kernels_match_pallas(hw, cap, chunk, views):
     g_want = j_bwd_sched(jx(attrs), jx(perm), jx(trips), jx(stash),
                          *(jx(c) for c in cots), grid, **kw_j)
     before = tile_render_bwd_sched_plain.calls
-    g_got = tile_render_bwd_sched(th(attrs), th(perm), th(trips), th(stash),
+    # K5 takes the reference forward's four outputs, in slot order.
+    g_got = tile_render_bwd_sched(th(attrs), th(perm), th(trips),
+                                  *(th(np.asarray(x)) for x in want),
                                   *(th(c) for c in cots), tgrid(*hw),
                                   chunk=chunk, tiles_per_view=tiles)
     assert tile_render_bwd_sched_plain.calls == before + 1
@@ -366,7 +368,7 @@ def cpu_sessions():
     """The same 6-frame 64x64 port session on ``schedule`` and ``kernel``."""
     ds_j = jmake_dataset("room0", num_frames=6, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
-    ds_t = convert.dataset_from_numpy(ds_j)
+    ds_t = convert.dataset_from_numpy(ds_j, device="cpu")
     rng = np.random.default_rng(5)
     perms = {i: torch.as_tensor(rng.permutation(2 * 384)) for i in range(1, 6)}
     out = {}

@@ -43,8 +43,8 @@ def engine_runs():
     g_j = jsession._seed_map(ds_j, cfg_j)
     masked_j = jnp.zeros((cfg_j.capacity,), bool)
     st_j = jengine._Stage(ds_j.intrinsics, cfg_j, 1)
-    ds_t = convert.dataset_from_numpy(ds_j)
-    g_t = convert.field_from_numpy(jax.device_get(g_j))
+    ds_t = convert.dataset_from_numpy(ds_j, device="cpu")
+    g_t = convert.field_from_numpy(jax.device_get(g_j), device="cpu")
     masked_t = torch.zeros((cfg_t.capacity,), dtype=torch.bool)
     st_t = tengine._Stage(ds_t.intrinsics, cfg_t, torch.device("cpu"))
 

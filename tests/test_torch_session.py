@@ -51,7 +51,7 @@ def runs():
         steps.append(jax.device_get(res))
     res_j = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
 
-    ds_t = convert.dataset_from_numpy(ds_j)
+    ds_t = convert.dataset_from_numpy(ds_j, device="cpu")
     perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
     sess_t = tsession.session_init(ds_t, cfg_t, seed=SEED, device="cpu")
     steps_t = []
@@ -77,7 +77,8 @@ def test_one_step_from_carried_state(runs, after):
     keyframe the densified map keeps the same alive set."""
     ds_t, cfg_t = runs["ds_t"], runs["cfg_t"]
     intr = ds_t.intrinsics
-    sess = convert.session_from_numpy(runs["states"][after], cfg_t, intr)
+    sess = convert.session_from_numpy(runs["states"][after], cfg_t, intr,
+                                      device="cpu")
     assert sess.frame_idx == after + 1
     idx = after + 1
     sess, res = tsession.session_step(sess, ds_t.frames[idx], perm=runs["perms"][idx])
@@ -145,8 +146,8 @@ def test_densify_core_matches(runs):
         jx(rendered), jx(state.pose), intr_j, cfg_j, key)
     intr_t = TIntr(*intr_j)
     g_t, drop_t = tsession._densify_core(
-        convert.field_from_numpy(state.g), th(frame.rgb), th(frame.depth),
-        th(rendered), th(state.pose), intr_t, runs["cfg_t"], None,
+        convert.field_from_numpy(state.g, device="cpu"), th(frame.rgb),
+        th(frame.depth), th(rendered), th(state.pose), intr_t, runs["cfg_t"], None,
         perm=runs["perms"][4])
     assert int(drop_t) == int(drop_j)
     for f in TG.PARAM_FIELDS + ("alive",):
@@ -176,10 +177,11 @@ def test_push_ring_matches(count):
 
 def test_converters_carry_state_across(runs):
     state = runs["states"][2]
-    sess = convert.session_from_numpy(state, runs["cfg_t"], runs["ds_t"].intrinsics)
+    sess = convert.session_from_numpy(state, runs["cfg_t"], runs["ds_t"].intrinsics,
+                                  device="cpu")
     assert np.array_equal(np_(sess.g.mu), np.asarray(state.g.mu))
     assert sess.kf_count == int(state.kf_count) and sess.kf_total == int(state.kf_total)
-    opt = convert.adam_from_numpy(state.map_opt)
+    opt = convert.adam_from_numpy(state.map_opt, device="cpu")
     assert int(opt.step) == int(state.map_opt.step)
     for k in TG.PARAM_FIELDS:
         assert np.array_equal(np_(opt.mu[k]), np.asarray(state.map_opt.mu[k]))
