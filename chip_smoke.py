@@ -8,10 +8,11 @@ Run from the root of a checkout.  In order, it
 
 1. prints the PyTorch version and the card's name and power limit;
 2. builds the CUDA kernels K1 (forward tile rasterizer), K2 (backward),
-   K4 and K5 (the two under a WSU schedule) and K3 (GMU level 2's block
-   prefix sum) from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``,
-   prints the ``-Xptxas -v`` lines and each kernel's registers and spills,
-   and checks that K2 and K5 spill nothing;
+   K4 and K5 (the two under a WSU schedule) and K3 (GMU level 2's adder:
+   a row scan with a prefix-sum epilogue and a run-merge epilogue) from
+   ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, prints the
+   ``-Xptxas -v`` lines and each kernel's registers and spills, and checks
+   that K2, K5 and K3's merge at the main path's width spill nothing;
 3. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
    card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
    fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
@@ -20,13 +21,18 @@ Run from the root of a checkout.  In order, it
    (warp, fragment) pairs their warp skips leave out and their achieved
    GB/s are printed); the packed attrs are wide splats near their own tile
    (``tests/_kernel_inputs``), so most tiles saturate and skip chunks while
-   the rest blend them all; holds K3 against its plain version (bit for
-   bit: the plain version adds in K3's order) and a float64 prefix sum at
-   (307200, 10) and times it beside ``torch.cumsum``;
+   the rest blend them all; holds K3's scan against its plain version (bit
+   for bit: the plain version adds in K3's order), a second launch and a
+   float64 prefix sum at (307200, 10) and times it beside ``torch.cumsum``
+   (K3 and ``index_add_`` as device time from CUDA-graph replays, since
+   their kernels take less time than the host needs to launch them);
 4. repeats the comparisons and times of step 3 on the packed attrs of a
    full-size ground-truth view (uneven tile loads), prints their tile-load
-   and pair-load imbalance, and checks GMU level 2 (its prefix sum is K3)
-   against a float64 segment sum on that view's K2 gradients;
+   and pair-load imbalance, and holds K3's merge (GMU level 2) on that
+   view's K2 gradients, alone and as four views at once, against its plain
+   version (bit for bit), a second launch and a float64 segment sum, and
+   times it, the whole ``merge_views`` call and one ``index_add_`` of the
+   valid rows;
 5. renders the full-size ground-truth scene through the ``kernel`` backend
    and the pure-tensor ``ref`` backend and compares images and gradients;
    checks that the ``schedule`` backend equals the ``kernel`` backend bit
@@ -36,14 +42,16 @@ Run from the root of a checkout.  In order, it
    and compares poses and PSNR;
 7. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
    12 frames, a 131072-Gaussian pool) with every launch counter set to 0
-   just before, and checks that K1, K2 and K3 carried it, that no plain
-   version ran, and that ATE < 0.30 m and mean keyframe PSNR > 17 dB;
+   just before, and checks that K1, K2 and K3 carried it (one K3 merge per
+   backward), that no plain version ran, and that ATE < 0.30 m and mean
+   keyframe PSNR > 17 dB;
 8. runs the same session on the ``schedule`` backend, counters set to 0
-   again, and checks that K4, K5 and K3 carried it (no K1, K2 or plain run),
-   the same bounds, the same keyframes, and camera centres within 1 mm of
-   step 7's;
+   again, and checks that K4, K5 and K3 carried it (one K3 merge per
+   backward; no K1, K2 or plain run), the same bounds, the same keyframes,
+   and camera centres within 1 mm of step 7's;
 9. with ``profile``, traces one tracking-only frame and one keyframe of a
-   further full-size session with ``torch.profiler`` and prints the tables.
+   further full-size session with ``torch.profiler`` and prints the tables
+   and the time of ``aten::index_add_``, ``aten::sort`` and K3's kernels.
 
 It prints one JSON line with every kernel's numbers, then the card's name
 and power limit, then as the last line
@@ -54,6 +62,7 @@ it also refuses to run without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -155,6 +164,34 @@ def warp_skips(stash, count, chunk, group):
             float(in_idle_group[pairs].double().mean()))
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, replayed, timed with CUDA events.  For calls whose kernels take
+    less time than the host needs to launch them (K3, ``index_add_``),
+    where :func:`cuda_ms` would time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after warm-up."""
     import torch
@@ -178,7 +215,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 KERNEL_SYMBOLS = {"K1": "tile_render_fwd_kernel", "K2": "tile_render_bwd_kernel",
                   "K4": "tile_render_fwd_sched_kernel",
-                  "K5": "tile_render_bwd_sched_kernel"}
+                  "K5": "tile_render_bwd_sched_kernel",
+                  # K3 at the main path's width (G = 10 columns)
+                  "K3 merge pass 1": "k3_totalsILb1ELi10E",
+                  "K3 merge pass 2": "k3_rowsILb1ELi10E",
+                  "K3 scan pass 1": "k3_totalsILb0ELi10E",
+                  "K3 scan pass 2": "k3_rowsILb0ELi10E"}
+NO_SPILLS = ("K2", "K5", "K3 merge pass 1", "K3 merge pass 2")  # the main path's
 
 
 def ptxas_usage(report: str) -> dict:
@@ -218,7 +261,7 @@ def phase_build():
         regs, st, ld = found[0]
         log(f"[build] {key} {sym}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
-        if key in ("K2", "K5"):
+        if key in NO_SPILLS:
             require(st == 0 and ld == 0, f"{key} spills: {st} B stored, {ld} B loaded")
 
 
@@ -385,8 +428,9 @@ def cumsum_bound_ratio(got, x):
 
 
 def phase_gmu(dev):
-    """K3 against its plain version and a float64 prefix sum at the slice's
-    shape, (1200 * 256, 10), timed beside torch's own scans."""
+    """K3's scan against its plain version, a second launch and a float64
+    prefix sum at the slice's shape, (1200 * 256, 10), timed beside torch's
+    own scans."""
     import numpy as np
     import torch
     from repro_torch.kernels import gmu
@@ -395,21 +439,25 @@ def phase_gmu(dev):
     x = torch.as_tensor(np.random.default_rng(5).normal(size=(m, g)).astype(np.float32),
                         device=dev)
     got = gmu.block_cumsum(x)
+    again = gmu.block_cumsum(x)
     want = gmu.block_cumsum_plain(x)
     torch.cuda.synchronize()
     ratio = cumsum_bound_ratio(got, x)
-    require(ratio <= 1.0, f"K3 off a float64 prefix sum: {ratio:.3g} of its bound")
+    require(ratio <= 1.0, f"K3 scan off a float64 prefix sum: {ratio:.3g} of its bound")
     err = max_err(got, want)
-    require(torch.equal(got, want), f"K3 differs from its plain version: max |d| {err:.3g}")
+    require(torch.equal(got, want), f"K3 scan differs from its plain version: max |d| {err:.3g}")
+    require(torch.equal(got, again), "K3 scan differs between two launches")
     b, by = bound(2 * 4 * m * g, m * g)   # one read and one write; one add each
-    res = dict(max_abs_err=err, ms=cuda_ms(lambda: gmu.block_cumsum(x), 40),
+    res = dict(max_abs_err=err, ms=graph_ms(lambda: gmu.block_cumsum(x)),
+               host_ms=cuda_ms(lambda: gmu.block_cumsum(x), 40),
                plain_ms=cuda_ms(lambda: gmu.block_cumsum_plain(x), 5),
                bound_ms=b, bound_by=by,
                library_ms=cuda_ms(lambda: torch.cumsum(x, 0), 5),
-               inner_ms=cuda_ms(lambda: torch.cumsum(x.t().contiguous(), 1).t(), 40))
-    log(f"[kernels] K3 ({m}, {g}): {res['ms']:.4f} ms (plain {res['plain_ms']:.3f} ms, "
-        f"bound {b:.4f} ms by {by}, bitwise equal to plain); worst error "
-        f"{ratio:.3f} of 1e-5 x prefix|x| + 1e-6 from a float64 prefix sum; "
+               inner_ms=graph_ms(lambda: torch.cumsum(x.t().contiguous(), 1).t()))
+    log(f"[kernels] K3 scan ({m}, {g}): {res['ms']:.4f} ms of device time (a call "
+        f"{res['host_ms']:.4f} ms with the host's launches, plain {res['plain_ms']:.3f} ms, "
+        f"bound {b:.4f} ms by {by}, bitwise equal to plain and across launches); worst "
+        f"error {ratio:.3f} of 1e-5 x prefix|x| + 1e-6 from a float64 prefix sum; "
         f"torch.cumsum(x, 0) {res['library_ms']:.3f} ms, transposed inner-dim "
         f"cumsum {res['inner_ms']:.3f} ms")
     return res
@@ -433,12 +481,10 @@ def gt_view(dev, ds):
 
 def phase_real_view(dev, ds):
     """The kernel suite on the packed attrs of a real view, its load
-    imbalance, and GMU level 2 (K3's prefix sum) on that view's K2
-    gradients."""
+    imbalance, and GMU level 2 (K3's merge) on that view's K2 gradients."""
     import torch
     from repro_torch.core.schedule import pair_loads
-    from repro_torch.kernels import gmu, ops
-    from repro_torch.kernels.tile_render_bp import NUM_GRADS
+    from repro_torch.kernels import ops
     from repro_torch.slam.metrics import imbalance_stats
 
     grid, proj, frags = gt_view(dev, ds)
@@ -454,24 +500,84 @@ def phase_real_view(dev, ds):
         f"{tile_l.tail_ratio:.2f}), pair loads max {pair_l.max_load:.0f} / mean "
         f"{pair_l.mean_load:.2f} (tail ratio {pair_l.tail_ratio:.2f})")
 
-    # GMU level 2 on the K2 gradients against a float64 segment sum.  A run
-    # sum is a difference of two K3 prefix sums, so it may be off by twice
-    # the prefix bound.
-    flat = grads.transpose(1, 2).reshape(-1, NUM_GRADS).contiguous()
-    ids = frags.idx.reshape(-1)
     n = proj.mu2d.shape[0]
-    before = gmu.block_cumsum.launches
-    merged = gmu.segment_merge(flat, ids, n)
-    require(gmu.block_cumsum.launches == before + 1, "GMU level 2 did not launch K3")
-    ok = ids >= 0
-    exact = torch.zeros((n, NUM_GRADS), dtype=torch.float64, device=dev)
-    exact.index_add_(0, ids[ok].long(), flat[ok].double())
+    merge = {views: merge_suite(dev, grads, frags.idx.reshape(1, -1), n, views)
+             for views in (1, 4)}
+    return out, merge
+
+
+def merge_suite(dev, grads, ids, n, views):
+    """K3's merge (GMU level 2) on one view's K2 gradients (T, 10, K) and
+    ids (1, T*K), repeated ``views`` times as the mapping window's one
+    merge: against its plain version (bit for bit), a second launch and a
+    float64 segment sum; each copy equal to the first; times beside the
+    whole ``merge_views`` call and one ``index_add_`` of the valid rows."""
+    import torch
+    from repro_torch.kernels import gmu
+
+    tiles, g, cap = grads.shape
+    grads = grads.repeat(views, 1, 1).contiguous()
+    ids = ids.repeat(views, 1).contiguous()
+    offs = torch.arange(views, dtype=torch.int32, device=dev)[:, None] * (n + 1)
+    keys_s, order = torch.sort((torch.where(ids >= 0, ids, n) + offs).reshape(-1),
+                               stable=True)
+    before = gmu.merge_runs.launches
+    got = gmu.merge_views(grads, ids, n)
+    require(gmu.merge_runs.launches == before + 1, "merge_views did not launch one K3 merge")
+    again = gmu.merge_runs(grads, order, keys_s, views, n)
+    want = gmu.merge_runs_plain(grads, order, keys_s, views, n)
+    torch.cuda.synchronize()
+    label = f"real view B={views}"
+    err = max_err(got, want)
+    require(torch.equal(got, want), f"K3 merge differs from its plain version ({label}): "
+            f"max |d| {err:.3g}")
+    require(torch.equal(got, again), f"K3 merge differs between two launches ({label})")
+    require(all(torch.equal(got[b], got[0]) for b in range(views)),
+            f"K3 merge's copies of one view differ ({label})")
+    # A run sum is a difference of two K3 prefix sums, so it may be off by
+    # twice the prefix bound.
+    flat = grads[:tiles].transpose(1, 2).reshape(-1, g)
+    ok = ids[0] >= 0
+    exact = torch.zeros((n, g), dtype=torch.float64, device=dev)
+    exact.index_add_(0, ids[0][ok].long(), flat[ok].double())
     tol = 2 * (1e-5 * float(flat[ok].double().abs().sum(0).max()) + 1e-6)
-    e = float((merged.double() - exact).abs().max())
-    require(e <= tol, f"GMU level 2 off a float64 segment sum by {e:.3g} > {tol:.3g}")
-    log(f"[kernels] real view GMU level 2 (K3 prefix): max |d| {e:.2e} from a "
-        f"float64 segment sum, bound {tol:.2e}")
-    return out
+    e = float((got[0].double() - exact).abs().max())
+    require(e <= tol, f"K3 merge off a float64 segment sum by {e:.3g} > {tol:.3g}")
+
+    # What this data needs: one read of the valid sorted rows and of every
+    # key, the zero fill of (B, N, G), and one end and one start add of G
+    # floats per unique Gaussian; one add per valid element.
+    valid = int(ok.sum()) * views
+    seg = keys_s.long() - torch.arange(views, device=dev).repeat_interleave(
+        tiles * cap) * (n + 1)
+    live = seg < n
+    differs = keys_s[1:] != keys_s[:-1]
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    boundary = int(((torch.cat([one, differs]) | torch.cat([differs, one])) & live).sum())
+    unique = int((torch.cat([one, differs]) & live).sum())
+    b, by = bound(4 * (valid * g + keys_s.numel() + views * n * g + 2 * unique * g),
+                  valid * g)
+    rows = torch.cat([grads[v * tiles:(v + 1) * tiles].transpose(1, 2).reshape(-1, g)[ok]
+                      for v in range(views)])
+    dest = torch.cat([ids[v][ok].long() + v * n for v in range(views)])
+    acc = torch.zeros((views * n, g), dtype=torch.float32, device=dev)
+    res = dict(max_abs_err=err, ms=graph_ms(lambda: gmu.merge_runs(grads, order, keys_s,
+                                                                    views, n)),
+               call_ms=graph_ms(lambda: gmu.merge_views(grads, ids, n)),
+               host_ms=cuda_ms(lambda: gmu.merge_views(grads, ids, n), 40),
+               plain_ms=cuda_ms(lambda: gmu.merge_runs_plain(grads, order, keys_s,
+                                                             views, n), 2),
+               library_ms=graph_ms(lambda: acc.index_add_(0, dest, rows)),
+               bound_ms=b, bound_by=by, unique=unique // views,
+               boundary_share=boundary / keys_s.numel())
+    log(f"[kernels] K3 merge, {label}: {res['ms']:.4f} ms of device time (zero fill "
+        f"and kernel; whole merge_views call {res['call_ms']:.4f} ms, {res['host_ms']:.4f} "
+        f"ms with the host's launches; plain {res['plain_ms']:.1f} ms, bound {b:.4f} ms "
+        f"by {by}, index_add_ of the valid rows {res['library_ms']:.4f} ms); bitwise equal "
+        f"to plain and across launches; {valid // views} valid rows and {res['unique']} "
+        f"Gaussians per view, {100 * res['boundary_share']:.2f}% of rows are run "
+        f"boundaries; max |d| {e:.2e} from a float64 segment sum, bound {tol:.2e}")
+    return res
 
 
 def make_room(dev, frames=12):
@@ -622,17 +728,17 @@ def phase_small_session(dev):
 
 
 def launch_counters():
-    """Every kernel wrapper's launch counter and every plain version's call
-    counter, by name."""
+    """Every kernel wrapper's launch counter (K3 twice: its merge and its
+    scan epilogue) and every plain version's call counter, by name."""
     from repro_torch.kernels import gmu
     from repro_torch.kernels import tile_render as fwd
     from repro_torch.kernels import tile_render_bp as bwd
     kernels = {"K1": fwd.tile_render_fwd, "K2": bwd.tile_render_bwd,
-               "K3": gmu.block_cumsum, "K4": fwd.tile_render_fwd_sched,
-               "K5": bwd.tile_render_bwd_sched}
+               "K3": gmu.merge_runs, "K3 scan": gmu.block_cumsum,
+               "K4": fwd.tile_render_fwd_sched, "K5": bwd.tile_render_bwd_sched}
     plains = (fwd.tile_render_fwd_plain, bwd.tile_render_bwd_plain,
-              gmu.block_cumsum_plain, fwd.tile_render_fwd_sched_plain,
-              bwd.tile_render_bwd_sched_plain)
+              gmu.merge_runs_plain, gmu.block_cumsum_plain,
+              fwd.tile_render_fwd_sched_plain, bwd.tile_render_bwd_sched_plain)
     return kernels, plains
 
 
@@ -680,9 +786,11 @@ def phase_main(dev, ds, backend="kernel"):
         f"{wall * 1e3 / frames:.1f} ms per frame (init+boot {step_ms[0]:.0f} ms, "
         f"tracking-only frame {np.mean(tr_ms):.1f} ms, keyframe "
         f"{np.mean(kf_ms) if kf_ms else float('nan'):.1f} ms)")
+    digest = hashlib.sha256(np.ascontiguousarray(np.stack(res.est_w2c)).tobytes())
     log(f"{tag} ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.2f} dB "
         f"({', '.join(f'{p:.2f}' for p in res.keyframe_psnr)}), keyframes "
-        f"{keyframes}, alive {res.alive_per_frame[-1]}")
+        f"{keyframes}, alive {res.alive_per_frame[-1]}, poses sha256 "
+        f"{digest.hexdigest()[:16]}")
     log(f"{tag} launches: " + ", ".join(
         f"{k} {v} ({v / frames:.2f} per frame)" for k, v in launches.items())
         + f", plain versions {plain_calls}; peak device memory {peak_gb:.2f} GB; "
@@ -692,6 +800,9 @@ def phase_main(dev, ds, backend="kernel"):
     others = [k for k in ("K1", "K2", "K4", "K5") if k not in ours]
     require(all(launches[k] > 0 for k in ours),
             f"the {backend} path did not launch {ours}: {launches}")
+    require(launches["K3"] == launches[ours[1]],
+            f"the {backend} path ran {launches['K3']} K3 merges for "
+            f"{launches[ours[1]]} backwards")
     require(all(launches[k] == 0 for k in others),
             f"the {backend} path launched {others}: {launches}")
     require(plain_calls == 0, f"the main path ran a plain version {plain_calls} times")
@@ -750,6 +861,14 @@ def phase_profile(dev, ds):
             f"kernels busy {dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.0f}%)")
         log(events.table(sort_by="self_cuda_time_total", row_limit=25))
         log(events.table(sort_by="self_cpu_time_total", row_limit=15))
+        ops_ = {name: [e for e in events if e.key == name]
+                for name in ("aten::index_add_", "aten::sort")}
+        k3 = [e for e in events if e.device_type == DeviceType.CUDA and "k3_" in e.key]
+        log(f"[profile] {label} {idx}: " + ", ".join(
+            f"{name} {sum(e.count for e in es)} calls "
+            f"{sum(e.device_time_total for e in es) / 1e3:.2f} ms" for name, es in ops_.items())
+            + f", K3 kernels {sum(e.count for e in k3)} launches "
+            f"{sum(e.self_device_time_total for e in k3) / 1e3:.2f} ms (device time)")
 
 
 def main(argv) -> int:
@@ -781,10 +900,11 @@ def main(argv) -> int:
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
     ds = make_room(dev)
-    real_rows = phase_real_view(dev, ds)
+    real_rows, merge = phase_real_view(dev, ds)
     phase_render(dev, ds)
     phase_small_session(dev)
-    k3_check_launches = launch_counters()[0]["K3"].launches  # checks and timing
+    counters = launch_counters()[0]
+    k3_check_launches = counters["K3"].launches + counters["K3 scan"].launches
     launches, main_res, main_kfs = phase_main(dev, ds)
     launches_s = phase_main_sched(dev, ds, main_res, main_kfs)
     if argv == ["profile"]:
@@ -819,19 +939,36 @@ def main(argv) -> int:
             "ms_real": rv["ms"], "plain_ms_real": rv["plain_ms"],
             "bound_ms_real": rv["bound_ms"],
         })
+    m1, m4 = merge[1], merge[4]
     kernels.insert(2, {
-        "name": "K3 block_cumsum", "route": "cuda", "source": "src/repro_torch/csrc/gmu.cu",
-        "replaces": "src/repro/kernels/gmu.py:83",
-        # GMU level 2's prefix sum on both paths: [main]'s count, then
-        # [main-sched]'s, then the checks' and timings' before them.
+        "name": "K3 merge_runs (and block_cumsum)", "route": "cuda",
+        "source": "src/repro_torch/csrc/gmu.cu", "replaces": "src/repro/kernels/gmu.py:83",
+        # GMU level 2, K3's merge epilogue, once per backward: [main]'s
+        # count, then [main-sched]'s; the scan epilogue's counts on both
+        # paths; then both epilogues' launches in the checks and timings.
         "launches": launches["K3"], "launches_sched": launches_s["K3"],
+        "scan_launches": launches["K3 scan"], "scan_launches_sched": launches_s["K3 scan"],
         "check_launches": k3_check_launches,
-        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": k3["library_ms"], "inner_cumsum_ms": k3["inner_ms"],
-        "shape": f"({tiles * K}, 10) float32; library_ms is torch.cumsum(x, 0), "
-                 "inner_cumsum_ms the transposed inner-dim torch.cumsum; "
-                 "one view per call at every B, so no *_b4 keys",
+        "max_abs_err": max(m1["max_abs_err"], m4["max_abs_err"], k3["max_abs_err"]),
+        "ms": m1["ms"], "plain_ms": m1["plain_ms"], "bound_ms": m1["bound_ms"],
+        "bound_by": m1["bound_by"], "library_ms": m1["library_ms"],
+        "call_ms": m1["call_ms"], "call_host_ms": m1["host_ms"],
+        "unique_gaussians": m1["unique"],
+        "boundary_row_share": m1["boundary_share"],
+        "ms_b4": m4["ms"], "plain_ms_b4": m4["plain_ms"], "bound_ms_b4": m4["bound_ms"],
+        "library_ms_b4": m4["library_ms"], "call_ms_b4": m4["call_ms"],
+        "call_host_ms_b4": m4["host_ms"],
+        "scan_ms": k3["ms"], "scan_host_ms": k3["host_ms"], "scan_plain_ms": k3["plain_ms"],
+        "scan_bound_ms": k3["bound_ms"], "scan_bound_by": k3["bound_by"],
+        "scan_library_ms": k3["library_ms"], "scan_inner_cumsum_ms": k3["inner_ms"],
+        "shape": f"merge: the K2 gradients ({tiles}, 10, {K}) and ids of a ground-truth "
+                 "view, B=1 (tracking) and *_b4: four copies merged at once (mapping "
+                 "window); ms is merge_runs (zero fill and kernel) on sorted keys, "
+                 "call_ms the whole merge_views call (keys, stable sort, zero fill, "
+                 "kernel), library_ms one index_add_ of the valid rows, all device "
+                 "time from CUDA-graph replays; *_host_ms: CUDA events around calls "
+                 f"launched from the host; scan_*: block_cumsum at ({tiles * K}, 10), "
+                 "scan_library_ms torch.cumsum(x, 0)",
     })
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,17 +8,18 @@ Three built-in backends:
             ``torch.autograd.Function`` whose forward runs K1 and keeps its
             tile outputs (the R&B stash, color, depth and final T), and
             whose backward runs K2 on them (GMU level 1) and then GMU level
-            2 per view.
+            2 (K3's merge) over all views at once.
   schedule  the WSU backend (the reference's ``schedule``): the same under a
-            pairwise tile schedule, through K4 and K5.  The images and the
-            gradients go back to tile order before the level-2 merge, so
-            they equal the ``kernel`` backend's bit for bit on the card.
+            pairwise tile schedule, through K4 and K5.  The images go back
+            to tile order, and the level-2 merge reads the gradients in
+            tile order, so both equal the ``kernel`` backend's bit for bit
+            on the card.
 
 On CUDA tensors the kernels are the CUDA kernels; on CPU tensors they are
 their plain versions.  Batched views (a leading ``B`` on every
 ``RasterInputs`` tensor) run as ONE stacked forward launch and ONE stacked
 backward launch over ``B * T`` tile rows (``B * S`` slots when scheduled);
-the packing and the level-2 merge run per view.
+the packing runs per view, the level-2 merge once for all views.
 """
 
 from __future__ import annotations
@@ -34,9 +35,7 @@ from repro_torch.core.sorting import (
 )
 from repro_torch.kernels import gmu, ref
 from repro_torch.kernels.tile_render import tile_render_fwd, tile_render_fwd_sched
-from repro_torch.kernels.tile_render_bp import (
-    NUM_GRADS, tile_render_bwd, tile_render_bwd_sched,
-)
+from repro_torch.kernels.tile_render_bp import tile_render_bwd, tile_render_bwd_sched
 
 
 def _pack_attrs(mu2d, conic, color, opacity, depth, frag_idx) -> torch.Tensor:
@@ -136,17 +135,13 @@ def _cotangent_tiles(g_img, g_depth, g_finalt, grid: TileGrid, views, rows=None)
 
 
 def _merge_views(tile_grads, frag_idx, views, n, rows=None):
-    """GMU level 2 per view over (B*T, 10, K) tile-order gradients (``rows``
-    gathers each view's tile rows: the WSU backend's ``inv``)."""
-    tiles = frag_idx.shape[-2]
+    """GMU level 2 of every view in one sort and one K3 merge over the
+    (B*T, 10, K) tile-order gradients (``rows``: each view's tile rows of
+    slot-order gradients, the WSU backend's ``inv``, which K3 reads
+    through)."""
     idx = frag_idx if views is not None else frag_idx[None]
-    merged = []
-    for b in range(views or 1):
-        sel = slice(b * tiles, (b + 1) * tiles) if rows is None else rows[b]
-        merged.append(gmu.segment_merge(
-            tile_grads[sel].transpose(1, 2).reshape(-1, NUM_GRADS),
-            idx[b].reshape(-1), n))
-    merged = torch.stack(merged)
+    merged = gmu.merge_views(tile_grads, idx.reshape(idx.shape[0], -1), n,
+                             None if rows is None else torch.cat(rows))
     if views is None:
         merged = merged[0]
     return (merged[..., 0:2], merged[..., 2:5], merged[..., 5:8],
@@ -155,7 +150,7 @@ def _merge_views(tile_grads, frag_idx, views, n, rows=None):
 
 class KernelRasterize(torch.autograd.Function):
     """Forward: pack, K1 (its tile outputs kept).  Backward: cotangents to
-    tiles, K2 on K1's outputs, GMU level 2 per view.  ``frag_idx``/``count`` are index
+    tiles, K2 on K1's outputs, GMU level 2.  ``frag_idx``/``count`` are index
     plumbing (no gradient)."""
 
     @staticmethod
@@ -215,8 +210,9 @@ def _view_rows(idx, views, slots_per_view: int):
 class SchedRasterize(torch.autograd.Function):
     """Forward: pack, K4 (its slot-order outputs kept), back to tile order with
     ``inv``.  Backward: cotangents to slot order with ``perm`` (a pad slot
-    duplicates its tile's cotangent), K5, back to tile order with ``inv``
-    BEFORE GMU level 2, so the merge sums in the unscheduled path's order.
+    duplicates its tile's cotangent), K5, then GMU level 2 reading K5's
+    rows in tile order through ``inv``, so the merge sums in the
+    unscheduled path's order.
     The schedule and ``frag_idx`` are index plumbing (no gradient)."""
 
     @staticmethod

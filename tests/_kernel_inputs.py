@@ -1,6 +1,7 @@
-"""Packed inputs of the tile-rasterizer kernels K1 and K2, drawn with numpy
-from a seed.  Imports neither JAX nor torch, so the CPU parity tests, the
-card tests and ``chip_smoke.py`` all draw from this one recipe."""
+"""Packed inputs of the tile-rasterizer kernels K1 and K2 and Gaussian ids
+of GMU level 2's merge cases, drawn with numpy from a seed.  Imports neither
+JAX nor torch, so the CPU parity tests, the card tests and ``chip_smoke.py``
+all draw from these recipes."""
 
 import numpy as np
 
@@ -42,3 +43,22 @@ def random_attrs(seed, rows, cap, height, width, sparse=False, near_tile=False):
     attrs = np.stack([px, py, ca, cb, cc, rgb[:, 0], rgb[:, 1], rgb[:, 2], o,
                       depth, present, np.zeros(shape)], axis=1)
     return attrs.astype(np.float32), count.astype(np.int32)
+
+
+def merge_case_ids(kind, m, n, seed):
+    """(M,) int32 Gaussian ids of one GMU level-2 merge case: ``random`` in
+    [-1, N); ``padding`` all -1; ``singles`` mostly padding and each id at
+    most once, so runs have length 1; ``long`` one id over more than 3
+    blocks of 256 sorted rows among random ones; ``one`` one id in every
+    row, a single run over all blocks."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(-1, n, m).astype(np.int32)
+    if kind == "padding":
+        ids[:] = -1
+    elif kind == "singles":
+        ids = r.permutation(np.arange(-m, n))[:m].clip(min=-1).astype(np.int32)
+    elif kind == "long":
+        ids[m // 8:m // 8 + 3 * 256 + 100] = n // 2
+    elif kind == "one":
+        ids[:] = n // 2
+    return ids

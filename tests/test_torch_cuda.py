@@ -1,5 +1,5 @@
-"""The port on a card: the CUDA kernels K1-K5 against their plain
-versions, the scheduled kernels K4/K5 against K1/K2 bit for bit, the
+"""The port on a card: the CUDA kernels K1-K5 (K3's scan and merge)
+against their plain versions, the scheduled kernels K4/K5 against K1/K2 bit for bit, the
 ``kernel`` backend against the ``ref`` backend, the ``schedule`` session
 against the ``kernel`` one, and the default entry points.  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _kernel_inputs import random_attrs
+from _kernel_inputs import merge_case_ids, random_attrs
 from repro_torch.core import gaussians as G
 from repro_torch.core.camera import Camera, Intrinsics, look_at
 from repro_torch.core.raster_api import RasterPlan
@@ -218,32 +218,93 @@ def test_cuda_sched_wrappers_reject_bad_schedules(dev, bad):
     raise_on_sched_fault(dev)  # the fault word was cleared
 
 
-@pytest.mark.parametrize("m,g", [(256, 1), (4096, 10), (307200, 10), (1024, 32)])
+K3_SHAPES = [(256, 1), (4096, 10), (307200, 10), (1024, 32)]
+
+
+@pytest.mark.parametrize("m,g", K3_SHAPES)
 def test_cuda_block_cumsum_matches_plain(dev, m, g):
-    """K3 equals its plain version bit for bit (the plain version adds in
-    K3's order), and both lie within 1e-5 of the float64 prefix of |x|
-    plus 1e-6 from a float64 prefix sum."""
+    """K3's scan equals its plain version bit for bit (the plain version
+    adds in K3's order) and gives the same bits on a second launch, and
+    both lie within 1e-5 of the float64 prefix of |x| plus 1e-6 from a
+    float64 prefix sum."""
     x = torch.as_tensor(np.random.default_rng(m).normal(size=(m, g)).astype(np.float32),
                         device=dev)
     got = gmu.block_cumsum(x)
+    again = gmu.block_cumsum(x)
     want = gmu.block_cumsum_plain(x)
     torch.cuda.synchronize()
     exact = torch.cumsum(x.double(), 0)
     scale = torch.cumsum(x.double().abs(), 0)
     assert bool(((got.double() - exact).abs() <= 1e-5 * scale + 1e-6).all())
     assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind", ["random", "one", "padding", "singles", "long"])
+@pytest.mark.parametrize("m,g", K3_SHAPES + [(1000, 10), (307200 - 77, 10)])
+def test_cuda_merge_runs_matches_plain(dev, m, g, kind):
+    """K3's merge equals its plain version bit for bit, also on one id in
+    every row, all padding and M not a multiple of the block, and gives the
+    same bits on a second launch."""
+    n = max(8, m // 20)
+    r = np.random.default_rng(m + g)
+    vals = torch.as_tensor(r.normal(size=(m, g)).astype(np.float32), device=dev)
+    ids = torch.as_tensor(merge_case_ids(kind, m, n, m + 1), device=dev)
+    before = gmu.merge_runs.launches
+    got = gmu.segment_merge(vals, ids, n)
+    again = gmu.segment_merge(vals, ids, n)
+    assert gmu.merge_runs.launches == before + 2
+    keys = torch.where(ids >= 0, ids, n)
+    keys_s, order = torch.sort(keys, stable=True)
+    want = gmu.merge_runs_plain(vals[:, :, None], order, keys_s, 1, n)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    if kind == "padding":
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("views", [1, 4])
+def test_cuda_merge_views_equals_one_view_merges(dev, views):
+    """All views in one K3 merge, from the gradients' (B*T, 10, K) layout,
+    equal one-view merges and the plain version bit for bit, also when K3
+    reads the tiles through a map from tile to row (the WSU backend's
+    slot order)."""
+    tiles, cap, n = 1200, 256, 131072
+    r = np.random.default_rng(views)
+    grads = torch.as_tensor(r.normal(size=(views * tiles, 10, cap)).astype(np.float32),
+                            device=dev)
+    ids = r.integers(0, n, (views, tiles * cap)).astype(np.int32)
+    ids[r.uniform(size=ids.shape) < 0.5] = -1
+    ids = torch.as_tensor(ids, device=dev)
+    got = gmu.merge_views(grads, ids, n)
+    for b in range(views):
+        one = gmu.merge_views(grads[b * tiles:(b + 1) * tiles], ids[b:b + 1], n)[0]
+        assert torch.equal(got[b], one), b
+    keys = torch.where(ids >= 0, ids, n) + (torch.arange(views, device=dev,
+                                                          dtype=torch.int32)[:, None]
+                                            * (n + 1))
+    keys_s, order = torch.sort(keys.reshape(-1), stable=True)
+    want = gmu.merge_runs_plain(grads, order, keys_s, views, n)
+    slot_of = torch.as_tensor(r.permutation(views * tiles), device=dev)
+    slots = torch.empty_like(grads)
+    slots[slot_of] = grads
+    via_slots = gmu.merge_views(slots, ids, n, slot_of)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(via_slots, got)
 
 
 def test_cuda_segment_merge_matches_float64_segment_sum(dev):
-    """GMU level 2 with K3's prefix sum: each run sum is a difference of two
+    """GMU level 2 through K3's merge: each run sum is a difference of two
     prefix sums, so it is held to twice the prefix bound."""
     r = np.random.default_rng(4)
     m, n = 40000, 3000
     ids = torch.as_tensor(r.integers(-1, n, m).astype(np.int32), device=dev)
     vals = torch.as_tensor(r.normal(size=(m, 10)).astype(np.float32), device=dev)
-    before = gmu.block_cumsum.launches
+    before = gmu.merge_runs.launches
     got = gmu.segment_merge(vals, ids, n)
-    assert gmu.block_cumsum.launches == before + 1
+    assert gmu.merge_runs.launches == before + 1
     ok = ids >= 0
     exact = torch.zeros((n, 10), dtype=torch.float64, device=dev)
     exact.index_add_(0, ids[ok].long(), vals[ok].double())
@@ -284,7 +345,7 @@ def test_cuda_kernel_backend_matches_ref_backend(dev):
 
 def test_cuda_session_runs_through_the_kernels(dev):
     """The default entry points run on the card, and the SLAM session goes
-    through K1, K2 and K3, never through their plain versions."""
+    through K1, K2 and K3's merge, never through a plain version."""
     from repro_torch.core.keyframes import KeyframePolicy
     from repro_torch.slam.datasets import make_dataset
     from repro_torch.slam.session import SLAMConfig, run_sequence
@@ -294,8 +355,9 @@ def test_cuda_session_runs_through_the_kernels(dev):
     assert ds.frames[0].rgb.device.type == "cuda"
     def counts():
         return (tile_render_fwd.launches, tile_render_bwd.launches,
-                gmu.block_cumsum.launches, tile_render_fwd_plain.calls,
-                tile_render_bwd_plain.calls, gmu.block_cumsum_plain.calls)
+                gmu.merge_runs.launches, tile_render_fwd_plain.calls,
+                tile_render_bwd_plain.calls, gmu.merge_runs_plain.calls,
+                gmu.block_cumsum_plain.calls)
 
     before = counts()
     res = run_sequence(ds, SLAMConfig(iters_track=3, iters_map=4, capacity=1024,
@@ -303,6 +365,7 @@ def test_cuda_session_runs_through_the_kernels(dev):
                                       keyframe=KeyframePolicy(interval=2)))
     after = counts()
     assert all(a > b for a, b in zip(after[:3], before[:3]))
+    assert after[2] - before[2] == after[1] - before[1]  # one merge per backward
     assert after[3:] == before[3:]
     assert np.isfinite(res.ate) and len(res.keyframe_psnr) == 3
     assert all(np.isfinite(p) for p in res.keyframe_psnr)

@@ -1,7 +1,7 @@
 """Parity of the port's WSU path with ``repro``'s: the schedule builders
 (bitwise), the plain versions of K4 and K5 against the reference's
 scheduled Pallas kernels in interpret mode, the ``schedule`` raster
-backend, K3 and the kernel-fed GMU merge, and a whole CPU session on the
+backend, K3's scan and the GMU merge through K3's merge, and a whole CPU session on the
 ``schedule`` backend against the same session on ``kernel``.  The
 engine's scheduled phases are in ``test_torch_schedule_engine.py``.
 
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _kernel_inputs import random_attrs
+from _kernel_inputs import merge_case_ids, random_attrs
 from _torch_parity import (
     DEPTH_TOL, FWD_ATOL, FWD_RTOL, assert_grads_close, grad_atol, jx, np_, th,
     tiny_cloud,
@@ -289,8 +289,11 @@ def test_block_cumsum_plain_matches_pallas(m, g):
 
 def _k3_order_emulation(x):
     """K3's additions one float32 at a time, in ``csrc/gmu.cu``'s order:
-    a log-step scan per 32-row warp, earlier warp totals summed in turn,
-    block carries scanned 32 blocks at a time plus a running sum."""
+    a log-step scan per 32-row warp, earlier warp totals summed in turn;
+    each block's carry ``run + (incl - total)``, with ``incl`` a log-step
+    scan of the block totals in each group of 32 blocks (pass 1's last
+    block in the group) and ``run`` the earlier groups' totals summed in
+    turn (the view's last group)."""
     f = np.float32
 
     def warp_scan(v):
@@ -331,16 +334,20 @@ def test_block_cumsum_plain_adds_in_the_kernel_order():
     assert np.array_equal(np_(tgmu.block_cumsum(th(x))), _k3_order_emulation(x))
 
 
-@pytest.mark.parametrize("m,n,seed", [(1, 3, 0), (300, 20, 1), (2048, 600, 3)])
-def test_segment_merge_kernel_path_matches_pallas_path(m, n, seed):
-    """The port's merge takes its prefix sum from K3 (here its plain
-    version) and agrees with both of the reference's prefix sums."""
+@pytest.mark.parametrize("m,n,seed,kind", [
+    (1, 3, 0, "random"), (300, 20, 1, "random"), (2048, 600, 3, "random"),
+    (1000, 50, 4, "random"),       # M not a multiple of the block
+    (700, 40, 5, "padding"), (1500, 1200, 6, "singles"), (2000, 30, 7, "long"),
+])
+def test_segment_merge_kernel_path_matches_pallas_path(m, n, seed, kind):
+    """The port's merge is K3's merge (here its plain version) and agrees
+    with the reference's merge on both of its prefix sums."""
     r = np.random.default_rng(seed)
-    ids = r.integers(-1, n, m).astype(np.int32)
+    ids = merge_case_ids(kind, m, n, seed)
     vals = r.normal(size=(m, 10)).astype(np.float32)
-    before = tgmu.block_cumsum_plain.calls
+    before = tgmu.merge_runs_plain.calls
     got = tgmu.segment_merge(th(vals), th(ids), n)
-    assert tgmu.block_cumsum_plain.calls == before + 1
+    assert tgmu.merge_runs_plain.calls == before + 1
     # The reference's own GMU bound (tests/test_kernels.py, atol 1e-4).
     for use_pallas in (True, False):
         want = jgmu.segment_merge(jx(vals), jx(ids), n, use_pallas=use_pallas)
