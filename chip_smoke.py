@@ -463,35 +463,40 @@ def phase_gmu(dev):
     return res
 
 
-def gt_view(dev, ds):
-    """Projection and fragment lists of the full-size ground-truth scene
-    seen from frame 3's pose."""
+def gt_view(dev, ds, factor=1):
+    """Projection and fragment lists of the ground-truth scene seen from
+    frame 3's pose, at ``1 / factor`` of the dataset's resolution per side."""
     import torch
     from repro_torch.core.camera import Camera
     from repro_torch.core.projection import project
     from repro_torch.core.sorting import build_fragment_lists, make_tile_grid
 
-    grid = make_tile_grid(H, W)
-    cam = Camera(ds.intrinsics, torch.as_tensor(ds.frames[3].w2c_gt, device=dev))
+    intr = ds.intrinsics.scaled(factor)
+    grid = make_tile_grid(intr.height, intr.width)
+    cam = Camera(intr, torch.as_tensor(ds.frames[3].w2c_gt, device=dev))
     with torch.no_grad():
         proj = project(ds.gt_field, cam)
         frags = build_fragment_lists(proj, grid, K)
     return grid, proj, frags
 
 
-def phase_real_view(dev, ds):
-    """The kernel suite on the packed attrs of a real view, its load
-    imbalance, and GMU level 2 (K3's merge) on that view's K2 gradients."""
+def view_attrs(proj, frags):
     import torch
-    from repro_torch.core.schedule import pair_loads
     from repro_torch.kernels import ops
-    from repro_torch.slam.metrics import imbalance_stats
-
-    grid, proj, frags = gt_view(dev, ds)
     with torch.no_grad():
         attrs = ops._pack_attrs(proj.mu2d, proj.conic, proj.color, proj.opacity,
                                 proj.depth, frags.idx).contiguous()
-    count = frags.count.contiguous()
+    return attrs, frags.count.contiguous()
+
+
+def phase_real_view(dev, ds):
+    """The kernel suite on the packed attrs of a real view, its load
+    imbalance, and GMU level 2 (K3's merge) on that view's K2 gradients."""
+    from repro_torch.core.schedule import pair_loads
+    from repro_torch.slam.metrics import imbalance_stats
+
+    grid, proj, frags = gt_view(dev, ds)
+    attrs, count = view_attrs(proj, frags)
     out, grads = raster_suite(dev, grid, attrs, count, 1, "real view B=1", 17)
     _, _, _, scheds = sched_flat(count, grid.num_tiles, 1)
     tile_l, pair_l = imbalance_stats(count), imbalance_stats(pair_loads(scheds[0]))
@@ -580,14 +585,14 @@ def merge_suite(dev, grads, ids, n, views):
     return res
 
 
-def make_room(dev, frames=12):
+def make_room(dev, frames=12, height=H):
     import torch
     from repro_torch.slam.datasets import make_dataset
     t0 = time.perf_counter()
-    ds = make_dataset("room0", num_frames=frames, height=H, width=W,
+    ds = make_dataset("room0", num_frames=frames, height=height, width=W,
                       num_gaussians=16384, frag_capacity=K, device=dev)
     torch.cuda.synchronize()
-    log(f"[dataset] room0 {W}x{H}, {frames} frames, 16384 Gaussians: "
+    log(f"[dataset] room0 {W}x{height}, {frames} frames, 16384 Gaussians: "
         f"{time.perf_counter() - t0:.2f} s")
     for f in ds.frames:
         require(bool(torch.isfinite(f.rgb).all() and torch.isfinite(f.depth).all()),
@@ -612,8 +617,9 @@ def raster_with_grads(inputs, plan, backend, target):
 
 
 def phase_render(dev, ds):
-    """The kernel backend against the ref backend, and the schedule backend
-    against the kernel backend, on the full-size scene."""
+    """The kernel backend against the ref backend, and the schedule and
+    kernel_norb backends against the kernel backend, on the full-size
+    scene; then the two kernel backwards timed."""
     import numpy as np
     import torch
     from repro_torch.core.camera import Camera
@@ -628,7 +634,7 @@ def phase_render(dev, ds):
         size=(H, W, 3)).astype(np.float32), device=dev)
     inputs = RasterInputs.from_projection(proj, frags)
     outs, grads = {}, {}
-    for backend in ("kernel", "schedule", "ref"):
+    for backend in ("kernel", "schedule", "kernel_norb", "ref"):
         outs[backend], grads[backend] = raster_with_grads(inputs, plan, backend, target)
         torch.cuda.empty_cache()
     for name, g, w_ in zip(("color", "depth", "final_T"), outs["kernel"], outs["ref"]):
@@ -648,13 +654,14 @@ def phase_render(dev, ds):
         f"({int(frags.overflow)} over K={K}): images within {FWD_ATOL}/{FWD_RTOL}, "
         f"gradients within max(3e-6, 3e-5 max|g|) (worst at {worst:.2f} of it)")
 
-    def require_equal(a, b, what):
+    def require_equal(a, b, what, backend="schedule"):
         for name, x, y in zip(what, a, b):
-            require(torch.equal(x, y), f"schedule backend {name} differs from kernel's: "
+            require(torch.equal(x, y), f"{backend} backend {name} differs from kernel's: "
                     f"max |d| {max_err(x, y):.3g}")
 
-    require_equal(outs["schedule"], outs["kernel"], ("color", "depth", "final_T"))
-    require_equal(grads["schedule"], grads["kernel"], leaves)
+    for backend in ("schedule", "kernel_norb"):
+        require_equal(outs[backend], outs["kernel"], ("color", "depth", "final_T"), backend)
+        require_equal(grads[backend], grads["kernel"], leaves, backend)
     del outs, grads
 
     # Four stacked views: the schedule backend equals the kernel backend.
@@ -666,12 +673,15 @@ def phase_render(dev, ds):
     inputs4 = RasterInputs.from_projection(
         ProjectedGaussians(*(torch.stack(xs) for xs in zip(*projs))), frags4)
     o_k, g_k = raster_with_grads(inputs4, plan, "kernel", target)
-    o_s, g_s = raster_with_grads(inputs4, plan, "schedule", target)
-    require_equal(o_s, o_k, ("color", "depth", "final_T"))
-    require_equal(g_s, g_k, leaves)
-    log(f"[render] schedule backend == kernel backend bitwise at {W}x{H}, 1 and 4 "
-        "views: images and per-Gaussian gradients")
-    del inputs4, o_k, g_k, o_s, g_s
+    for backend in ("schedule", "kernel_norb"):
+        o_s, g_s = raster_with_grads(inputs4, plan, backend, target)
+        require_equal(o_s, o_k, ("color", "depth", "final_T"), backend)
+        require_equal(g_s, g_k, leaves, backend)
+    log(f"[render] schedule and kernel_norb backends == kernel backend bitwise at "
+        f"{W}x{H}, 1 and 4 views: images and per-Gaussian gradients")
+    del o_k, g_k, o_s, g_s
+    times = {1: backward_times(dev, inputs, grid), 4: backward_times(dev, inputs4, grid)}
+    del inputs4
     torch.cuda.empty_cache()
 
     # Batched: one stacked launch over 4 views equals 4 single-view renders.
@@ -685,6 +695,58 @@ def phase_render(dev, ds):
                     and torch.equal(batched.depth[b], single.depth),
                     f"batched render view {b} differs from its single-view render")
     log("[render] 4-view batched render is bitwise equal to 4 single-view renders")
+    return times
+
+
+def backward_times(dev, inputs, grid):
+    """Device time of the kernel backends' whole backward (cotangents to
+    tiles, K2, GMU level 2) from CUDA-graph replays: on K1's kept outputs
+    (``kernel``, the R&B Buffer) and with K1 re-run first (``kernel_norb``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tile_render import tile_render_fwd
+
+    views = inputs.views
+    nv = views or 1
+    with torch.no_grad():
+        attrs = ops._pack_views(*inputs[:5], inputs.frags.idx, views).contiguous()
+        cnt = inputs.frags.count.reshape(-1).contiguous()
+        fwd = tile_render_fwd(attrs, cnt, grid, chunk=CHUNK, tiles_per_view=grid.num_tiles)
+    r = np.random.default_rng(21)
+    lead = () if views is None else (nv,)
+    cot = [torch.as_tensor(r.normal(size=lead + shape).astype(np.float32), device=dev)
+           for shape in ((grid.height, grid.width, 3), (grid.height, grid.width),
+                         (grid.height, grid.width))]
+    n = inputs.mu2d.shape[-2]
+
+    def run(kept):
+        return lambda: ops.kernel_backward(attrs, cnt, inputs.frags.idx, kept, *cot, grid,
+                                           CHUNK, views, n)
+
+    with torch.no_grad():
+        out = {"kernel": graph_ms(run(fwd), reps=10), "kernel_norb": graph_ms(run(None), reps=10)}
+    log(f"[render] backward at {W}x{H}, B={nv}: kernel {out['kernel']:.4f} ms, kernel_norb "
+        f"(K1 re-run) {out['kernel_norb']:.4f} ms of device time (CUDA-graph replays); the "
+        f"R&B Buffer saves {out['kernel_norb'] - out['kernel']:.4f} ms per backward")
+    return out
+
+
+def small_dataset(dev):
+    """The 64x64 room0 scene, made on the CPU and copied to ``dev``."""
+    from repro_torch.slam.datasets import make_dataset
+    ds = make_dataset("room0", num_frames=6, height=64, width=64,
+                      num_gaussians=400, frag_capacity=48, device="cpu")
+    if str(dev) != "cpu":
+        for f in ds.frames:
+            f.rgb, f.depth = f.rgb.to(dev), f.depth.to(dev)
+    return ds
+
+
+def centre_distance(a, b) -> float:
+    import numpy as np
+    return max(float(np.linalg.norm(np.linalg.inv(x)[:3, 3] - np.linalg.inv(y)[:3, 3]))
+               for x, y in zip(a, b))
 
 
 def phase_small_session(dev):
@@ -692,7 +754,6 @@ def phase_small_session(dev):
     import numpy as np
     import torch
     from repro_torch.core.keyframes import KeyframePolicy
-    from repro_torch.slam.datasets import make_dataset
     from repro_torch.slam.session import SLAMConfig, run_sequence
 
     cfg = SLAMConfig(iters_track=3, iters_map=4, capacity=1024, frag_capacity=48,
@@ -701,17 +762,11 @@ def phase_small_session(dev):
     perms = {i: rng.permutation(2 * cfg.densify_per_kf) for i in range(1, 6)}
     res = {}
     for d in ("cpu", dev):
-        ds = make_dataset("room0", num_frames=6, height=64, width=64,
-                          num_gaussians=400, frag_capacity=48, device="cpu")
-        if d != "cpu":
-            for f in ds.frames:
-                f.rgb, f.depth = f.rgb.to(d), f.depth.to(d)
-        res[str(d)] = run_sequence(ds, cfg, device=d,
+        res[str(d)] = run_sequence(small_dataset(d), cfg, device=d,
                                    perms={k: torch.as_tensor(v) for k, v in perms.items()})
     a, b = res["cpu"], res[str(dev)]
     pose_d = max(float(np.abs(x - y).max()) for x, y in zip(a.est_w2c, b.est_w2c))
-    centre_d = max(float(np.linalg.norm(np.linalg.inv(x)[:3, 3] - np.linalg.inv(y)[:3, 3]))
-                   for x, y in zip(a.est_w2c, b.est_w2c))
+    centre_d = centre_distance(a.est_w2c, b.est_w2c)
     psnr_d = abs(a.mean_psnr - b.mean_psnr)
     log(f"[small] 64x64 room0, 6 frames: card vs CPU pose entries within "
         f"{pose_d:.2e}, camera centres within {centre_d * 1e3:.2f} mm, mean PSNR "
@@ -725,6 +780,95 @@ def phase_small_session(dev):
     # whose plain version adds in K3's order.
     require(centre_d < 1e-3, f"card and CPU camera centres differ by {centre_d:.3g} m")
     require(psnr_d < 0.1, f"card and CPU PSNR differ by {psnr_d:.3g} dB")
+    for backend in ("kernel", "schedule"):
+        small_rtgs(dev, backend, perms)
+
+
+class SelectionRecorder:
+    """Keeps the scores and the alive set of the last pruning boundary
+    while it is entered (it wraps ``pruning.interval_update``)."""
+
+    def __enter__(self):
+        from repro_torch.core import pruning
+        self.inner, self.last = pruning.interval_update, None
+
+        def recorded(state, g, tile_count, cfg):
+            self.last = (state.score.clone(), (g.alive & ~state.masked).clone())
+            return self.inner(state, g, tile_count, cfg)
+
+        recorded.host_reads = 0
+        pruning.interval_update = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import pruning
+        pruning.interval_update = self.inner
+
+
+def near_cut(score, alive, want):
+    """Alive rows whose selection score lies within 1e-5 of the cut (the
+    ``want``-th lowest alive score), relative to the larger of the cut and
+    the largest alive score (most cuts sit at 0)."""
+    import torch
+    s = score[alive]
+    if want == 0 or s.numel() == 0:
+        return torch.zeros_like(alive)
+    cut = torch.sort(s).values[want - 1]
+    scale = torch.maximum(cut.abs(), s.abs().max())
+    return alive & ((score - cut).abs() <= 1e-5 * scale)
+
+
+def small_rtgs(dev, backend, perms):
+    """The 64x64 card-vs-CPU session with §4.1 pruning and §4.2
+    downsampling on: camera centres within 1 mm, the same Gaussians
+    removed, and after every frame masked sets equal outside near-ties at
+    the last selection cut."""
+    import numpy as np
+    import torch
+    from repro_torch.core.downsample import DownsampleConfig
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.session import (
+        SLAMConfig, frame_factor, session_finalize, session_init, session_step)
+
+    cfg = SLAMConfig(iters_track=3, iters_map=4, capacity=1024, frag_capacity=48,
+                     map_window=2, keyframe=KeyframePolicy(interval=2), backend=backend,
+                     prune=PruneConfig(k0=2, step_frac=0.08),
+                     downsample=DownsampleConfig(enabled=True))
+    out = {}
+    for d in ("cpu", dev):
+        ds = small_dataset(d)
+        masks = []      # per frame: the masked set and the rows near its cut
+        with SelectionRecorder() as rec:
+            sess, last, factors = session_init(ds, cfg, device=d), 0, []
+            for idx in range(1, ds.num_frames):
+                factors.append(frame_factor(ds, idx, last, cfg))
+                sess, r = session_step(sess, ds.frames[idx], factor=factors[-1],
+                                       perm=torch.as_tensor(perms[idx]))
+                last = idx if r.is_kf else last
+                masked = sess.pstate.masked.cpu()
+                near = (near_cut(rec.last[0].cpu(), rec.last[1].cpu(), int(masked.sum()))
+                        if rec.last is not None else torch.zeros_like(masked))
+                masks.append((masked, near))
+        res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+        out[str(d)] = (res, masks, factors)
+    (a, ma, fa), (b, mb, fb) = out["cpu"], out[str(dev)]
+    centre_d = centre_distance(a.est_w2c, b.est_w2c)
+    differ = [x[0] != y[0] for x, y in zip(ma, mb)]
+    near = [x[1] | y[1] for x, y in zip(ma, mb)]
+    log(f"[small] RTGS on {backend}, factors {fb}: card vs CPU camera centres within "
+        f"{centre_d * 1e3:.2f} mm, removed {b.prune_removed} vs {a.prune_removed}, "
+        f"alive {b.alive_per_frame} vs {a.alive_per_frame}; masked per frame "
+        f"{[int(m.sum()) for m, _ in mb]} vs {[int(m.sum()) for m, _ in ma]}, rows that "
+        f"differ {[int(x.sum()) for x in differ]}, rows within 1e-5 of the selection cut "
+        f"{[int(x.sum()) for x in near]}")
+    require(fa == fb, f"card and CPU factors differ: {fb} vs {fa}")
+    require(centre_d < 1e-3, f"RTGS card and CPU camera centres differ by {centre_d:.3g} m")
+    require(a.prune_removed == b.prune_removed > 0,
+            f"RTGS card and CPU removed {b.prune_removed} vs {a.prune_removed}")
+    require(not any(bool((x & ~y).any()) for x, y in zip(differ, near)),
+            "RTGS card and CPU masked sets differ away from the selection cut")
+    require(np.isfinite(b.ate), "RTGS small session ATE not finite")
 
 
 def launch_counters():
@@ -764,12 +908,14 @@ def phase_main(dev, ds, backend="kernel"):
     sess = session_init(ds, cfg, device=dev)
     torch.cuda.synchronize()
     step_ms, kf_flags = [(time.perf_counter() - t_run) * 1e3], [True]
+    per_frame = [{k: fn.launches for k, fn in kernels.items()}]
     for idx in range(1, ds.num_frames):
         t0 = time.perf_counter()
         sess, out = session_step(sess, ds.frames[idx])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         kf_flags.append(bool(out.is_kf))
+        per_frame.append({k: fn.launches for k, fn in kernels.items()})
     wall = time.perf_counter() - t_run
     res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames],
                            wall_time_s=wall)
@@ -808,13 +954,13 @@ def phase_main(dev, ds, backend="kernel"):
     require(plain_calls == 0, f"the main path ran a plain version {plain_calls} times")
     require(np.isfinite(res.ate) and res.ate < 0.30, f"ATE {res.ate:.3f} m >= 0.30 m")
     require(res.mean_psnr > 17.0, f"mean keyframe PSNR {res.mean_psnr:.2f} dB <= 17")
-    return launches, res, keyframes
+    return launches, res, keyframes, per_frame
 
 
 def phase_main_sched(dev, ds, main_res, main_keyframes):
     """The same session on the WSU ``schedule`` backend, against [main]."""
     import numpy as np
-    launches, res, keyframes = phase_main(dev, ds, backend="schedule")
+    launches, res, keyframes, _ = phase_main(dev, ds, backend="schedule")
     require(keyframes == main_keyframes,
             f"schedule session keyframes {keyframes} != kernel session's {main_keyframes}")
     pose_d = max(float(np.abs(a - b).max()) for a, b in zip(res.est_w2c, main_res.est_w2c))
@@ -828,10 +974,237 @@ def phase_main_sched(dev, ds, main_res, main_keyframes):
     return launches
 
 
-def phase_profile(dev, ds):
+RTGS_H = 448     # TUM's 640x480 less 32 rows: 64-divisible, as §4.2 needs
+RTGS_FACTORS = [4, 2, 2, 2, 2, 2, 2, 1, 4, 2, 2]   # frames 1-11, keyframe 8
+
+
+def reset_counters():
+    """Every launch and plain-version counter set to 0."""
+    kernels, plains = launch_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    return kernels, plains
+
+
+def rtgs_config(backend="kernel", **kw):
+    """The reference's RTGS variant (``benchmarks/table6_quality.py``) at
+    the main path's sizes."""
+    from repro_torch.core.downsample import DownsampleConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.session import SLAMConfig
+    return SLAMConfig(capacity=131072, frag_capacity=K, map_window=4, iters_track=12,
+                      iters_map=24, prune=PruneConfig(k0=5, step_frac=0.08),
+                      downsample=DownsampleConfig(enabled=True), backend=backend, **kw)
+
+
+def phase_new_grids(dev, ds):
+    """K1, K2, K4 and K5 against their plain versions on a ground-truth
+    view of the 640x448 scene at the tracking grids of factors 2 and 4."""
+    out = {}
+    for factor in (2, 4):
+        grid, proj, frags = gt_view(dev, ds, factor)
+        attrs, count = view_attrs(proj, frags)
+        label = (f"{W // factor}x{RTGS_H // factor} view ({grid.num_tiles} tiles, "
+                 f"factor {factor}, {int(frags.total)} fragments, overflow "
+                 f"{int(frags.overflow)})")
+        out[factor], _ = raster_suite(dev, grid, attrs, count, 1, label, 30 + factor)
+    return out
+
+
+def phase_rtgs(dev, ds, backend="kernel"):
+    """The RTGS session (MonoGS + §4.1 pruning + §4.2 downsampling) on the
+    640x448 scene under ``backend``, each frame at the factor
+    ``run_sequence`` chooses, every counter set to 0 just before."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.slam.session import (
+        frame_factor, session_finalize, session_init, session_step)
+
+    tag = "[rtgs]" if backend == "kernel" else "[rtgs-sched]"
+    cfg = rtgs_config(backend)
+    fwd_k, bwd_k = ("K1", "K2") if backend == "kernel" else ("K4", "K5")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plains = reset_counters()
+    reads0 = pruning.interval_update.host_reads
+    t0 = time.perf_counter()
+    sess = session_init(ds, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_ms, rows, last = (time.perf_counter() - t0) * 1e3, [], 0
+    for idx in range(1, ds.num_frames):
+        factor = frame_factor(ds, idx, last, cfg)
+        # The frame's tracking lists, built again outside the timed step
+        # (no kernel runs in a build): how far they overflow K.
+        with torch.no_grad():
+            pre = sess.stage_at(factor)._build_core(sess.g, sess.cur_masked,
+                                                    sess.velocity @ sess.pose)
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        sess, out = session_step(sess, ds.frames[idx], factor=factor)
+        torch.cuda.synchronize()
+        rows.append(dict(idx=idx, factor=factor, kf=out.is_kf,
+                         ms=(time.perf_counter() - t0) * 1e3,
+                         fired=int(out.fired.sum()), alive=int(out.alive),
+                         overflow=int(pre.overflow), frags=int(pre.total),
+                         launches={k: fn.launches - before[k] for k, fn in kernels.items()}))
+        last = idx if out.is_kf else last
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    host_reads = pruning.interval_update.host_reads - reads0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    factors = [r["factor"] for r in rows]
+    keyframes = [0] + [r["idx"] for r in rows if r["kf"]]
+    groups = {}
+    for r in rows:
+        groups.setdefault("keyframe" if r["kf"] else f"factor {r['factor']}", []).append(r)
+    log(f"{tag} room0 {W}x{RTGS_H}, {ds.num_frames} frames, capacity {cfg.capacity}, "
+        f"K={K}, backend {backend}, factors {factors}: init+boot {init_ms:.0f} ms, "
+        + ", ".join(f"{k} {np.mean([r['ms'] for r in v]):.1f} ms ({len(v)} frames)"
+                    for k, v in sorted(groups.items()))
+        + f"; {np.mean([r['ms'] for r in rows]):.1f} ms per tracked frame")
+    fired = [r["fired"] for r in rows]
+    log(f"{tag} pruning boundaries fired per frame {fired} ({sum(fired)} in all), "
+        f"{host_reads} host reads for them; alive per frame {res.alive_per_frame}; "
+        f"removed {res.prune_removed}")
+    by_factor = {}
+    for r in rows:
+        by_factor.setdefault(r["factor"], []).append((r["overflow"], r["frags"]))
+    log(f"{tag} tracking fragment lists at the frame's start, (overflow, fragments) "
+        "per frame: " + "; ".join(f"factor {f}: {v}" for f, v in sorted(by_factor.items())))
+    tiles = {f: (W // f // 16) * (RTGS_H // f // 16) for f in (1, 2, 4)}
+    at_grid = {f: [r["launches"][fwd_k] for r in rows if r["factor"] == f and not r["kf"]]
+               for f in (2, 4)}
+    at_grid[1] = [r["launches"][fwd_k] for r in rows if r["kf"]]
+    digest = hashlib.sha256(np.ascontiguousarray(np.stack(res.est_w2c)).tobytes())
+    log(f"{tag} ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.2f} dB, "
+        f"keyframes {keyframes}, poses sha256 {digest.hexdigest()[:16]}; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f", plain versions {plain_calls}; {fwd_k} launches per frame at "
+        + ", ".join(f"{tiles[f]} tiles {at_grid[f]}" for f in (4, 2, 1))
+        + f"; peak device memory {peak_gb:.2f} GB; work {res.work}")
+    full = W * RTGS_H
+    pixels_f1 = res.work.pixels + cfg.iters_track * sum(
+        full - (W // r["factor"]) * (RTGS_H // r["factor"]) for r in rows)
+    log(f"{tag} pixels {res.work.pixels} against {pixels_f1} at factor 1 "
+        f"({100 * res.work.pixels / pixels_f1:.1f}%)")
+    require(factors == RTGS_FACTORS, f"{tag} factors {factors} != {RTGS_FACTORS}")
+    others = [k for k in ("K1", "K2", "K4", "K5") if k not in (fwd_k, bwd_k)]
+    require(all(launches[k] > 0 for k in (fwd_k, bwd_k, "K3")),
+            f"{tag} did not launch {fwd_k}, {bwd_k} and K3: {launches}")
+    require(all(launches[k] == 0 for k in others), f"{tag} launched {others}: {launches}")
+    require(launches["K3"] == launches[bwd_k],
+            f"{tag} ran {launches['K3']} K3 merges for {launches[bwd_k]} backwards")
+    require(all(v and all(n > 0 for n in v) for v in at_grid.values()),
+            f"{tag} a factor's frames launched no {fwd_k}: {at_grid}")
+    require(plain_calls == 0, f"{tag} ran a plain version {plain_calls} times")
+    require(np.isfinite(res.ate) and res.ate < 0.30, f"{tag} ATE {res.ate:.3f} m >= 0.30 m")
+    require(res.mean_psnr > 17.0, f"{tag} mean keyframe PSNR {res.mean_psnr:.2f} dB <= 17")
+    require(res.prune_removed > 0, f"{tag} removed no Gaussian")
+    require(res.work.pixels < pixels_f1, f"{tag} pixels not below the factor-1 count")
+    require(host_reads == sum(fired), f"{tag} {host_reads} host reads for {sum(fired)} boundaries")
+    return launches, res, keyframes, rows
+
+
+def phase_rtgs_sched(dev, ds, rtgs_res, rtgs_keyframes):
+    """The RTGS session on the WSU ``schedule`` backend, against [rtgs]."""
+    import numpy as np
+    launches, res, keyframes, _ = phase_rtgs(dev, ds, backend="schedule")
+    pose_d = max(float(np.abs(a - b).max()) for a, b in zip(res.est_w2c, rtgs_res.est_w2c))
+    centre_d = centre_distance(res.est_w2c, rtgs_res.est_w2c)
+    log(f"[rtgs-sched] vs [rtgs]: largest pose entry difference {pose_d:.3g}, camera "
+        f"centres within {centre_d * 1e3:.4f} mm, keyframes {keyframes}, removed "
+        f"{res.prune_removed} vs {rtgs_res.prune_removed}")
+    require(keyframes == rtgs_keyframes,
+            f"[rtgs-sched] keyframes {keyframes} != [rtgs]'s {rtgs_keyframes}")
+    require(res.prune_removed == rtgs_res.prune_removed,
+            f"[rtgs-sched] removed {res.prune_removed} != [rtgs]'s {rtgs_res.prune_removed}")
+    require(centre_d < 1e-3, f"[rtgs-sched] camera centres {centre_d:.3g} m from [rtgs]'s")
+    return launches
+
+
+def phase_norb(dev, ds, main_res, main_per_frame):
+    """The first 4 frames of [main] on ``kernel_norb``: the same poses bit
+    for bit, with K1 launched once more per backward."""
+    import numpy as np
+    import torch
+    from repro_torch.slam.session import SLAMConfig, session_init, session_step
+
+    cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4, iters_track=12,
+                     iters_map=24, backend="kernel_norb")
+    kernels, plains = reset_counters()
+    t0 = time.perf_counter()
+    sess = session_init(ds, cfg, device=dev)
+    for idx in range(1, 4):
+        sess, _ = session_step(sess, ds.frames[idx])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    traj = sess.traj[:4].cpu().numpy()
+    main4 = main_per_frame[3]
+    log(f"[norb] [main]'s first 4 frames on kernel_norb: {wall * 1e3 / 4:.1f} ms per frame; "
+        f"launches {launches} against [main]'s {main4}; poses equal to [main]'s: "
+        f"{bool(np.array_equal(traj, np.stack(main_res.est_w2c[:4])))}")
+    require(np.array_equal(traj, np.stack(main_res.est_w2c[:4])),
+            "[norb] poses differ from [main]'s first 4")
+    require(launches["K2"] == main4["K2"] and launches["K3"] == main4["K3"],
+            f"[norb] backwards {launches['K2']} != [main]'s {main4['K2']}")
+    require(launches["K1"] == main4["K1"] + launches["K2"],
+            f"[norb] K1 {launches['K1']} != forwards {main4['K1']} + backwards "
+            f"{launches['K2']}")
+    require(plain_calls == 0 and launches["K4"] == launches["K5"] == 0,
+            f"[norb] ran a plain version or K4/K5: {launches}, plain {plain_calls}")
+    return launches
+
+
+def phase_algos(dev, ds, frames=6):
+    """GS-SLAM, Photo-SLAM and SplaTAM with RTGS on, on the first
+    ``frames`` frames of the 640x448 scene (``tests/test_system.py``'s
+    bounds)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import SLAMDataset
+    from repro_torch.slam.session import run_sequence
+
+    part = SLAMDataset(ds.name, ds.intrinsics, ds.frames[:frames], ds.gt_field)
+    policies = {"gsslam": KeyframePolicy(kind="gsslam", trans_thresh=0.08, rot_thresh=0.08),
+                "photoslam": KeyframePolicy(kind="photoslam", pho_thresh=0.04),
+                "splatam": KeyframePolicy(kind="splatam")}
+    out = {}
+    for algo, policy in policies.items():
+        cfg = rtgs_config(base_algo=algo, keyframe=policy)
+        kernels, plains = reset_counters()
+        res = run_sequence(part, cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        plain_calls = sum(fn.calls for fn in plains)
+        log(f"[algos] {algo} + RTGS, {W}x{RTGS_H}, {frames} frames: "
+            f"{res.wall_time_s * 1e3 / frames:.1f} ms per frame, ATE {res.ate * 100:.2f} cm, "
+            f"mean keyframe PSNR {res.mean_psnr:.2f} dB, {len(res.keyframe_psnr)} keyframes, "
+            f"removed {res.prune_removed}, alive {res.alive_per_frame}; launches {launches}, "
+            f"plain versions {plain_calls}; work {res.work}")
+        require(all(launches[k] > 0 for k in ("K1", "K2", "K3")),
+                f"[algos] {algo} did not launch K1, K2 and K3: {launches}")
+        require(launches["K3"] == launches["K2"], f"[algos] {algo}: one K3 merge per backward")
+        require(plain_calls == 0, f"[algos] {algo} ran a plain version {plain_calls} times")
+        require(np.isfinite(res.ate) and res.ate < 0.6, f"[algos] {algo} ATE {res.ate:.3f} m")
+        require(res.mean_psnr > 14.0, f"[algos] {algo} PSNR {res.mean_psnr:.2f} dB <= 14")
+        out[algo] = launches
+    return out
+
+
+def phase_profile(dev, ds, ds_rtgs):
     """Where a frame's time goes (after the default run, with ``profile``):
     a ``torch.profiler`` trace of one tracking-only frame and one keyframe of
-    the full-size session, summed by operator, printed as tables."""
+    the full-size MonoGS session, and of one RTGS tracking frame (factor 2,
+    pruning on) of the 640x448 session, summed by operator, printed as
+    tables."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -844,13 +1217,21 @@ def phase_profile(dev, ds):
     with profile(activities=activities):          # the tracer's own start-up
         sess, _ = session_step(sess, ds.frames[1])
         torch.cuda.synchronize()
-    for idx, label in ((2, "tracking-only frame"), (8, "keyframe")):
-        while sess.frame_idx < idx:
-            sess, _ = session_step(sess, ds.frames[sess.frame_idx])
+    rtgs = session_init(ds_rtgs, rtgs_config(), device=dev)
+    rtgs, _ = session_step(rtgs, ds_rtgs.frames[1], factor=RTGS_FACTORS[0])
+    for idx, label in ((2, "tracking-only frame"), (8, "keyframe"),
+                       (2, "RTGS tracking frame (factor 2, pruning)")):
+        if label.startswith("RTGS"):
+            sess, step = rtgs, dict(factor=RTGS_FACTORS[idx - 1])
+        else:
+            step = {}
+            while sess.frame_idx < idx:
+                sess, _ = session_step(sess, ds.frames[sess.frame_idx])
+        frames = ds_rtgs.frames if step else ds.frames
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=activities) as prof:
-            sess, _ = session_step(sess, ds.frames[idx])
+            sess, _ = session_step(sess, frames[idx], **step)
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
@@ -900,16 +1281,25 @@ def main(argv) -> int:
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
     ds = make_room(dev)
+    ds_rtgs = make_room(dev, height=RTGS_H)
     real_rows, merge = phase_real_view(dev, ds)
-    phase_render(dev, ds)
+    grid_rows = phase_new_grids(dev, ds_rtgs)
+    bwd_ms = phase_render(dev, ds)
     phase_small_session(dev)
     counters = launch_counters()[0]
     k3_check_launches = counters["K3"].launches + counters["K3 scan"].launches
-    launches, main_res, main_kfs = phase_main(dev, ds)
+    launches, main_res, main_kfs, main_per_frame = phase_main(dev, ds)
     launches_s = phase_main_sched(dev, ds, main_res, main_kfs)
+    launches_n = phase_norb(dev, ds, main_res, main_per_frame)
+    launches_r, rtgs_res, rtgs_kfs, _ = phase_rtgs(dev, ds_rtgs)
+    launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
+    launches_a = phase_algos(dev, ds_rtgs)
     if argv == ["profile"]:
-        phase_profile(dev, ds)
+        phase_profile(dev, ds, ds_rtgs)
 
+    paths = {"main": launches, "main_sched": launches_s, "norb": launches_n,
+             "rtgs": launches_r, "rtgs_sched": launches_rs,
+             **{f"algos_{a}": v for a, v in launches_a.items()}}
     meta = {
         "K1": ("tile_render_fwd", "src/repro_torch/csrc/tile_render.cu",
                "src/repro/kernels/tile_render.py:175", launches["K1"]),
@@ -924,21 +1314,33 @@ def main(argv) -> int:
     kernels = []
     for key, (name, source, replaces, n_launch) in meta.items():
         b1, b4, rv = kernel_rows[(key, 1)], kernel_rows[(key, 4)], real_rows[key]
-        kernels.append({
+        f2, f4 = grid_rows[2][key], grid_rows[4][key]
+        row = {
             "name": f"{key} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
-            "max_abs_err": max(b1["max_abs_err"], b4["max_abs_err"], rv["max_abs_err"]),
+            "launches_by_path": {p: v[key] for p, v in paths.items()},
+            "max_abs_err": max(o["max_abs_err"] for o in (b1, b4, rv, f2, f4)),
             "ms": b1["ms"], "plain_ms": b1["plain_ms"],
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": None,
             "shape": f"{tiles} tiles x K={K}, B=1 near-tile attrs (tracking); "
                      "*_b4 keys: B=4 stacked views (mapping window); "
-                     "*_real keys: B=1 packed attrs of a ground-truth view",
+                     "*_real keys: B=1 packed attrs of a ground-truth view; "
+                     f"*_f2 / *_f4: a ground-truth view of the {W}x{RTGS_H} scene at "
+                     "factor 2 (280 tiles) / 4 (70 tiles)",
             "ms_b4": b4["ms"], "plain_ms_b4": b4["plain_ms"],
             "bound_ms_b4": b4["bound_ms"],
             "ms_real": rv["ms"], "plain_ms_real": rv["plain_ms"],
             "bound_ms_real": rv["bound_ms"],
-        })
+            "ms_f2": f2["ms"], "plain_ms_f2": f2["plain_ms"], "bound_ms_f2": f2["bound_ms"],
+            "ms_f4": f4["ms"], "plain_ms_f4": f4["plain_ms"], "bound_ms_f4": f4["bound_ms"],
+        }
+        if key == "K1":
+            # kernel_norb's backward re-runs K1: the whole backward's device
+            # time with and without that re-run, B=1 and B=4 ground-truth views.
+            row.update({f"backward_ms_{b}_b{v}": bwd_ms[v][b]
+                        for v in (1, 4) for b in ("kernel", "kernel_norb")})
+        kernels.append(row)
     m1, m4 = merge[1], merge[4]
     kernels.insert(2, {
         "name": "K3 merge_runs (and block_cumsum)", "route": "cuda",
@@ -947,6 +1349,7 @@ def main(argv) -> int:
         # count, then [main-sched]'s; the scan epilogue's counts on both
         # paths; then both epilogues' launches in the checks and timings.
         "launches": launches["K3"], "launches_sched": launches_s["K3"],
+        "launches_by_path": {p: v["K3"] for p, v in paths.items()},
         "scan_launches": launches["K3 scan"], "scan_launches_sched": launches_s["K3 scan"],
         "check_launches": k3_check_launches,
         "max_abs_err": max(m1["max_abs_err"], m4["max_abs_err"], k3["max_abs_err"]),
@@ -970,6 +1373,11 @@ def main(argv) -> int:
                  f"launched from the host; scan_*: block_cumsum at ({tiles * K}, 10), "
                  "scan_library_ms torch.cumsum(x, 0)",
     })
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    require(sorted(k["name"].split()[0] for k in kernels) == ["K1", "K2", "K3", "K4", "K5"]
+            and all(x in k for k in kernels for x in keys),
+            "the kernels line lacks a kernel or a key")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

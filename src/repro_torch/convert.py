@@ -16,6 +16,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core import gaussians as G
 from repro_torch.core.camera import Intrinsics
+from repro_torch.core.pruning import PruneState
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.slam import datasets as D
 from repro_torch.slam.engine import _Stage
@@ -73,9 +74,24 @@ def _work_totals(src) -> list:
     return [int(getattr(src, f)) for f in fields]
 
 
+def prune_state_from_numpy(src, device=None) -> PruneState:
+    """A ``PruneState`` from an object with the reference's eleven leaves;
+    the clocks (``interval``, ``iters_left``, ``opt_steps``) become host
+    ints."""
+    dev = resolve_device(device)
+    dtypes = {"score": torch.float32, "grad_ema": torch.float32,
+              "masked": torch.bool, "stable": torch.bool,
+              "prev_tile_count": torch.int32, "initial_alive": torch.int32,
+              "removed": torch.int32, "age": torch.int32}
+    leaves = {f: _t(getattr(src, f), dev, dtypes[f]) if f in dtypes
+              else int(getattr(src, f)) for f in PruneState._fields}
+    return PruneState(**leaves)
+
+
 def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
                        device=None, seed: int = 0) -> SlamSession:
-    """A MonoGS session from every leaf of a reference session (numpy).
+    """A session from every leaf of a reference session (numpy), its
+    pruning state and parked churn baselines included.
 
     The reference's densify PRNG key has no torch counterpart; the new
     session draws from a generator seeded with ``seed`` (tests inject the
@@ -84,10 +100,13 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     f = src.frags
+    pstate = (prune_state_from_numpy(src.pstate, dev)
+              if src.pstate is not None else None)
     return SlamSession(
-        cfg=cfg, intr=intr, stage=_Stage(intr, cfg, dev),
+        cfg=cfg, intr=intr, stages={1: _Stage(intr, cfg, dev)},
         g=field_from_numpy(src.g, dev),
         map_opt=adam_from_numpy(src.map_opt, dev),
+        pstate=pstate,
         masked=_t(src.masked, dev, torch.bool),
         pose=_t(src.pose, dev, torch.float32),
         velocity=_t(src.velocity, dev, torch.float32),
@@ -98,10 +117,15 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
         kf_w2c=_t(src.kf_w2c, dev, torch.float32),
         kf_count=int(src.kf_count), kf_total=int(src.kf_total),
         last_kf_idx=int(src.last_kf_idx),
+        last_kf_rgb=_t(src.last_kf_rgb, dev, torch.float32),
+        prev_rgb=_t(src.prev_rgb, dev, torch.float32),
+        prev_depth=_t(src.prev_depth, dev, torch.float32),
         kf_psnr=_t(src.kf_psnr, dev, torch.float32),
         alive_log=_t(src.alive_log, dev, torch.int64),
         work=DeviceWork(*(torch.tensor(v, dtype=torch.int64, device=dev)
                           for v in _work_totals(src.work))),
         frags=FragmentLists(*(_t(x, dev, torch.int32) for x in f)),
         rng=rng,
+        tile_baselines={int(k): _t(v, dev, torch.int32)
+                        for k, v in src.tile_baselines.items()},
     )

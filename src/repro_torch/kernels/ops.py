@@ -1,7 +1,7 @@
 """Differentiable rasterization behind the backend registry (counterpart of
 ``repro/kernels/ops.py``).
 
-Three built-in backends:
+Four built-in backends:
 
   ref       the pure-tensor oracle; gradients by torch autograd.
   kernel    the counterpart of the reference's ``pallas`` backend: a
@@ -9,6 +9,10 @@ Three built-in backends:
             tile outputs (the R&B stash, color, depth and final T), and
             whose backward runs K2 on them (GMU level 1) and then GMU level
             2 (K3's merge) over all views at once.
+  kernel_norb  the reference's ``pallas_norb``, the R&B Buffer ablation:
+            the forward keeps only the packed attrs, and the backward
+            re-runs K1 on them to regenerate its four outputs before K2.
+            K1 is deterministic, so it equals ``kernel`` bit for bit.
   schedule  the WSU backend (the reference's ``schedule``): the same under a
             pairwise tile schedule, through K4 and K5.  The images go back
             to tile order, and the level-2 merge reads the gradients in
@@ -148,34 +152,44 @@ def _merge_views(tile_grads, frag_idx, views, n, rows=None):
             merged[..., 8], merged[..., 9])
 
 
+def kernel_backward(attrs, cnt, frag_idx, fwd, g_img, g_depth, g_finalt,
+                    grid: TileGrid, chunk: int, views, n):
+    """The ``kernel`` backends' backward: cotangents to tiles, K2 on K1's
+    four outputs ``fwd`` (color, depth, final T, stash), GMU level 2.
+    ``fwd=None`` regenerates them with K1 first (``kernel_norb``)."""
+    kw = dict(chunk=chunk, tiles_per_view=grid.num_tiles)
+    if fwd is None:
+        fwd = tile_render_fwd(attrs, cnt, grid, **kw)
+    cots = _cotangent_tiles(g_img, g_depth, g_finalt, grid, views)
+    tile_grads = tile_render_bwd(attrs, cnt, *fwd, *cots, grid, **kw)  # (B*T, 10, K)
+    return _merge_views(tile_grads, frag_idx, views, n)
+
+
 class KernelRasterize(torch.autograd.Function):
-    """Forward: pack, K1 (its tile outputs kept).  Backward: cotangents to
-    tiles, K2 on K1's outputs, GMU level 2.  ``frag_idx``/``count`` are index
-    plumbing (no gradient)."""
+    """Forward: pack, K1.  Backward: :func:`kernel_backward`, on K1's
+    outputs kept from the forward when ``reuse_stash`` (the R&B Buffer),
+    else on a K1 re-run.  ``frag_idx``/``count`` are index plumbing (no
+    gradient)."""
 
     @staticmethod
     def forward(ctx, mu2d, conic, color, opacity, depth, frag_idx, count,
-                grid: TileGrid, chunk: int):
+                grid: TileGrid, chunk: int, reuse_stash: bool):
         views = None if mu2d.ndim == 2 else mu2d.shape[0]
         attrs = _pack_views(mu2d, conic, color, opacity, depth, frag_idx,
                             views)
         cnt = count.reshape(-1)
-        color_t, depth_t, finalt_t, stash = tile_render_fwd(
-            attrs, cnt, grid, chunk=chunk, tiles_per_view=grid.num_tiles)
-        ctx.save_for_backward(attrs, cnt, frag_idx, color_t, depth_t, finalt_t,
-                              stash)
+        fwd = tile_render_fwd(attrs, cnt, grid, chunk=chunk,
+                              tiles_per_view=grid.num_tiles)
+        ctx.save_for_backward(attrs, cnt, frag_idx, *(fwd if reuse_stash else ()))
         ctx.grid, ctx.chunk, ctx.views, ctx.n = grid, chunk, views, mu2d.shape[-2]
-        return _images(color_t, depth_t, finalt_t, grid, views)
+        return _images(*fwd[:3], grid, views)
 
     @staticmethod
     def backward(ctx, g_img, g_depth, g_finalt):
         attrs, cnt, frag_idx, *fwd = ctx.saved_tensors
-        grid, views = ctx.grid, ctx.views
-        cots = _cotangent_tiles(g_img, g_depth, g_finalt, grid, views)
-        tile_grads = tile_render_bwd(attrs, cnt, *fwd, *cots, grid,
-                                     chunk=ctx.chunk,
-                                     tiles_per_view=grid.num_tiles)  # (B*T, 10, K)
-        return _merge_views(tile_grads, frag_idx, views, ctx.n) + (None,) * 4
+        return kernel_backward(attrs, cnt, frag_idx, fwd or None, g_img, g_depth,
+                               g_finalt, ctx.grid, ctx.chunk, ctx.views,
+                               ctx.n) + (None,) * 5
 
 
 @register_backend("kernel")
@@ -183,7 +197,15 @@ def _kernel_backend(inputs: RasterInputs, plan: RasterPlan):
     return KernelRasterize.apply(inputs.mu2d, inputs.conic, inputs.color,
                                  inputs.opacity, inputs.depth,
                                  inputs.frags.idx, inputs.frags.count,
-                                 plan.grid, plan.chunk)
+                                 plan.grid, plan.chunk, True)
+
+
+@register_backend("kernel_norb")
+def _kernel_norb_backend(inputs: RasterInputs, plan: RasterPlan):
+    return KernelRasterize.apply(inputs.mu2d, inputs.conic, inputs.color,
+                                 inputs.opacity, inputs.depth,
+                                 inputs.frags.idx, inputs.frags.count,
+                                 plan.grid, plan.chunk, False)
 
 
 # ---------------------------------------------------------------------------

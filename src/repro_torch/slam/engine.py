@@ -7,9 +7,11 @@ runs eagerly, so each scan becomes a Python loop over iterations, each
 loop over views.  Every mapping iteration still renders the whole window
 as ONE batched raster call (one stacked forward and one stacked backward
 launch).  On the ``schedule`` backend a WSU schedule rides next to each
-cached fragment list and is rebuilt only where the list is.  The ported
-cores are the MonoGS slice: no pruning and no sparse stable/unstable
-mapping.
+cached fragment list and is rebuilt only where the list is.  A stage
+renders at one §4.2 downsampling factor; tracking with §4.1 pruning
+(``_track_scan_prune``) accumulates the importance scores from the
+tracking gradients and takes each interval boundary as a host ``if``.
+Sparse stable/unstable mapping is not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import gaussians as G
-from repro_torch.core import lie
+from repro_torch.core import lie, pruning
 from repro_torch.core.camera import Camera, Intrinsics
 from repro_torch.core.losses import slam_loss
 from repro_torch.core.raster_api import RasterPlan
@@ -52,16 +54,19 @@ def _slot(stack, b: int):
 
 
 class _Stage:
-    """The cores at one resolution (the slice runs only factor 1)."""
+    """The cores at one resolution: ``factor`` is the §4.2 per-side
+    downsampling factor of the frames this stage renders."""
 
-    def __init__(self, intr: Intrinsics, cfg, device: torch.device):
-        self.intr = intr
-        self.grid = make_tile_grid(intr.height, intr.width)
+    def __init__(self, intr: Intrinsics, cfg, device: torch.device,
+                 factor: int = 1):
+        self.factor = factor
+        self.intr = intr.scaled(factor)
+        self.grid = make_tile_grid(self.intr.height, self.intr.width)
         self.plan = RasterPlan(grid=self.grid, backend=cfg.backend,
                                capacity=cfg.frag_capacity)
         # WSU: carry a schedule next to each cached fragment list.
         self.scheduled = cfg.backend == "schedule"
-        self.pixels = intr.height * intr.width
+        self.pixels = self.intr.height * self.intr.width
         self.cfg = cfg
         self.device = device
 
@@ -90,17 +95,25 @@ class _Stage:
         return tile_trips(frags.count, self.plan.chunk)
 
     def _track_iter_core(self, g, masked, xi, ostate, base_w2c, obs_rgb,
-                         obs_depth, frags, sched=None):
+                         obs_depth, frags, sched=None, score_grads=False):
         """One tracking iteration: render -> Eq. 6 loss -> pose Adam step.
-        Only the pose needs a gradient here (no pruning in the slice)."""
+        With ``score_grads`` it also returns the gradients of the silenced
+        field's ``mu``, ``log_scale`` and ``quat`` (all that Eq. 7 and the
+        stability EMA read); otherwise only the pose is differentiated."""
         g_eff = silence(g, masked)
         xi_ = xi.detach().requires_grad_(True)
+        leaves = {}
+        if score_grads:
+            leaves = {k: getattr(g_eff, k).detach().requires_grad_(True)
+                      for k in pruning.SCORE_FIELDS}
+            g_eff = g_eff.replace(**leaves)
         out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags, sched)
         loss = slam_loss(out.image, out.depth, out.alpha, obs_rgb, obs_depth,
                          self.cfg.lambda_pho)
-        (g_xi,) = torch.autograd.grad(loss, [xi_])
+        g_xi, *g_leaves = torch.autograd.grad(loss, [xi_, *leaves.values()])
         upd, ostate = Adam(lr=self.cfg.lr_pose).update({"xi": g_xi}, ostate)
-        return loss.detach(), xi + upd["xi"], ostate
+        return (loss.detach(), xi + upd["xi"], ostate,
+                dict(zip(leaves, g_leaves)))
 
     def _map_iter_core(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
                        cache, kf_valid, scheds=None):
@@ -141,7 +154,7 @@ class _Stage:
         alive_eff = (g.alive & ~masked).sum()
         losses = []
         for _ in range(self.cfg.iters_track):
-            loss, xi, ostate = self._track_iter_core(
+            loss, xi, ostate, _ = self._track_iter_core(
                 g, masked, xi, ostate, base_w2c, obs_rgb, obs_depth, frags,
                 sched)
             work = device_work_add(work, frags.total, self.pixels, alive_eff,
@@ -150,6 +163,46 @@ class _Stage:
         fired = torch.zeros(self.cfg.iters_track, dtype=torch.bool,
                             device=self.device)
         return xi, work, torch.stack(losses), fired
+
+    def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
+                          obs_rgb, obs_depth, frags, work: DeviceWork):
+        """The K tracking iterations with §4.1 pruning: every iteration
+        accumulates the Eq. 7 scores from its own backward; on a fired
+        boundary the fragment lists are rebuilt at the current pose before
+        ``interval_update`` (and, on the ``schedule`` backend, the schedule
+        with them).  Returns ``(xi, g, pstate, work, losses, fired)``."""
+        prune_cfg = self.cfg.prune
+        sched = self._sched_core(frags) if self.scheduled else None
+        n_rows = g.capacity
+        # The caller's pre-track build, plus one per fired boundary below.
+        work = work._replace(frag_build_rows=work.frag_build_rows + n_rows)
+        xi = torch.zeros(6, dtype=torch.float32, device=self.device)
+        ostate = _pose_adam_zero(self.device)
+        losses, fired = [], []
+        for _ in range(self.cfg.iters_track):
+            loss, xi, ostate, g_params = self._track_iter_core(
+                g, pstate.masked, xi, ostate, base_w2c, obs_rgb, obs_depth,
+                frags, sched, score_grads=True)
+            alive_eff = (g.alive & ~pstate.masked).sum()
+            work = device_work_add(work, frags.total, self.pixels, alive_eff,
+                                   unstable=0)
+            pstate = pruning.accumulate(pstate, g_params, prune_cfg,
+                                        alive=g.alive)
+
+            def build_fn(gg, mm):
+                return self._build_core(gg, mm, lie.se3_exp(xi) @ base_w2c)
+
+            pstate, g, frags, hit = pruning.cond_interval_update(
+                pstate, g, frags, build_fn, prune_cfg)
+            if hit:
+                work = work._replace(
+                    frag_build_rows=work.frag_build_rows + n_rows)
+                if self.scheduled:
+                    sched = self._sched_core(frags)
+            losses.append(loss)
+            fired.append(hit)
+        return (xi, g, pstate, work, torch.stack(losses),
+                torch.tensor(fired, dtype=torch.bool, device=self.device))
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
                          n_valid: int, work: DeviceWork):

@@ -1,17 +1,24 @@
-"""The SLAM session API (counterpart of ``repro/slam/session.py``), MonoGS
-slice.
+"""The SLAM session API (counterpart of ``repro/slam/session.py``).
 
 * :func:`session_init` ``(dataset, cfg) -> SlamSession`` — seed the map
   from frame 0 and run its bootstrap mapping;
-* :func:`session_step` ``(session, frame) -> (session, StepResult)`` — the
-  fragment build, the tracking iterations, the keyframe decision and, on
-  keyframes, densification, the keyframe-ring mapping and the PSNR eval;
+* :func:`session_step` ``(session, frame, factor=1) -> (session,
+  StepResult)`` — the fragment build, the tracking iterations (with §4.1
+  pruning when ``cfg.prune`` is set, at the §4.2 downsampling ``factor``),
+  the keyframe decision and, on keyframes, densification, the
+  keyframe-ring mapping and the PSNR eval (always at full resolution);
 * :func:`session_finalize` ``(session) -> SLAMResult``;
-* :func:`run_sequence` — all three over a dataset.
+* :func:`run_sequence` — all three over a dataset, choosing each frame's
+  downsampling factor on the host.
+
+The base algorithms are MonoGS, GS-SLAM, Photo-SLAM (geometric tracking,
+``slam/geometric.py``) and SplaTAM, each with its keyframe policy.
 
 The reference traces the step into one XLA dispatch; here it is eager
 PyTorch, so ``lax.cond`` branches are host ``if``s on host integers
-(frame index, keyframe ring fill), which costs no device sync.  A step
+(frame index, keyframe ring fill, the pruning interval clock), which costs
+no device sync.  GS-SLAM's and Photo-SLAM's keyframe decisions read one
+device value each per frame, and a fired pruning boundary reads one.  A step
 writes the session's trajectory, PSNR and alive logs in place and returns
 the advanced session: the session passed in is consumed, as the
 reference's donated buffers are.
@@ -31,13 +38,17 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import gaussians as G
-from repro_torch.core import lie
+from repro_torch.core import lie, pruning
 from repro_torch.core.camera import Intrinsics
-from repro_torch.core.downsample import DownsampleConfig
+from repro_torch.core.downsample import (
+    DownsampleConfig, downsample_depth, downsample_image, side_factor,
+)
 from repro_torch.core.keyframes import KeyframePolicy
 from repro_torch.core.losses import psnr as psnr_dev
+from repro_torch.core.pruning import PruneConfig, PruneState
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.kernels.tile_render import raise_on_sched_fault
+from repro_torch.slam import geometric
 from repro_torch.slam.engine import _Stage
 from repro_torch.slam.metrics import (
     DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_totals,
@@ -48,7 +59,7 @@ from repro_torch.train.optimizer import Adam, AdamState
 
 @dataclasses.dataclass
 class SLAMConfig:
-    base_algo: str = "monogs"       # only monogs is ported
+    base_algo: str = "monogs"       # monogs | gsslam | photoslam | splatam
     iters_track: int = 12
     iters_map: int = 24
     lr_pose: float = 3e-3
@@ -57,27 +68,25 @@ class SLAMConfig:
     capacity: int = 8192            # Gaussian pool size
     frag_capacity: int = 128        # K fragments per tile
     backend: str = "kernel"         # K1/K2 on the card, plain on the CPU;
-                                    # "schedule": the WSU path, K4/K5
+                                    # "schedule": the WSU path, K4/K5;
+                                    # "kernel_norb": no R&B stash, K1
+                                    # re-run in the backward
     map_window: int = 4             # keyframes optimized jointly per iter
     densify_per_kf: int = 384
     seed_stride: int = 3
     seed_opacity: float = 0.7
     map_rebuild_stride: int = 6
     keyframe: KeyframePolicy = dataclasses.field(default_factory=KeyframePolicy)
-    # Parts of the reference not ported yet: setting any of them raises.
-    prune: Optional[object] = None
+    prune: Optional[PruneConfig] = None     # §4.1 adaptive pruning
     downsample: DownsampleConfig = dataclasses.field(
         default_factory=lambda: DownsampleConfig(enabled=False))
+    # Parts of the reference not ported yet: setting any of them raises.
     sparse_opt: bool = False
     paged: Optional[object] = None
     sched_bucket: int = 1           # WSU trip bucketing: only 1 (no rounding)
 
     def __post_init__(self):
         unported = {
-            "base_algo": self.base_algo != "monogs",
-            "keyframe.kind": self.keyframe.kind != "monogs",
-            "prune": self.prune is not None,
-            "downsample": self.downsample.enabled,
             "sparse_opt": self.sparse_opt,
             "paged": self.paged is not None,
             "sched_bucket": self.sched_bucket != 1,
@@ -97,6 +106,7 @@ class SLAMResult:
     work: WorkCounters
     alive_per_frame: List[int]
     wall_time_s: float
+    prune_removed: int = 0
 
     @property
     def mean_psnr(self) -> float:
@@ -110,7 +120,7 @@ class StepResult(NamedTuple):
     alive: torch.Tensor         # () alive Gaussians after the frame
     work: DeviceWork            # this frame's work
     track_losses: torch.Tensor  # (iters_track,)
-    fired: torch.Tensor         # (iters_track,) bool (no pruning: all False)
+    fired: torch.Tensor         # (iters_track,) bool §4.1 boundary iterations
     map_losses: torch.Tensor    # (iters_map,) (zeros if not a keyframe)
 
 
@@ -118,10 +128,11 @@ class StepResult(NamedTuple):
 class SlamSession:
     cfg: SLAMConfig
     intr: Intrinsics
-    stage: _Stage
+    stages: dict                # {downsampling factor: _Stage}
     g: G.GaussianField
     map_opt: AdamState
-    masked: torch.Tensor        # (N,) bool — all False without pruning
+    pstate: Optional[PruneState]  # §4.1 state (None when pruning is off)
+    masked: torch.Tensor        # (N,) bool mask of the prune-off path
     pose: torch.Tensor          # (4, 4) current estimated w2c
     velocity: torch.Tensor      # (4, 4) constant-velocity model
     traj: torch.Tensor          # (F, 4, 4)
@@ -132,15 +143,34 @@ class SlamSession:
     kf_count: int               # populated ring slots (<= W)
     kf_total: int               # keyframes so far
     last_kf_idx: int
+    last_kf_rgb: torch.Tensor   # (H, Wd, 3) for the photoslam policy
+    prev_rgb: torch.Tensor      # (H, Wd, 3) previous frame (photoslam
+    prev_depth: torch.Tensor    # (H, Wd)     geometric tracking)
     kf_psnr: torch.Tensor       # (F,) per-keyframe PSNR log (NaN pad)
     alive_log: torch.Tensor     # (F,) int64
     work: DeviceWork            # run-cumulative counters (int64)
     frags: FragmentLists        # lists of the map at the last keyframe pose
     rng: torch.Generator        # densify draws
+    tile_baselines: dict        # {num_tiles: (T,) i32} §4.1 churn baselines
+                                # parked across §4.2 factor switches
 
     @property
     def device(self) -> torch.device:
         return self.pose.device
+
+    @property
+    def stage(self) -> _Stage:
+        """The full-resolution stage (mapping, densify, eval)."""
+        return self.stages[1]
+
+    @property
+    def cur_masked(self) -> torch.Tensor:
+        return self.pstate.masked if self.pstate is not None else self.masked
+
+    def stage_at(self, factor: int) -> _Stage:
+        if factor not in self.stages:
+            self.stages[factor] = _Stage(self.intr, self.cfg, self.device, factor)
+        return self.stages[factor]
 
     def replace(self, **kw) -> "SlamSession":
         return dataclasses.replace(self, **kw)
@@ -251,12 +281,27 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     session has consumed frame 0."""
     dev = resolve_device(device)
     intr = dataset.intrinsics
+    if cfg.downsample.enabled and (intr.height % 64 or intr.width % 64):
+        raise ValueError(
+            "dynamic downsampling needs 64-divisible frames (16-pixel tiles "
+            f"at the 4x stage); got {intr.height}x{intr.width}")
     st = _Stage(intr, cfg, dev)
+    stages = {1: st}
     f0 = dataset.frames[0]
     num_f = int(max_frames or dataset.num_frames)
     w, h, wd = cfg.map_window, intr.height, intr.width
 
     g = _seed_map(dataset, cfg, dev)
+    pstate = (pruning.init_state(g, st.grid.num_tiles, cfg.prune)
+              if cfg.prune else None)
+    # One parked baseline per §4.2 grid, the -1 sentinel ("no comparable
+    # baseline") until that grid first reaches a boundary.
+    tile_baselines = {}
+    if cfg.prune and cfg.downsample.enabled:
+        for f in (1, 2, 4):
+            stages.setdefault(f, _Stage(intr, cfg, dev, f))
+            t = stages[f].grid.num_tiles
+            tile_baselines[t] = torch.full((t,), -1, dtype=torch.int32, device=dev)
     pose0 = torch.tensor(np.asarray(f0.w2c_gt), dtype=torch.float32, device=dev)
     rgb0, depth0 = _as_image(f0.rgb, dev), _as_image(f0.depth, dev)
     masked = torch.zeros((cfg.capacity,), dtype=torch.bool, device=dev)
@@ -280,18 +325,20 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     rng.manual_seed(seed)
     frags = st._build_core(g, masked, kf_w2c[0])
     return SlamSession(
-        cfg=cfg, intr=intr, stage=st, g=g, map_opt=map_opt, masked=masked,
+        cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
+        pstate=pstate, masked=masked,
         pose=pose0, velocity=torch.eye(4, dtype=torch.float32, device=dev),
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
         kf_w2c=kf_w2c, kf_count=1, kf_total=1, last_kf_idx=0,
+        last_kf_rgb=rgb0, prev_rgb=rgb0, prev_depth=depth0,
         kf_psnr=kf_psnr, alive_log=alive_log, work=work_m,
-        frags=frags, rng=rng)
+        frags=frags, rng=rng, tile_baselines=tile_baselines)
 
 
 @torch.no_grad()
-def _map_branch(sess: SlamSession, g, rgb, depth, new_pose, perm):
+def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
     cfg, st = sess.cfg, sess.stage
-    rendered = st._render_eval_core(g, sess.masked, new_pose)
+    rendered = st._render_eval_core(g, masked, new_pose)
     g, dropped = _densify_core(g, rgb, depth, rendered, new_pose, sess.intr,
                                cfg, sess.rng, perm)
     opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
@@ -301,7 +348,7 @@ def _map_branch(sess: SlamSession, g, rgb, depth, new_pose, perm):
     n2 = min(sess.kf_count + 1, cfg.map_window)
     with torch.enable_grad():
         g, map_opt, work_m, map_losses, image = st._map_scan_masked(
-            g, sess.masked, opt0, kf_w2c, kf_rgb, kf_depth, n2,
+            g, masked, opt0, kf_w2c, kf_rgb, kf_depth, n2,
             device_work_zero(sess.device))
     # The densify-eval render above and the serving-cache refresh below
     # each build one fragment list over g's rows.
@@ -310,36 +357,95 @@ def _map_branch(sess: SlamSession, g, rgb, depth, new_pose, perm):
         frag_build_rows=work_m.frag_build_rows + 2 * g.capacity)
     psnr_v = psnr_dev(image, rgb)
     sess.kf_psnr[sess.kf_total] = psnr_v
-    frags = st._build_core(g, sess.masked, new_pose)
+    frags = st._build_core(g, masked, new_pose)
     return sess.replace(
         g=g, map_opt=map_opt, kf_rgb=kf_rgb, kf_depth=kf_depth, kf_w2c=kf_w2c,
         kf_count=n2, kf_total=sess.kf_total + 1,
         frags=frags), work_m, map_losses, psnr_v
 
 
-def session_step(sess: SlamSession, frame, *,
+def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
+    """Give the pruning state's churn baseline the tile grid of ``factor``,
+    parking the displaced one in the session's ``tile_baselines``."""
+    if sess.pstate is None:
+        return sess
+    tiles = sess.stage_at(factor).grid.num_tiles
+    if sess.pstate.prev_tile_count.shape[0] == tiles:
+        return sess
+    baselines = dict(sess.tile_baselines)       # retile_state writes to it
+    pstate = pruning.retile_state(sess.pstate, tiles, baselines)
+    return sess.replace(pstate=pstate, tile_baselines=baselines)
+
+
+def _track_geometric(sess: SlamSession, base, rgb, depth):
+    """Photo-SLAM's tracking: frame-to-frame direct odometry from the
+    previous frame (no render, so nothing for pruning to accumulate)."""
+    cfg, intr, dev = sess.cfg, sess.intr, sess.device
+    pts_w, cols, _, valid = geometric.backproject_grid(
+        sess.prev_rgb, sess.prev_depth, sess.pose, intr, stride=4)
+    xi = geometric.geometric_track(intr, base, pts_w, cols, valid, rgb, depth,
+                                   iters=cfg.iters_track, lr_pose=cfg.lr_pose)
+    k = cfg.iters_track
+    work = device_work_zero(dev)._replace(
+        pixels=torch.tensor((intr.height // 4) * (intr.width // 4) * k,
+                            dtype=torch.int64, device=dev),
+        iterations=torch.tensor(k, dtype=torch.int64, device=dev))
+    losses = torch.zeros((k,), dtype=torch.float32, device=dev)
+    fired = torch.zeros((k,), dtype=torch.bool, device=dev)
+    return xi, work, losses, fired
+
+
+def session_step(sess: SlamSession, frame, *, factor: int = 1,
                  perm: Optional[torch.Tensor] = None):
     """Advance the session by one frame; returns ``(session, StepResult)``.
-    ``perm`` fixes the densify pick on a keyframe (see ``_densify_core``)."""
-    cfg, st, dev = sess.cfg, sess.stage, sess.device
+    ``factor`` is the §4.2 side factor of this frame's tracking (the host
+    chooses it, as :func:`run_sequence` does).  ``perm`` fixes the densify
+    pick on a keyframe (see ``_densify_core``)."""
+    sess = _maybe_retile(sess, factor)
+    cfg, dev, kp = sess.cfg, sess.device, sess.cfg.keyframe
     rgb, depth = _as_image(frame.rgb, dev), _as_image(frame.depth, dev)
     idx = sess.frame_idx
-    is_kf = cfg.keyframe.is_keyframe(idx, idx - sess.last_kf_idx)
+    d_since = idx - sess.last_kf_idx
+    g, pstate = sess.g, sess.pstate
+    masked = sess.cur_masked
+
+    # GS-SLAM decides after tracking; the others before it.
+    pre_kf = kp.kind != "gsslam" and kp.is_keyframe(
+        idx, d_since, cur_rgb=rgb, last_kf_rgb=sess.last_kf_rgb)
 
     base = sess.velocity @ sess.pose
-    frags = st._build_core(sess.g, sess.masked, base)
-    xi, work_t, track_losses, fired = st._track_scan_noprune(
-        sess.g, sess.masked, base, rgb, depth, frags, device_work_zero(dev))
+    if cfg.base_algo == "photoslam":
+        xi, work_t, track_losses, fired = _track_geometric(sess, base, rgb, depth)
+    else:
+        st_t = sess.stage_at(factor)
+        obs_rgb = downsample_image(rgb, factor)
+        obs_depth = downsample_depth(depth, factor)
+        frags = st_t._build_core(g, masked, base)
+        if pstate is not None:
+            xi, g, pstate, work_t, track_losses, fired = st_t._track_scan_prune(
+                g, pstate, base, obs_rgb, obs_depth, frags, device_work_zero(dev))
+            masked = pstate.masked
+        else:
+            xi, work_t, track_losses, fired = st_t._track_scan_noprune(
+                g, masked, base, obs_rgb, obs_depth, frags, device_work_zero(dev))
     with torch.no_grad():
         new_pose = lie.se3_exp(xi) @ base
         velocity = new_pose @ torch.linalg.inv(sess.pose)
     sess.traj[idx] = new_pose
 
+    if kp.kind == "gsslam":
+        is_kf = kp.is_keyframe(idx, d_since, cur_pose=new_pose,
+                               last_kf_pose=sess.kf_w2c[sess.kf_count - 1])
+    else:
+        is_kf = pre_kf
+
+    sess = sess.replace(pstate=pstate)
     if is_kf:
         sess, work_m, map_losses, psnr_v = _map_branch(
-            sess, sess.g, rgb, depth, new_pose, perm)
-        sess = sess.replace(last_kf_idx=idx)
+            sess, g, masked, rgb, depth, new_pose, perm)
+        sess = sess.replace(last_kf_idx=idx, last_kf_rgb=rgb)
     else:
+        sess = sess.replace(g=g)
         work_m = device_work_zero(dev)
         map_losses = torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev)
         psnr_v = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
@@ -348,6 +454,7 @@ def session_step(sess: SlamSession, frame, *,
     sess.alive_log[idx] = alive_now
     step_work = device_work_merge(work_t, work_m)
     sess = sess.replace(pose=new_pose, velocity=velocity, frame_idx=idx + 1,
+                        prev_rgb=rgb, prev_depth=depth,
                         work=device_work_merge(sess.work, step_work))
     return sess, StepResult(pose=new_pose, is_kf=is_kf, psnr=psnr_v,
                             alive=alive_now, work=step_work,
@@ -372,18 +479,39 @@ def session_finalize(sess: SlamSession, gt_w2c=None, *,
         ate=ate,
         work=WorkCounters(frames=n, **device_work_totals(sess.work)),
         alive_per_frame=[int(x) for x in sess.alive_log[:n].cpu()],
-        wall_time_s=wall_time_s)
+        wall_time_s=wall_time_s,
+        prune_removed=int(sess.pstate.removed) if sess.pstate is not None else 0)
+
+
+def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:
+    """The §4.2 side factor of frame ``idx``, chosen on the host before its
+    step: MonoGS and SplaTAM pre-decide keyframes from the frame counts,
+    Photo-SLAM from the frame's photometric change against the last
+    keyframe, GS-SLAM (which decides after tracking) not at all."""
+    kp, d_since = cfg.keyframe, idx - last_kf_idx
+    if not cfg.downsample.enabled:
+        return 1
+    pre_kf = kp.kind != "gsslam" and kp.is_keyframe(
+        idx, d_since, cur_rgb=dataset.frames[idx].rgb,
+        last_kf_rgb=dataset.frames[last_kf_idx].rgb)
+    return side_factor(d_since, pre_kf, cfg.downsample)
 
 
 def run_sequence(dataset, cfg: SLAMConfig, *, device=None, seed: int = 0,
                  perms: Optional[dict] = None) -> SLAMResult:
-    """Init, one :func:`session_step` per frame, finalize.  ``perms`` maps a
-    frame index to a fixed densify pick (tests only)."""
+    """Init, one :func:`session_step` per frame at the factor
+    :func:`frame_factor` chooses, finalize.  ``perms`` maps a frame index
+    to a fixed densify pick (tests only)."""
     t0 = time.perf_counter()
     sess = session_init(dataset, cfg, seed=seed, device=device)
+    last_kf_idx = 0
     for idx in range(1, dataset.num_frames):
-        sess, _ = session_step(sess, dataset.frames[idx],
-                               perm=None if perms is None else perms.get(idx))
+        sess, res = session_step(
+            sess, dataset.frames[idx],
+            factor=frame_factor(dataset, idx, last_kf_idx, cfg),
+            perm=None if perms is None else perms.get(idx))
+        if res.is_kf:
+            last_kf_idx = idx
     if sess.device.type == "cuda":
         torch.cuda.synchronize(sess.device)
     return session_finalize(sess, gt_w2c=[f.w2c_gt for f in dataset.frames],

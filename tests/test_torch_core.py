@@ -298,6 +298,10 @@ def test_work_counters_accumulate_like_the_reference():
 
 
 def test_monogs_keyframes_and_factor_one_downsampling_match():
+    """MonoGS keyframes and factor-1 downsampling (the identity) against the
+    reference; the other policies and factors 2 and 4, which raised before
+    they were ported, are held in ``test_torch_algos.py`` and
+    ``test_torch_downsample.py``."""
     from repro.core import downsample as jds
     from repro.core.keyframes import KeyframePolicy as JP
     from repro_torch.core import downsample as tds
@@ -306,16 +310,16 @@ def test_monogs_keyframes_and_factor_one_downsampling_match():
     for idx, since in [(0, 0), (3, 3), (8, 8), (9, 1), (17, 9)]:
         assert TP(interval=8).is_keyframe(idx, since) == JP(interval=8).is_keyframe(
             idx, since, eye, eye, None, None)
-    with pytest.raises(NotImplementedError):
-        TP(kind="gsslam").is_keyframe(3, 3)
+    assert TP(kind="gsslam").is_keyframe(3, 3, cur_pose=th(eye), last_kf_pose=th(eye)) \
+        == JP(kind="gsslam").is_keyframe(3, 3, eye, eye, None, None)
     img = np.random.default_rng(0).uniform(size=(16, 16, 3)).astype(np.float32)
     assert np.array_equal(np_(tds.downsample_image(th(img), 1)),
                           np_(jds.downsample_image(jx(img), 1)))
     assert np.array_equal(np_(tds.downsample_depth(th(img[..., 0]), 1)),
                           np_(jds.downsample_depth(jx(img[..., 0]), 1)))
     assert tuple(tds.DownsampleConfig()) == tuple(jds.DownsampleConfig())
-    with pytest.raises(NotImplementedError):
-        tds.downsample_image(th(img), 2)
+    np.testing.assert_allclose(np_(tds.downsample_image(th(img), 2)),
+                               np_(jds.downsample_image(jx(img), 2)), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -400,12 +404,32 @@ def test_carry_across_needs_a_card_unless_told_cpu(monkeypatch, which):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("base_algo", "splatam"), ("sparse_opt", True), ("paged", object()),
-    ("prune", object()), ("downsample", TDownsample(enabled=True))])
+    ("sparse_opt", True), ("paged", object()), ("sched_bucket", 2)])
 def test_unported_config_fields_raise(field, value):
     from repro_torch.slam.session import SLAMConfig
     with pytest.raises(NotImplementedError, match=field):
         SLAMConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("base_algo", "gsslam"), ("base_algo", "photoslam"), ("base_algo", "splatam"),
+    ("prune", "PruneConfig"), ("downsample", TDownsample(enabled=True)),
+    ("backend", "kernel_norb")])
+def test_ported_config_fields_run_a_session(field, value):
+    """Each field the port once refused now runs two frames on the CPU."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SLAMConfig, run_sequence
+    kw = {field: PruneConfig(k0=2) if value == "PruneConfig" else value}
+    if field == "base_algo":
+        kw["keyframe"] = KeyframePolicy(kind=value)
+    ds = make_dataset("room0", num_frames=3, height=64, width=64,
+                      num_gaussians=200, frag_capacity=32, device="cpu")
+    res = run_sequence(ds, SLAMConfig(iters_track=2, iters_map=2, capacity=512,
+                                      frag_capacity=32, map_window=2, **kw),
+                       device="cpu")
+    assert np.isfinite(res.ate) and len(res.est_w2c) == 3
 
 
 @pytest.mark.parametrize("where,args", [("checkout", []), ("alone", []),

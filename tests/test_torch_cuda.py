@@ -16,6 +16,7 @@ import torch
 
 from _kernel_inputs import merge_case_ids, random_attrs
 from repro_torch.core import gaussians as G
+from repro_torch.core import lie
 from repro_torch.core.camera import Camera, Intrinsics, look_at
 from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
@@ -394,3 +395,56 @@ def test_cuda_schedule_session_equals_kernel_session(dev):
     for a, b in zip(res["kernel"].est_w2c, res["schedule"].est_w2c):
         assert np.array_equal(a, b)
     assert res["kernel"].keyframe_psnr == res["schedule"].keyframe_psnr
+
+
+@pytest.mark.parametrize("views", [1, 4])
+def test_cuda_norb_backend_equals_kernel_backend(dev, views):
+    """``kernel_norb`` re-runs K1 in its backward instead of keeping the
+    stash: images and every parameter gradient equal ``kernel``'s bit for
+    bit, with one more K1 launch per backward."""
+    g, cam = _scene(dev)
+    if views > 1:
+        xis = torch.as_tensor(np.random.default_rng(4).normal(size=(views, 6)) * 0.05,
+                              dtype=torch.float32, device=dev)
+        cam = Camera(cam.intrinsics, lie.se3_exp(xis) @ cam.w2c)
+    target = torch.rand((64, 64, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    res = {}
+    for backend in ("kernel", "kernel_norb"):
+        k1 = tile_render_fwd.launches
+        params = {k: v.clone().requires_grad_(True) for k, v in G.params_of(g).items()}
+        out = render(G.with_params(g, params), cam,
+                     RasterPlan(grid=make_tile_grid(64, 64), backend=backend, capacity=64))
+        loss = ((out.image - target) ** 2).mean() + 0.1 * out.depth.mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[backend] = (out.image, out.depth, out.alpha, *grads,
+                        tile_render_fwd.launches - k1)
+    *k, k1_kernel = res["kernel"]
+    *n, k1_norb = res["kernel_norb"]
+    assert all(torch.equal(a, b) for a, b in zip(n, k))
+    assert (k1_kernel, k1_norb) == (1, 2)
+
+
+def test_cuda_rtgs_session_runs_through_the_kernels(dev):
+    """A small RTGS session (pruning and downsampling on) on the card goes
+    through K1, K2 and K3's merge at every factor, removes Gaussians and
+    never runs a plain version."""
+    from repro_torch.core.downsample import DownsampleConfig
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SLAMConfig, run_sequence
+
+    ds = make_dataset("room0", num_frames=6, height=64, width=64,
+                      num_gaussians=400, frag_capacity=48)
+    plains = (tile_render_fwd_plain, tile_render_bwd_plain, gmu.merge_runs_plain)
+    before = [tile_render_fwd.launches, tile_render_bwd.launches, gmu.merge_runs.launches]
+    calls = [p.calls for p in plains]
+    res = run_sequence(ds, SLAMConfig(
+        iters_track=3, iters_map=4, capacity=1024, frag_capacity=48, map_window=2,
+        keyframe=KeyframePolicy(interval=3), prune=PruneConfig(k0=2, step_frac=0.08),
+        downsample=DownsampleConfig(enabled=True)))
+    after = [tile_render_fwd.launches, tile_render_bwd.launches, gmu.merge_runs.launches]
+    assert all(a > b for a, b in zip(after, before))
+    assert after[2] - before[2] == after[1] - before[1]
+    assert [p.calls for p in plains] == calls
+    assert res.prune_removed > 0 and np.isfinite(res.ate)
