@@ -48,10 +48,23 @@ Run from the root of a checkout.  In order, it
 8. runs the same session on the ``schedule`` backend, counters set to 0
    again, and checks that K4, K5 and K3 carried it (one K3 merge per
    backward; no K1, K2 or plain run), the same bounds, the same keyframes,
-   and camera centres within 1 mm of step 7's;
-9. with ``profile``, traces one tracking-only frame and one keyframe of a
-   further full-size session with ``torch.profiler`` and prints the tables
-   and the time of ``aten::index_add_``, ``aten::sort`` and K3's kernels.
+   and camera centres within 1 mm of step 7's; then [main]'s first frames
+   on ``kernel_norb``, the RTGS session (pruning and downsampling, 640x448)
+   on both backends, and the other three base algorithms with RTGS;
+9. ``[scenes]``: builds desk0, stairs0 and corridor0 at 640x480 through K1
+   and holds K1, K2, K4 and K5 against their plain versions on one view of
+   each;
+10. ``[sparse]``: sparse stable/unstable mapping against dense on room0 and
+    desk0 (640x480, 16 frames, ``schedule``), then sparse room0 on
+    ``kernel``: the warmup poses equal dense bit for bit, ``kernel``
+    equals ``schedule``, stable rows stay byte-frozen, the tail optimizes
+    fewer Gaussians and schedules fewer programs, the PSNR loss is under
+    0.35 dB, and K3 merges once per backward with no plain run;
+11. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
+    then one tracking-only frame and one keyframe of a further full-size
+    session and one RTGS tracking frame with ``torch.profiler``, and prints
+    the tables and the time of ``aten::index_add_``, ``aten::sort`` and
+    K3's kernels.
 
 It prints one JSON line with every kernel's numbers, then the card's name
 and power limit, then as the last line
@@ -463,9 +476,9 @@ def phase_gmu(dev):
     return res
 
 
-def gt_view(dev, ds, factor=1):
+def gt_view(dev, ds, factor=1, frame=3):
     """Projection and fragment lists of the ground-truth scene seen from
-    frame 3's pose, at ``1 / factor`` of the dataset's resolution per side."""
+    ``frame``'s pose, at ``1 / factor`` of the dataset's resolution per side."""
     import torch
     from repro_torch.core.camera import Camera
     from repro_torch.core.projection import project
@@ -473,7 +486,7 @@ def gt_view(dev, ds, factor=1):
 
     intr = ds.intrinsics.scaled(factor)
     grid = make_tile_grid(intr.height, intr.width)
-    cam = Camera(intr, torch.as_tensor(ds.frames[3].w2c_gt, device=dev))
+    cam = Camera(intr, torch.as_tensor(ds.frames[frame].w2c_gt, device=dev))
     with torch.no_grad():
         proj = project(ds.gt_field, cam)
         frags = build_fragment_lists(proj, grid, K)
@@ -585,14 +598,14 @@ def merge_suite(dev, grads, ids, n, views):
     return res
 
 
-def make_room(dev, frames=12, height=H):
+def make_scene(dev, name="room0", frames=12, height=H):
     import torch
     from repro_torch.slam.datasets import make_dataset
     t0 = time.perf_counter()
-    ds = make_dataset("room0", num_frames=frames, height=height, width=W,
+    ds = make_dataset(name, num_frames=frames, height=height, width=W,
                       num_gaussians=16384, frag_capacity=K, device=dev)
     torch.cuda.synchronize()
-    log(f"[dataset] room0 {W}x{height}, {frames} frames, 16384 Gaussians: "
+    log(f"[dataset] {name} {W}x{height}, {frames} frames, 16384 Gaussians: "
         f"{time.perf_counter() - t0:.2f} s")
     for f in ds.frames:
         require(bool(torch.isfinite(f.rgb).all() and torch.isfinite(f.depth).all()),
@@ -1199,6 +1212,213 @@ def phase_algos(dev, ds, frames=6):
     return out
 
 
+NEW_SCENES = ("desk0", "stairs0", "corridor0")
+
+
+def phase_scenes(dev):
+    """desk0, stairs0 and corridor0 at 640x480 (4 frames, 16384 ground-truth
+    Gaussians each), rendered through K1 on the card with the counters set
+    to 0 just before: fragments per view, the tile-load tail ratio (max /
+    mean of the counts) and the empty tiles; then K1, K2, K4 and K5 against
+    their plain versions on the packed attrs of frame 3's view, whose tile
+    loads no earlier phase had.  Returns the kernels' numbers and the
+    builds' launches."""
+    import numpy as np
+    out, built = {}, {}
+    for name in NEW_SCENES:
+        kernels, plains = reset_counters()
+        ds = make_scene(dev, name, frames=4)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        plain_calls = sum(fn.calls for fn in plains)
+        require(launches["K1"] == 4 and plain_calls == 0,
+                f"[scenes] {name} not built through K1: {launches}, plain {plain_calls}")
+        built = {k: built.get(k, 0) + v for k, v in launches.items()}
+        views = []
+        for idx in range(4):
+            _, _, frags = gt_view(dev, ds, frame=idx)
+            c = frags.count.double()
+            views.append((int(frags.total), int(frags.overflow), float(c.max() / c.mean()),
+                          int((frags.count == 0).sum())))
+        log(f"[scenes] {name} {W}x{H}: per view (fragments, over K={K}, tile-load tail "
+            f"ratio, empty tiles) {[(t, o, round(r, 2), e) for t, o, r, e in views]}, "
+            f"mean {np.mean([v[0] for v in views]):.0f} fragments per view")
+        grid, proj, frags = gt_view(dev, ds, frame=3)
+        attrs, count = view_attrs(proj, frags)
+        out[name], _ = raster_suite(dev, grid, attrs, count, 1,
+                                    f"{name} view 3 ({int(frags.total)} fragments)", 40)
+        del ds, attrs, count, proj, frags
+    return out, built
+
+
+# The sparse run: the reference bench's configuration
+# (``benchmarks/bench_sparse.py:69-85``) at the main path's sizes.
+SPARSE_FRAMES = 16
+SPARSE_TAIL = SPARSE_FRAMES - 1 - 2      # the post-warmup tail: the last 3 steps
+SPARSE_WARMUP = (SPARSE_TAIL - 1) * 12 + 1
+
+
+def sparse_config(backend, sparse):
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.session import SLAMConfig
+    return SLAMConfig(capacity=131072, frag_capacity=512, map_window=4, iters_track=12,
+                      iters_map=24, keyframe=KeyframePolicy(kind="monogs", interval=2),
+                      backend=backend, sparse_opt=sparse,
+                      prune=PruneConfig(k0=3, step_frac=0.1, stable_ema_beta=0.6,
+                                        stable_rel=4.0, stable_age=4,
+                                        stable_warmup=SPARSE_WARMUP))
+
+
+def sparse_run(dev, ds, backend, sparse, profile=False):
+    """One 16-frame session of the sparse configuration, every counter set
+    to 0 just before: per-step times and work, the tail's sums, launches,
+    peak memory; in sparse runs, at every keyframe with stable rows, whether
+    those rows kept their parameters and zero Adam moments.  With
+    ``profile``, the tail keyframe is traced and its kernel-busy time kept
+    (that step is then left out of the times)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gaussians as G
+    from repro_torch.slam.session import session_finalize, session_init, session_step
+
+    cfg = sparse_config(backend, sparse)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plains = reset_counters()
+    sess = session_init(ds, cfg, device=dev)
+    rows, frozen, busy = [], [], None
+    tail_kf = max(i for i in range(SPARSE_TAIL, SPARSE_FRAMES) if i % 2 == 0)
+    for idx in range(1, SPARSE_FRAMES):
+        before = ({k: v.clone() for k, v in G.params_of(sess.g).items()}
+                  if sparse and idx % 2 == 0 else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile and idx == tail_kf:
+            sess, out, busy = profiled_step(
+                sess, ds.frames[idx], f"[sparse] {ds.name} "
+                f"{'sparse' if sparse else 'dense'} keyframe {idx}")
+        else:
+            sess, out = session_step(sess, ds.frames[idx])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(idx=idx, kf=out.is_kf, ms=ms, profiled=busy is not None
+                         and idx == tail_kf, work=[int(x) for x in out.work],
+                         stable=int(sess.pstate.stable.sum())))
+        if before is not None and out.is_kf and rows[-1]["stable"]:
+            st = sess.pstate.stable
+            after = G.params_of(sess.g)
+            frozen.append(all(torch.equal(before[k][st], after[k][st]) for k in before)
+                          and all(not bool(sess.map_opt.mu[k][st].any())
+                                  and not bool(sess.map_opt.nu[k][st].any())
+                                  for k in before))
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+    fields = list(type(out.work)._fields)
+    tail = {f: sum(r["work"][fields.index(f)] for r in rows if r["idx"] >= SPARSE_TAIL)
+            for f in fields}
+    return dict(res=res, rows=rows, tail=tail, frozen=frozen, busy_ms=busy,
+                launches={k: fn.launches for k, fn in kernels.items()},
+                plain=sum(fn.calls for fn in plains),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def profiled_step(sess, frame, label):
+    """One session step under ``torch.profiler``: the step's results and
+    its kernel-busy time (ms, the kernel rows' device time); prints the
+    operators by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.slam.session import session_step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sess, out = session_step(sess, frame)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[profile] {label}: kernels busy {busy:.1f} ms")
+    log(events.table(sort_by="self_cuda_time_total", row_limit=20))
+    return sess, out, busy
+
+
+def phase_sparse(dev, profile=False):
+    """Sparse stable/unstable mapping against dense mapping on room0 and
+    desk0 (640x480, 16 frames) on the ``schedule`` backend, then sparse room0
+    on ``kernel``.  The stability rule warms up until the last 3 steps (the
+    tail), so the warmup's poses equal the dense run's; the tail optimizes
+    and schedules less."""
+    import numpy as np
+    runs = {}
+    for name in ("room0", "desk0"):
+        ds = make_scene(dev, name, frames=SPARSE_FRAMES)
+        for sparse in (False, True):
+            runs[(name, sparse)] = sparse_run(dev, ds, "schedule", sparse, profile)
+        if name == "room0":
+            runs[("room0", "kernel")] = sparse_run(dev, ds, "kernel", True)
+        del ds
+    for key, r in runs.items():
+        name, mode = key
+        label = {False: "dense", True: "sparse"}.get(mode, "sparse on kernel")
+        res, rows = r["res"], r["rows"]
+        timed = [x for x in rows if not x["profiled"]]
+        kf = [x["ms"] for x in timed if x["kf"]]
+        tr = [x["ms"] for x in timed if not x["kf"]]
+        log(f"[sparse] {name} {label}: ATE {res.ate * 100:.2f} cm, mean keyframe PSNR "
+            f"{res.mean_psnr:.3f} dB, keyframe {np.mean(kf):.1f} ms, tracking-only frame "
+            f"{np.mean(tr):.1f} ms, peak device memory {r['peak_gb']:.2f} GB; stable rows "
+            f"per frame {[x['stable'] for x in rows]}; tail (steps {SPARSE_TAIL}-"
+            f"{SPARSE_FRAMES - 1}) unstable_gaussians {r['tail']['unstable_gaussians']}, "
+            f"sched_programs {r['tail']['sched_programs']}, skipped_fragments "
+            f"{r['tail']['skipped_fragments']}, fragments {r['tail']['fragments']}; "
+            f"launches K3 {r['launches']['K3']}, K1 {r['launches']['K1']}, K2 "
+            f"{r['launches']['K2']}, K4 {r['launches']['K4']}, K5 {r['launches']['K5']}, "
+            f"plain versions {r['plain']}"
+            + ("" if r["busy_ms"] is None else
+               f"; tail keyframe {max(x['idx'] for x in rows if x['profiled'])} under the "
+               f"profiler: kernels busy {r['busy_ms']:.1f} ms"))
+    for name in ("room0", "desk0"):
+        d, sp = runs[(name, False)], runs[(name, True)]
+        fd, fs = d["res"], sp["res"]
+        red_u = d["tail"]["unstable_gaussians"] / max(sp["tail"]["unstable_gaussians"], 1)
+        red_p = d["tail"]["sched_programs"] / max(sp["tail"]["sched_programs"], 1)
+        loss_db = fd.mean_psnr - fs.mean_psnr
+        warm = all(np.array_equal(a, b) for a, b in
+                   zip(fd.est_w2c[:SPARSE_TAIL], fs.est_w2c[:SPARSE_TAIL]))
+        log(f"[sparse] {name}: tail reduction {red_u:.2f}x optimized Gaussians, "
+            f"{red_p:.2f}x scheduled programs; PSNR loss {loss_db:.3f} dB; ATE "
+            f"{fd.ate * 100:.2f} -> {fs.ate * 100:.2f} cm; warmup poses (frames 0-"
+            f"{SPARSE_TAIL - 1}) equal to dense: {warm}; stable rows byte-frozen at "
+            f"{sum(sp['frozen'])} of {len(sp['frozen'])} checked keyframes")
+        require(warm, f"[sparse] {name}: warmup poses differ from the dense run's")
+        require(sp["frozen"] and all(sp["frozen"]),
+                f"[sparse] {name}: stable rows moved in a mapping phase {sp['frozen']}")
+        require(sp["tail"]["unstable_gaussians"] < d["tail"]["unstable_gaussians"]
+                and sp["tail"]["sched_programs"] < d["tail"]["sched_programs"],
+                f"[sparse] {name}: the tail optimized or scheduled no less than dense")
+        require(sp["tail"]["skipped_fragments"] > 0, f"[sparse] {name}: nothing skipped")
+        require(loss_db < 0.35, f"[sparse] {name}: PSNR loss {loss_db:.3f} dB >= 0.35")
+        require(np.isfinite(fs.ate) and fs.ate <= fd.ate * 1.05 + 0.02,
+                f"[sparse] {name}: ATE {fs.ate:.4f} m outside 5% + 2 cm of {fd.ate:.4f}")
+    rk, rs = runs[("room0", "kernel")]["res"], runs[("room0", True)]["res"]
+    same = (all(np.array_equal(a, b) for a, b in zip(rk.est_w2c, rs.est_w2c))
+            and rk.keyframe_psnr == rs.keyframe_psnr)
+    log(f"[sparse] room0 sparse: kernel == schedule bit for bit (poses, PSNR): {same}")
+    require(same, "[sparse] sparse kernel and schedule runs differ")
+    for (name, mode), r in runs.items():
+        fwd, bwd = ("K1", "K2") if mode == "kernel" else ("K4", "K5")
+        others = [k for k in ("K1", "K2", "K4", "K5") if k not in (fwd, bwd)]
+        tag = f"[sparse] {name} " + {False: "dense", True: "sparse"}.get(mode, mode)
+        require(r["plain"] == 0, f"{tag}: plain versions ran {r['plain']} times")
+        require(r["launches"][fwd] > 0 and r["launches"]["K3"] == r["launches"][bwd] > 0,
+                f"{tag}: K3 merges != backwards: {r['launches']}")
+        require(all(r["launches"][k] == 0 for k in others),
+                f"{tag}: launched {others}: {r['launches']}")
+    paths = {f"sparse_{n}" + ("" if m is True else "_dense" if m is False else "_kernel"):
+             r["launches"] for (n, m), r in runs.items()}
+    busy = {n: (runs[(n, False)]["busy_ms"], runs[(n, True)]["busy_ms"])
+            for n in ("room0", "desk0")}
+    return paths, busy
+
+
 def phase_profile(dev, ds, ds_rtgs):
     """Where a frame's time goes (after the default run, with ``profile``):
     a ``torch.profiler`` trace of one tracking-only frame and one keyframe of
@@ -1280,10 +1500,11 @@ def main(argv) -> int:
     phase_build()
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
-    ds = make_room(dev)
-    ds_rtgs = make_room(dev, height=RTGS_H)
+    ds = make_scene(dev)
+    ds_rtgs = make_scene(dev, height=RTGS_H)
     real_rows, merge = phase_real_view(dev, ds)
     grid_rows = phase_new_grids(dev, ds_rtgs)
+    scene_rows, launches_sc = phase_scenes(dev)
     bwd_ms = phase_render(dev, ds)
     phase_small_session(dev)
     counters = launch_counters()[0]
@@ -1294,12 +1515,16 @@ def main(argv) -> int:
     launches_r, rtgs_res, rtgs_kfs, _ = phase_rtgs(dev, ds_rtgs)
     launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
     launches_a = phase_algos(dev, ds_rtgs)
+    launches_sp, busy = phase_sparse(dev, profile=argv == ["profile"])
     if argv == ["profile"]:
+        log("[profile] [sparse] tail keyframe (step 14), kernels busy: " + ", ".join(
+            f"{n} dense {d:.1f} ms, sparse {sp:.1f} ms" for n, (d, sp) in busy.items()))
         phase_profile(dev, ds, ds_rtgs)
 
     paths = {"main": launches, "main_sched": launches_s, "norb": launches_n,
              "rtgs": launches_r, "rtgs_sched": launches_rs,
-             **{f"algos_{a}": v for a, v in launches_a.items()}}
+             **{f"algos_{a}": v for a, v in launches_a.items()},
+             "scenes": launches_sc, **launches_sp}
     meta = {
         "K1": ("tile_render_fwd", "src/repro_torch/csrc/tile_render.cu",
                "src/repro/kernels/tile_render.py:175", launches["K1"]),
@@ -1315,11 +1540,12 @@ def main(argv) -> int:
     for key, (name, source, replaces, n_launch) in meta.items():
         b1, b4, rv = kernel_rows[(key, 1)], kernel_rows[(key, 4)], real_rows[key]
         f2, f4 = grid_rows[2][key], grid_rows[4][key]
+        sc = {n: scene_rows[n][key] for n in NEW_SCENES}
         row = {
             "name": f"{key} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
             "launches_by_path": {p: v[key] for p, v in paths.items()},
-            "max_abs_err": max(o["max_abs_err"] for o in (b1, b4, rv, f2, f4)),
+            "max_abs_err": max(o["max_abs_err"] for o in (b1, b4, rv, f2, f4, *sc.values())),
             "ms": b1["ms"], "plain_ms": b1["plain_ms"],
             "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": None,
@@ -1327,13 +1553,15 @@ def main(argv) -> int:
                      "*_b4 keys: B=4 stacked views (mapping window); "
                      "*_real keys: B=1 packed attrs of a ground-truth view; "
                      f"*_f2 / *_f4: a ground-truth view of the {W}x{RTGS_H} scene at "
-                     "factor 2 (280 tiles) / 4 (70 tiles)",
+                     "factor 2 (280 tiles) / 4 (70 tiles); *_desk0 / *_stairs0 / "
+                     f"*_corridor0: frame 3's ground-truth view of that scene at {W}x{H}",
             "ms_b4": b4["ms"], "plain_ms_b4": b4["plain_ms"],
             "bound_ms_b4": b4["bound_ms"],
             "ms_real": rv["ms"], "plain_ms_real": rv["plain_ms"],
             "bound_ms_real": rv["bound_ms"],
             "ms_f2": f2["ms"], "plain_ms_f2": f2["plain_ms"], "bound_ms_f2": f2["bound_ms"],
             "ms_f4": f4["ms"], "plain_ms_f4": f4["plain_ms"], "bound_ms_f4": f4["bound_ms"],
+            **{f"{k}_{n}": o[k] for n, o in sc.items() for k in ("ms", "plain_ms", "bound_ms")},
         }
         if key == "K1":
             # kernel_norb's backward re-runs K1: the whole backward's device

@@ -14,7 +14,8 @@ since the last boundary and doubles otherwise.
 
 :class:`PruneState` also carries the stability bit (gradient-magnitude EMA,
 low-EMA age, ``stable``) that :func:`accumulate` maintains whenever it is
-given ``alive``; sparse mapping, which consumes it, is not ported yet.
+given ``alive``; sparse mapping consumes it (:func:`optimizable_mask`,
+:func:`mark_born`).
 
 The reference keeps every leaf on the device and runs the boundary under
 ``lax.cond``.  Here the interval clock (``interval``, ``iters_left``) and
@@ -119,6 +120,24 @@ def accumulate(state: PruneState, param_grads: dict, cfg: PruneConfig,
     if out.opt_steps < cfg.stable_warmup:
         stable = torch.zeros_like(stable)
     return out._replace(grad_ema=ema, age=age, stable=stable)
+
+
+def optimizable_mask(state: PruneState) -> torch.Tensor:
+    """(N,) bool: the rows sparse mapping optimizes and rasterizes, every
+    row not stability-frozen.  Dead and masked rows stay in on purpose:
+    they are silenced and get zero gradients, and keeping them makes the
+    all-unstable case equal the dense path bit for bit."""
+    return ~state.stable
+
+
+def mark_born(state: PruneState, born: torch.Tensor) -> PruneState:
+    """Reset the stability of rows densification just wrote (``born``,
+    (N,) bool): they land in dead slots whose stale EMA and age would
+    otherwise freeze a newcomer through its first mapping phase."""
+    return state._replace(
+        grad_ema=torch.where(born, torch.zeros_like(state.grad_ema), state.grad_ema),
+        age=torch.where(born, torch.zeros_like(state.age), state.age),
+        stable=state.stable & ~born)
 
 
 def effective_opacity_mask(g: GaussianField, state: PruneState) -> torch.Tensor:

@@ -47,19 +47,22 @@ def _composite(color_pm, depth_pm, final_t, frags, proj, background):
 
 def render(g: GaussianField, cam: Camera, plan: RasterPlan,
            frags: Optional[FragmentLists] = None, *,
-           background=(0.0, 0.0, 0.0), device=None) -> RenderOutput:
+           background=(0.0, 0.0, 0.0), keep: Optional[torch.Tensor] = None,
+           device=None) -> RenderOutput:
     """Render ``g`` from ``cam`` under ``plan``.
 
     Runs on the card unless ``device="cpu"``; the field and camera must
     already live there.  Pass cached ``frags`` (leading B when batched) to
-    reuse fragment lists across iterations."""
+    reuse fragment lists across iterations.  ``keep`` (an (N,) bool mask)
+    goes to the fragment build when ``frags`` is None: rows outside it
+    render nothing (sparse mapping passes ``~stable``)."""
     dev = resolve_device(device)
     check_on(g.mu, dev, "the Gaussian field")
     check_on(cam.w2c, dev, "the camera pose")
     if cam.w2c.ndim == 2:
         proj = project(g, cam)
         if frags is None:
-            frags = build_fragment_lists(proj, plan.grid, plan.capacity)
+            frags = build_fragment_lists(proj, plan.grid, plan.capacity, keep)
         out = ops.rasterize(RasterInputs.from_projection(proj, frags), plan)
         return _composite(*out, frags, proj, background)
 
@@ -67,7 +70,7 @@ def render(g: GaussianField, cam: Camera, plan: RasterPlan,
     projs = [project(g, Camera(cam.intrinsics, cam.w2c[b])) for b in range(views)]
     if frags is None:
         frags = stack_fragment_lists([
-            build_fragment_lists(p, plan.grid, plan.capacity) for p in projs])
+            build_fragment_lists(p, plan.grid, plan.capacity, keep) for p in projs])
     proj = ProjectedGaussians(*(torch.stack(xs) for xs in zip(*projs)))
     out = ops.rasterize(RasterInputs.from_projection(proj, frags), plan)
     return _composite(*out, frags, proj, background)

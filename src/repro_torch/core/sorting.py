@@ -18,7 +18,7 @@ one view at a time.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,9 +57,17 @@ def _tile_range(lo_hi: torch.Tensor, n: int) -> torch.Tensor:
 
 @torch.no_grad()
 def build_fragment_lists(proj: ProjectedGaussians, grid: TileGrid,
-                         capacity: int) -> FragmentLists:
-    """Vectorized tile intersection + depth sort (index plumbing only)."""
+                         capacity: int,
+                         keep: Optional[torch.Tensor] = None) -> FragmentLists:
+    """Vectorized tile intersection + depth sort (index plumbing only).
+
+    ``keep`` (an (N,) bool mask) drops rows from the lists altogether:
+    sparse mapping passes ``~stable``, so frozen Gaussians emit no fragments
+    and tiles only they cover get ``count == 0``.  An all-True ``keep``
+    gives the lists of ``keep=None``."""
     mu2d, radius, valid = proj.mu2d, proj.radius, proj.valid
+    if keep is not None:
+        valid = valid & keep
     depth = proj.depth
     dev = mu2d.device
     n = mu2d.shape[0]
@@ -93,6 +101,24 @@ def build_fragment_lists(proj: ProjectedGaussians, grid: TileGrid,
     out = torch.full((grid.num_tiles, capacity), -1, dtype=torch.int32, device=dev)
     out[rows, (pos[rows, cols_n] - 1).long()] = order[cols_n].to(torch.int32)
     return FragmentLists(idx=out, count=count, overflow=overflow, total=total)
+
+
+@torch.no_grad()
+def count_skipped_fragments(proj: ProjectedGaussians, grid: TileGrid,
+                            keep: torch.Tensor) -> torch.Tensor:
+    """() int32: the tile-Gaussian intersections a ``keep``-masked
+    :func:`build_fragment_lists` leaves out against the unmasked build.  A
+    valid row's membership count is its clipped tile box's area, so this
+    sums box areas over the valid rows ``keep`` drops: (N,) math, no (T, N)
+    membership matrix.  Counted before the capacity cut, as ``total``."""
+    mu2d, radius = proj.mu2d, proj.radius
+    tx0 = _tile_range(mu2d[:, 0] - radius, grid.grid_w)
+    tx1 = _tile_range(mu2d[:, 0] + radius, grid.grid_w)
+    ty0 = _tile_range(mu2d[:, 1] - radius, grid.grid_h)
+    ty1 = _tile_range(mu2d[:, 1] + radius, grid.grid_h)
+    area = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
+    dropped = proj.valid & ~keep
+    return torch.where(dropped, area, torch.zeros_like(area)).sum(dtype=torch.int32)
 
 
 def stack_fragment_lists(lists):

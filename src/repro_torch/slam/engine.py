@@ -11,7 +11,9 @@ cached fragment list and is rebuilt only where the list is.  A stage
 renders at one §4.2 downsampling factor; tracking with §4.1 pruning
 (``_track_scan_prune``) accumulates the importance scores from the
 tracking gradients and takes each interval boundary as a host ``if``.
-Sparse stable/unstable mapping is not ported.
+With ``cfg.sparse_opt`` mapping freezes the stability-frozen Gaussians out
+of the Adam step, the fragment builds and the WSU schedule, and composites
+every iteration's render over one stable-background render per phase.
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
 from repro_torch.core.schedule import scheduled_trips
 from repro_torch.core.sorting import (
-    FragmentLists, build_fragment_lists, make_tile_grid, stack_fragment_lists,
-    tile_trips, update_fragment_slot,
+    FragmentLists, build_fragment_lists, count_skipped_fragments, make_tile_grid,
+    stack_fragment_lists, tile_trips, update_fragment_slot,
 )
 from repro_torch.core.projection import project
 from repro_torch.kernels.ops import build_plan_schedule
 from repro_torch.slam.metrics import DeviceWork, device_work_add
-from repro_torch.train.optimizer import Adam, AdamState, apply_updates
+from repro_torch.train.optimizer import (
+    Adam, AdamState, apply_updates, apply_updates_masked,
+)
 
 
 def silence(g: G.GaussianField, masked: torch.Tensor) -> G.GaussianField:
@@ -69,6 +73,11 @@ class _Stage:
         self.pixels = self.intr.height * self.intr.width
         self.cfg = cfg
         self.device = device
+        # Sparse stable/unstable mapping reads the stability bit that
+        # PruneState carries, so it needs pruning on.
+        if cfg.sparse_opt and cfg.prune is None:
+            raise ValueError("sparse_opt=True requires cfg.prune (the "
+                             "stability bit rides PruneState)")
 
     def _render(self, g, w2c, frags=None, sched=None):
         return render(g, Camera(self.intr, w2c), self.plan.with_sched(sched),
@@ -77,9 +86,23 @@ class _Stage:
     # ---- cores -----------------------------------------------------------
 
     @torch.no_grad()
-    def _build_core(self, g, masked, w2c) -> FragmentLists:
+    def _build_core(self, g, masked, w2c, keep=None) -> FragmentLists:
         proj = project(silence(g, masked), Camera(self.intr, w2c))
-        return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity)
+        return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
+                                    keep)
+
+    @torch.no_grad()
+    def _sparse_build_core(self, g, masked, keep, w2c):
+        """The fragment lists of the rows in ``keep`` only, and the ()
+        int32 count of fragments the mask dropped against the dense build
+        (0 when ``keep`` is None).  Tiles that only dropped rows cover get
+        ``count == 0``."""
+        proj = project(silence(g, masked), Camera(self.intr, w2c))
+        frags = build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
+                                     keep)
+        if keep is None:
+            return frags, torch.zeros((), dtype=torch.int32, device=self.device)
+        return frags, count_skipped_fragments(proj, self.grid, keep)
 
     def _sched_core(self, frags: FragmentLists):
         """The WSU schedule of one view's cached fragment counts (device
@@ -116,9 +139,18 @@ class _Stage:
                 dict(zip(leaves, g_leaves)))
 
     def _map_iter_core(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
-                       cache, kf_valid, scheds=None):
+                       cache, kf_valid, scheds=None, unstable=None,
+                       stable_bg=None):
         """One mapping iteration over the whole keyframe window: one batched
-        render, the valid-masked mean window loss, one Adam step."""
+        render, the valid-masked mean window loss, one Adam step.
+
+        ``unstable`` (an (N,) bool row mask) makes the Adam step sparse: the
+        other rows get no update, keep their moments and keep their bits.
+        ``stable_bg`` is the per-slot ``(image, depth, final_t)`` of the
+        stable-only render: the unstable render is composited over it
+        (``c_u + T_u c_s``, ``T_u T_s``), so the loss still sees the whole
+        map.  With no stable row it is ``(0, 0, 1)`` and the composite
+        reduces to the dense expressions bit for bit."""
         # As in the reference, the differentiated params are g's own (the
         # silenced opacities are replaced); rows off the fragment lists get
         # exactly zero gradient either way.
@@ -126,15 +158,46 @@ class _Stage:
         params_g = G.params_of(g)
         params = {k: p.detach().requires_grad_(True) for k, p in params_g.items()}
         out = self._render(G.with_params(g_eff, params), kf_w2c, cache, scheds)
+        if stable_bg is None:
+            img, dep, alp = out.image, out.depth, out.alpha
+        else:
+            bg_img, bg_dep, bg_t = stable_bg
+            t = out.final_t
+            img = out.image + t[..., None] * bg_img
+            dep = out.depth + t * bg_dep
+            alp = 1.0 - t * bg_t
         w_len = kf_w2c.shape[0]
         vw = kf_valid.to(torch.float32)
-        loss = sum(slam_loss(out.image[b], out.depth[b], out.alpha[b],
+        loss = sum(slam_loss(img[b], dep[b], alp[b],
                              kf_rgb[b], kf_depth[b], self.cfg.lambda_pho) * vw[b]
                    for b in range(w_len)) / vw.sum()
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        upd, opt_state = Adam(lr=self.cfg.lr_map).update(grads, opt_state)
-        new = apply_updates(params_g, upd)
+        opt = Adam(lr=self.cfg.lr_map)
+        if unstable is None:
+            upd, opt_state = opt.update(grads, opt_state)
+            new = apply_updates(params_g, upd)
+        else:
+            upd, opt_state = opt.update_masked(grads, opt_state, unstable)
+            new = apply_updates_masked(params_g, upd, unstable)
         return loss.detach(), G.with_params(g, new), opt_state
+
+    @torch.no_grad()
+    def _stable_bg_core(self, g, masked, stable, kf_w2c):
+        """The stable-only map rendered for every window slot, forward only:
+        the background sparse mapping composites over.  Stable rows stay
+        bit-frozen through the phase, so one render serves every iteration.
+        Returns ``(image, depth, final_t)`` and each slot's fragment total
+        and raster programs, which the caller counts once."""
+        w_len = kf_w2c.shape[0]
+        cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b], stable)
+                                      for b in range(w_len)])
+        scheds = self._sched_core(cache) if self.scheduled else None
+        out = self._render(silence(g, masked), kf_w2c, cache, scheds)
+        progs = torch.stack([
+            self._slot_programs_core(
+                _slot(cache, b), None if scheds is None else _slot(scheds, b))
+            for b in range(w_len)])
+        return (out.image, out.depth, out.final_t), cache.total, progs
 
     @torch.no_grad()
     def _render_eval_core(self, g, masked, w2c):
@@ -205,24 +268,48 @@ class _Stage:
                 torch.tensor(fired, dtype=torch.bool, device=self.device))
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
-                         n_valid: int, work: DeviceWork):
+                         n_valid: int, work: DeviceWork, stable=None):
         """The mapping phase over the fixed-shape keyframe ring: the window
         has ``map_window`` slots, the first ``n_valid`` populated (oldest
         first).  Invalid slots render but add nothing to the loss, the
         counters, the round-robin stride rebuild or the final eval.  On the
         ``schedule`` backend each window slot's schedule is rebuilt with
-        its fragment list."""
+        its fragment list.
+
+        ``stable`` (an (N,) bool mask, ``cfg.sparse_opt``) freezes the
+        stable rows: the Adam step skips them, the fragment builds (stride
+        rebuilds too) and so the schedules leave them out, and one
+        stable-background render, counted once over the valid slots,
+        stands in for them in every iteration's loss.  The final eval
+        render stays dense.  An all-False ``stable`` equals ``None`` bit
+        for bit."""
         cfg = self.cfg
         stride = cfg.map_rebuild_stride
         w_len = kf_w2c.shape[0]
         kf_valid = torch.arange(w_len, device=self.device) < n_valid
         valid_i = kf_valid.to(torch.int64)
+        # Dead and masked rows stay in (pruning.optimizable_mask): they
+        # render nothing and get zero gradients either way.
+        keep = None if stable is None else ~stable
         # One view at a time: a full-size view's membership matrix is ~0.8 GB.
-        cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b])
-                                      for b in range(w_len)])
+        built = [self._sparse_build_core(g, masked, keep, kf_w2c[b])
+                 for b in range(w_len)]
+        cache = stack_fragment_lists([f for f, _ in built])
+        skipped_w = torch.stack([n for _, n in built])
+        stable_bg = None
+        if stable is not None:
+            stable_bg, bg_total, bg_progs = self._stable_bg_core(
+                g, masked, stable, kf_w2c)
+            work = work._replace(
+                fragments=work.fragments + (bg_total.to(torch.int64) * valid_i).sum(),
+                sched_programs=work.sched_programs
+                + (bg_progs.to(torch.int64) * valid_i).sum())
         scheds = (stack_fragment_lists([self._sched_core(_slot(cache, b))
                                         for b in range(w_len)])
                   if self.scheduled else None)
+        # The window builds, the stride rebuilds and the eval render's
+        # build; the stable-background builds are left out, so the
+        # all-unstable sparse path counts what the dense one does.
         work = work._replace(
             frag_build_rows=work.frag_build_rows
             + (n_valid + cfg.iters_map // stride + 1) * g.capacity)
@@ -230,8 +317,9 @@ class _Stage:
         for it in range(cfg.iters_map):
             loss, g, opt_state = self._map_iter_core(
                 g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid,
-                scheds)
+                scheds, unstable=keep, stable_bg=stable_bg)
             n_alive = g.alive.sum()
+            n_opt = n_alive if stable is None else (g.alive & ~stable).sum()
             progs = torch.stack([
                 self._slot_programs_core(
                     _slot(cache, b), None if scheds is None else _slot(scheds, b))
@@ -239,11 +327,13 @@ class _Stage:
             work = device_work_add(
                 work, (cache.total.to(torch.int64) * valid_i).sum(),
                 n_valid * self.pixels, n_valid * n_alive,
-                unstable=n_valid * n_alive, programs=(progs * valid_i).sum())
+                unstable=n_valid * n_opt, programs=(progs * valid_i).sum(),
+                skipped=(skipped_w.to(torch.int64) * valid_i).sum())
             losses.append(loss)
             if (it + 1) % stride == 0:
                 slot = ((it + 1) // stride - 1) % n_valid   # round-robin
-                fresh = self._build_core(g, masked, kf_w2c[slot])
+                fresh, skipped_w[slot] = self._sparse_build_core(
+                    g, masked, keep, kf_w2c[slot])
                 cache = update_fragment_slot(cache, slot, fresh)
                 if self.scheduled:
                     scheds = update_fragment_slot(scheds, slot,

@@ -6,7 +6,8 @@
   StepResult)`` — the fragment build, the tracking iterations (with §4.1
   pruning when ``cfg.prune`` is set, at the §4.2 downsampling ``factor``),
   the keyframe decision and, on keyframes, densification, the
-  keyframe-ring mapping and the PSNR eval (always at full resolution);
+  keyframe-ring mapping (sparse over the unstable Gaussians when
+  ``cfg.sparse_opt``) and the PSNR eval (always at full resolution);
 * :func:`session_finalize` ``(session) -> SLAMResult``;
 * :func:`run_sequence` — all three over a dataset, choosing each frame's
   downsampling factor on the host.
@@ -80,14 +81,16 @@ class SLAMConfig:
     prune: Optional[PruneConfig] = None     # §4.1 adaptive pruning
     downsample: DownsampleConfig = dataclasses.field(
         default_factory=lambda: DownsampleConfig(enabled=False))
+    sparse_opt: bool = False        # sparse stable/unstable mapping: freeze
+                                    # stable Gaussians out of the Adam step,
+                                    # the fragment builds and the schedule
+                                    # (needs prune: the bit rides PruneState)
     # Parts of the reference not ported yet: setting any of them raises.
-    sparse_opt: bool = False
     paged: Optional[object] = None
     sched_bucket: int = 1           # WSU trip bucketing: only 1 (no rounding)
 
     def __post_init__(self):
         unported = {
-            "sparse_opt": self.sparse_opt,
             "paged": self.paged is not None,
             "sched_bucket": self.sched_bucket != 1,
         }
@@ -339,8 +342,15 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
 def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
     cfg, st = sess.cfg, sess.stage
     rendered = st._render_eval_core(g, masked, new_pose)
-    g, dropped = _densify_core(g, rgb, depth, rendered, new_pose, sess.intr,
-                               cfg, sess.rng, perm)
+    g2, dropped = _densify_core(g, rgb, depth, rendered, new_pose, sess.intr,
+                                cfg, sess.rng, perm)
+    pstate, stable = sess.pstate, None
+    if cfg.sparse_opt:
+        # Newcomers land in dead slots whose stale EMA and age could freeze
+        # them at birth.
+        pstate = pruning.mark_born(pstate, g2.alive & ~g.alive)
+        stable = pstate.stable
+    g = g2
     opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
     kf_rgb = _push_ring(sess.kf_rgb, rgb, sess.kf_count)
     kf_depth = _push_ring(sess.kf_depth, depth, sess.kf_count)
@@ -349,7 +359,7 @@ def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
     with torch.enable_grad():
         g, map_opt, work_m, map_losses, image = st._map_scan_masked(
             g, masked, opt0, kf_w2c, kf_rgb, kf_depth, n2,
-            device_work_zero(sess.device))
+            device_work_zero(sess.device), stable)
     # The densify-eval render above and the serving-cache refresh below
     # each build one fragment list over g's rows.
     work_m = work_m._replace(
@@ -357,9 +367,11 @@ def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
         frag_build_rows=work_m.frag_build_rows + 2 * g.capacity)
     psnr_v = psnr_dev(image, rgb)
     sess.kf_psnr[sess.kf_total] = psnr_v
+    # The serving cache stays dense: renders from outside see the whole map.
     frags = st._build_core(g, masked, new_pose)
     return sess.replace(
-        g=g, map_opt=map_opt, kf_rgb=kf_rgb, kf_depth=kf_depth, kf_w2c=kf_w2c,
+        g=g, map_opt=map_opt, pstate=pstate, kf_rgb=kf_rgb, kf_depth=kf_depth,
+        kf_w2c=kf_w2c,
         kf_count=n2, kf_total=sess.kf_total + 1,
         frags=frags), work_m, map_losses, psnr_v
 

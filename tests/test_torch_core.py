@@ -403,20 +403,29 @@ def test_carry_across_needs_a_card_unless_told_cpu(monkeypatch, which):
         assert calls[which](device="cpu").step.device.type == "cpu"
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sparse_opt", True), ("paged", object()), ("sched_bucket", 2)])
-def test_unported_config_fields_raise(field, value):
+@pytest.mark.parametrize("field,value,error,match", [
+    ("sparse_opt", True, ValueError, "sparse_opt=True requires cfg.prune"),
+    ("paged", object(), NotImplementedError, "paged"),
+    ("sched_bucket", 2, NotImplementedError, "sched_bucket")],
+    ids=["sparse_opt-True", "paged-value1", "sched_bucket-2"])
+def test_unported_config_fields_raise(field, value, error, match):
+    """Unported fields raise when the config is made; ``sparse_opt``
+    without ``prune`` raises the reference's ``ValueError`` when a stage is
+    built from it (the stability bit rides the pruning state)."""
+    from repro_torch.slam.engine import _Stage
     from repro_torch.slam.session import SLAMConfig
-    with pytest.raises(NotImplementedError, match=field):
-        SLAMConfig(**{field: value})
+    with pytest.raises(error, match=match):
+        _Stage(TIntr(**INTR), SLAMConfig(**{field: value}), torch.device("cpu"))
 
 
 @pytest.mark.parametrize("field,value", [
     ("base_algo", "gsslam"), ("base_algo", "photoslam"), ("base_algo", "splatam"),
     ("prune", "PruneConfig"), ("downsample", TDownsample(enabled=True)),
-    ("backend", "kernel_norb")])
+    ("backend", "kernel_norb"), ("sparse_opt", True), ("scene", "desk0"),
+    ("scene", "stairs0"), ("scene", "corridor0")])
 def test_ported_config_fields_run_a_session(field, value):
-    """Each field the port once refused now runs two frames on the CPU."""
+    """Each field the port once refused, and each scene it once refused,
+    now runs two frames on the CPU."""
     from repro_torch.core.keyframes import KeyframePolicy
     from repro_torch.core.pruning import PruneConfig
     from repro_torch.slam.datasets import make_dataset
@@ -424,12 +433,18 @@ def test_ported_config_fields_run_a_session(field, value):
     kw = {field: PruneConfig(k0=2) if value == "PruneConfig" else value}
     if field == "base_algo":
         kw["keyframe"] = KeyframePolicy(kind=value)
-    ds = make_dataset("room0", num_frames=3, height=64, width=64,
+    if field == "sparse_opt":
+        kw.update(prune=PruneConfig(k0=2, stable_rel=1.0, stable_age=1),
+                  keyframe=KeyframePolicy(interval=2))
+    scene = kw.pop("scene", "room0")
+    ds = make_dataset(scene, num_frames=3, height=64, width=64,
                       num_gaussians=200, frag_capacity=32, device="cpu")
     res = run_sequence(ds, SLAMConfig(iters_track=2, iters_map=2, capacity=512,
                                       frag_capacity=32, map_window=2, **kw),
                        device="cpu")
     assert np.isfinite(res.ate) and len(res.est_w2c) == 3
+    if field == "sparse_opt":   # frame 2's mapping left stable rows out
+        assert res.work.skipped_fragments > 0
 
 
 @pytest.mark.parametrize("where,args", [("checkout", []), ("alone", []),

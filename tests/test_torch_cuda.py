@@ -150,6 +150,104 @@ def test_cuda_sched_kernels_match_plain_and_unscheduled(dev, hw, cap, chunk,
     raise_on_sched_fault(dev)
 
 
+def _empty_tiles(attrs, count, tiles, share, seed):
+    """Empty more than ``share`` of each view's tiles (all of them at 1), as
+    a stability-masked build leaves the tiles only stable Gaussians cover:
+    count 0 and attrs zero (what the packer writes for absent fragments).
+    With more than half of a view's tiles empty, the heavy-light fold pairs
+    empty tiles with each other."""
+    r = np.random.default_rng(seed)
+    views = count.shape[0] // tiles
+    n_empty = min(tiles, int(share * tiles) + 1)
+    empty = np.zeros(count.shape[0], bool)
+    for b in range(views):
+        empty[b * tiles + r.permutation(tiles)[:n_empty]] = True
+    empty = torch.as_tensor(empty)
+    attrs, count = attrs.clone(), count.clone()
+    attrs[empty] = 0.0
+    count[empty] = 0
+    return attrs, count, empty
+
+
+@pytest.mark.parametrize("hw,cap,chunk,views,share", [
+    ((480, 640), 512, 16, 1, 0.0),    # the sparse run's fragment capacity
+    ((480, 640), 512, 16, 2, 0.6),    # most tiles empty, K=512
+    ((480, 640), 256, 16, 2, 0.5),
+    ((48, 48), 32, 8, 2, 1.0),        # views with no fragment at all (odd T)
+])
+def test_cuda_kernels_on_empty_tiles_match_plain(dev, hw, cap, chunk, views, share):
+    """K1, K2, K4 and K5 against their plain versions where at least
+    ``share`` of the tiles hold no fragment, with cotangents on every
+    pixel (a stable background puts one on final T everywhere): empty
+    tiles render color 0, depth 0 and final T 1 and get zero gradients;
+    the schedule pairs empty tiles into zero-trip blocks, and K4/K5
+    gathered by ``inv`` equal K1/K2 bit for bit."""
+    grid = make_tile_grid(*hw)
+    tiles = grid.num_tiles
+    attrs, count = _attrs(21, views * tiles, cap, *hw, near_tile=True)
+    attrs, count, empty = _empty_tiles(attrs, count, tiles, share, 22)
+    assert float(empty.double().mean()) >= share
+    a, c, e = attrs.to(dev), count.to(dev), empty.to(dev)
+    kw = dict(chunk=chunk, tiles_per_view=tiles)
+    got = tile_render_fwd(a, c, grid, **kw)
+    want = tile_render_fwd_plain(a, c, grid, **kw)
+    perm, trips, inv = _stacked_schedule(c, tiles, views, cap, chunk)
+    pair_trips = trips.view(-1, 2)
+    if share > 0:
+        assert bool((pair_trips == 0).all(1).any())    # two empty tiles paired
+    got4 = tile_render_fwd_sched(a, perm, trips, grid, **kw)
+    want4 = tile_render_fwd_sched_plain(a, perm, trips, grid, **kw)
+    torch.cuda.synchronize()
+    for name, g, w, g4, w4 in zip(("color", "depth", "final_T", "stash"), got, want,
+                                  got4, want4):
+        tol = DEPTH_TOL if name == "depth" else FWD_ATOL
+        rtol = DEPTH_TOL if name == "depth" else FWD_RTOL
+        _close(g, w, tol, rtol)
+        _close(g4, w4, tol, rtol)
+        assert torch.equal(g4[inv], g), name
+        fill = 1.0 if name == "final_T" else 0.0
+        assert bool((g[e] == fill).all()), name
+    r = np.random.default_rng(23)
+    cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
+            for s in ((views * tiles, 3, 256), (views * tiles, 256),
+                      (views * tiles, 256))]
+    gg = tile_render_bwd(a, c, *got, *cots, grid, **kw)
+    gw = tile_render_bwd_plain(a, c, *got, *cots, grid, **kw)
+    slot_cots = [x[perm.long()].contiguous() for x in cots]
+    g5 = tile_render_bwd_sched(a, perm, trips, *got4, *slot_cots, grid, **kw)
+    g5_plain = tile_render_bwd_sched_plain(a, perm, trips, *got4, *slot_cots, grid, **kw)
+    torch.cuda.synchronize()
+    _close(gg, gw, _grad_atol(gw))
+    _close(g5, g5_plain, _grad_atol(g5_plain))
+    assert torch.equal(g5[inv], gg)
+    assert not bool(gg[e].any())
+    raise_on_sched_fault(dev)
+
+
+def test_cuda_merge_views_with_an_empty_view(dev):
+    """GMU level 2 when one view has no fragment (every id padding) and the
+    other some: the empty view's gradients are exactly zero, and the merge
+    equals its plain version and one-view merges bit for bit."""
+    tiles, cap, n = 1200, 256, 131072
+    r = np.random.default_rng(31)
+    grads = torch.as_tensor(r.normal(size=(2 * tiles, 10, cap)).astype(np.float32),
+                            device=dev)
+    ids = r.integers(0, n, (2, tiles * cap)).astype(np.int32)
+    ids[r.uniform(size=ids.shape) < 0.9] = -1
+    ids[1] = -1
+    ids = torch.as_tensor(ids, device=dev)
+    got = gmu.merge_views(grads, ids, n)
+    alone = gmu.merge_views(grads[tiles:], ids[1:], n)
+    keys = torch.where(ids >= 0, ids, n) + torch.tensor([[0], [n + 1]], device=dev,
+                                                        dtype=torch.int32)
+    keys_s, order = torch.sort(keys.reshape(-1), stable=True)
+    want = gmu.merge_runs_plain(grads, order, keys_s, 2, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not bool(got[1].any()) and not bool(alone.any())
+    assert torch.equal(got[0], gmu.merge_views(grads[:tiles], ids[:1], n)[0])
+
+
 @pytest.mark.parametrize("chunk", [8, 16, 32])
 def test_cuda_backward_skips_fragments_no_warp_draws(dev, chunk):
     """Narrow splats cover only part of each tile, so whole warps draw none
@@ -448,3 +546,75 @@ def test_cuda_rtgs_session_runs_through_the_kernels(dev):
     assert after[2] - before[2] == after[1] - before[1]
     assert [p.calls for p in plains] == calls
     assert res.prune_removed > 0 and np.isfinite(res.ate)
+
+
+def _sparse_runs(dev, stable_age, backends):
+    """The 64x64 desk0 session with sparse mapping (and, for comparison,
+    dense), fixed densify picks, per backend: the step results, the final
+    sessions, and the stable rows' parameters before and after each
+    keyframe."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SLAMConfig, session_init, session_step
+
+    ds = make_dataset("desk0", num_frames=6, height=64, width=64,
+                      num_gaussians=600, frag_capacity=64)
+    rng = np.random.default_rng(5)
+    perms = {i: torch.as_tensor(rng.permutation(2 * 384)) for i in range(1, 6)}
+    out = {}
+    for backend, sparse in backends:
+        cfg = SLAMConfig(iters_track=3, iters_map=4, capacity=1024, frag_capacity=64,
+                         map_window=2, map_rebuild_stride=2, backend=backend,
+                         keyframe=KeyframePolicy(interval=2), sparse_opt=sparse,
+                         prune=PruneConfig(k0=2, step_frac=0.1, stable_ema_beta=0.5,
+                                           stable_rel=1.0, stable_age=stable_age))
+        sess = session_init(ds, cfg)
+        steps, frozen = [], []
+        for idx in range(1, 6):
+            before = {k: v.clone() for k, v in G.params_of(sess.g).items()}
+            sess, r = session_step(sess, ds.frames[idx], perm=perms[idx])
+            steps.append(r)
+            st = sess.pstate.stable
+            if r.is_kf and bool(st.any()):
+                after = G.params_of(sess.g)
+                frozen.append(all(torch.equal(before[k][st], after[k][st]) for k in before)
+                              and all(not bool(sess.map_opt.mu[k][st].any())
+                                      for k in before))
+        out[(backend, sparse)] = (steps, sess, frozen)
+    return out
+
+
+def _steps_equal(a, b):
+    for x, y in zip(a, b):
+        assert x.is_kf == y.is_kf
+        for name in ("pose", "alive", "track_losses", "map_losses", "fired"):
+            assert torch.equal(getattr(x, name), getattr(y, name)), name
+        assert torch.equal(x.psnr, y.psnr) or bool(torch.isnan(x.psnr) & torch.isnan(y.psnr))
+        assert [int(v) for v in x.work] == [int(v) for v in y.work]
+
+
+def test_cuda_sparse_session_never_stable_equals_dense(dev):
+    """On the card, sparse mapping whose stability rule never fires equals
+    the dense run bit for bit (poses, losses, PSNR, counters): the empty
+    stable background's K1 launch writes (0, 0, 1) and the composite
+    reduces to the dense loss."""
+    runs = _sparse_runs(dev, 10 ** 6, [("kernel", False), ("kernel", True)])
+    _steps_equal(runs[("kernel", False)][0], runs[("kernel", True)][0])
+
+
+def test_cuda_sparse_session_schedule_equals_kernel(dev):
+    """A sparse session that freezes rows: the ``schedule`` backend (K4/K5,
+    zero-trip pairs of tiles only stable rows cover) equals the ``kernel``
+    backend bit for bit, stable rows keep their parameters and zero
+    moments through every keyframe, and no plain version runs."""
+    plains = (tile_render_fwd_plain, tile_render_bwd_plain, tile_render_fwd_sched_plain,
+              tile_render_bwd_sched_plain, gmu.merge_runs_plain)
+    calls = [p.calls for p in plains]
+    runs = _sparse_runs(dev, 1, [("kernel", True), ("schedule", True)])
+    assert [p.calls for p in plains] == calls
+    (k_steps, k_sess, k_frozen), (s_steps, _, s_frozen) = (
+        runs[("kernel", True)], runs[("schedule", True)])
+    _steps_equal(k_steps, s_steps)
+    assert k_frozen and all(k_frozen) and all(s_frozen)
+    assert sum(int(r.work.skipped_fragments) for r in k_steps) > 0

@@ -120,12 +120,17 @@ def test_schedule_from_order_bitwise_and_bucket_needs_bound():
 # ---------------------------------------------------------------------------
 
 
-def _sched_inputs(hw, cap, chunk, views, seed):
+def _sched_inputs(hw, cap, chunk, views, seed, empty=0.0):
     """Packed attrs of ``views`` stacked views with empty and full tiles,
-    and their flattened schedule (per-view perms offset to global rows)."""
+    and their flattened schedule (per-view perms offset to global rows).
+    ``empty`` empties that share of the tiles besides, as a
+    stability-masked build does (attrs zero, count 0)."""
     grid = jgrid(*hw)
     tiles = grid.num_tiles
     attrs, count = random_attrs(seed, views * tiles, cap, *hw, sparse=True)
+    gone = np.random.default_rng(seed).uniform(size=count.shape) < empty
+    attrs[gone] = 0.0
+    count[gone] = 0
     count[0], count[1] = 0, cap
     attrs[:, 10] = (np.arange(cap)[None, :] < count[:, None]).astype(np.float32)
     perms, trips = [], []
@@ -143,7 +148,23 @@ def _sched_inputs(hw, cap, chunk, views, seed):
     ((48, 48), 32, 8, 2),     # two stacked views, each with its pad slot
 ])
 def test_plain_sched_kernels_match_pallas(hw, cap, chunk, views):
-    grid, attrs, perm, trips = _sched_inputs(hw, cap, chunk, views, 11)
+    _check_plain_sched_kernels(hw, cap, chunk, views, 0.0)
+
+
+def test_plain_sched_kernels_on_empty_tiles_match_pallas():
+    """Most tiles empty, as a stability-masked build leaves them: the
+    heavy-light fold pairs empty tiles with each other into zero-trip
+    blocks."""
+    _check_plain_sched_kernels((64, 64), 32, 8, 2, 0.7)
+
+
+def _check_plain_sched_kernels(hw, cap, chunk, views, empty):
+    """Plain K4/K5 against the interpreted scheduled Pallas kernels, with
+    cotangents on every pixel.  Slots with no trips (the pad, empty tiles)
+    render color 0, depth 0 and final T 1 and get zero gradients."""
+    grid, attrs, perm, trips = _sched_inputs(hw, cap, chunk, views, 11, empty)
+    if empty:   # the heavy-light fold pairs empty tiles with each other
+        assert (trips.reshape(-1, 2) == 0).all(1).any()
     tiles = grid.num_tiles
     kw_j = dict(chunk=chunk, tiles_per_view=tiles)
     want = j_fwd_sched(jx(attrs), jx(perm), jx(trips), grid, **kw_j)
@@ -156,10 +177,10 @@ def test_plain_sched_kernels_match_pallas(hw, cap, chunk, views):
         rtol = DEPTH_TOL if name == "depth" else FWD_RTOL
         np.testing.assert_allclose(np_(g), np.asarray(w), atol=tol, rtol=rtol,
                                    err_msg=name)
-    # The pad slot renders nothing: color 0, depth 0, final_T 1, zero stash.
-    if tiles % 2:
-        np.testing.assert_array_equal(np_(got[2][1]), 1.0)
-        assert not np_(got[0][1]).any() and not np_(got[3][1]).any()
+    idle = trips == 0
+    np.testing.assert_array_equal(np_(got[2])[idle], 1.0)
+    assert not np_(got[0])[idle].any() and not np_(got[1])[idle].any()
+    assert not np_(got[3])[idle].any()
 
     r = np.random.default_rng(12)
     slots = perm.shape[0]
@@ -178,6 +199,7 @@ def test_plain_sched_kernels_match_pallas(hw, cap, chunk, views):
     assert tile_render_bwd_sched_plain.calls == before + 1
     np.testing.assert_allclose(np_(g_got), np.asarray(g_want),
                                atol=grad_atol(g_want))
+    assert not np_(g_got)[idle].any()
 
 
 @pytest.mark.parametrize("bad", ["perm_dtype", "odd_slots", "few_slots",

@@ -133,7 +133,7 @@ def main() -> int:
         a, c = random_attrs(42 + views, views * tiles, K, H, W, near_tile=True)
         inputs[f"near-tile B={views}"] = (torch.as_tensor(a, device=dev),
                                           torch.as_tensor(c, device=dev), views)
-    _, proj, frags = cs.gt_view(dev, cs.make_room(dev))
+    _, proj, frags = cs.gt_view(dev, cs.make_scene(dev))
     with torch.no_grad():
         attrs = ops._pack_attrs(proj.mu2d, proj.conic, proj.color, proj.opacity,
                                 proj.depth, frags.idx).contiguous()

@@ -136,7 +136,7 @@ def main() -> int:
             + " (registers, spill store B, spill load B)", flush=True)
 
     dev = torch.device("cuda", 0)
-    grid, proj, frags = cs.gt_view(dev, cs.make_room(dev))
+    grid, proj, frags = cs.gt_view(dev, cs.make_scene(dev))
     with torch.no_grad():
         attrs = ops._pack_attrs(proj.mu2d, proj.conic, proj.color, proj.opacity,
                                 proj.depth, frags.idx).contiguous()
