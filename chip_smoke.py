@@ -42,15 +42,21 @@ Run from the root of a checkout.  In order, it
    and compares poses and PSNR;
 7. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
    12 frames, a 131072-Gaussian pool) with every launch counter set to 0
-   just before, and checks that K1, K2 and K3 carried it (one K3 merge per
-   backward), that no plain version ran, and that ATE < 0.30 m and mean
-   keyframe PSNR > 17 dB;
+   just before, fused (the default: each phase's iterations replayed as a
+   CUDA graph), and checks that K1, K2 and K3 carried it (one K3 merge per
+   backward, counted through the replays), that no plain version ran, and
+   that ATE < 0.30 m and mean keyframe PSNR > 17 dB; then ``[main-eager]``,
+   the same session with ``fused=False``, which must equal it bit for bit
+   with the same launches, and both once more in turns (fused, eager,
+   eager, fused), printing ms per frame, dispatches, syncs and graph
+   replays per tracking-only frame and keyframe;
 8. runs the same session on the ``schedule`` backend, counters set to 0
    again, and checks that K4, K5 and K3 carried it (one K3 merge per
    backward; no K1, K2 or plain run), the same bounds, the same keyframes,
    and camera centres within 1 mm of step 7's; then [main]'s first frames
    on ``kernel_norb``, the RTGS session (pruning and downsampling, 640x448)
-   on both backends, and the other three base algorithms with RTGS;
+   on both backends and eager (``[rtgs-eager]``, equal bit for bit), and
+   the other three base algorithms with RTGS;
 9. ``[scenes]``: builds desk0, stairs0 and corridor0 at 640x480 through K1
    and holds K1, K2, K4 and K5 against their plain versions on one view of
    each;
@@ -62,9 +68,11 @@ Run from the root of a checkout.  In order, it
     0.35 dB, and K3 merges once per backward with no plain run;
 11. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
     then one tracking-only frame and one keyframe of a further full-size
-    session and one RTGS tracking frame with ``torch.profiler``, and prints
-    the tables and the time of ``aten::index_add_``, ``aten::sort`` and
-    K3's kernels.
+    session, fused and eager, and one RTGS tracking frame with
+    ``torch.profiler``, and prints the tables, each frame's
+    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, dispatches, syncs
+    and the device's idle share, and the time of ``aten::index_add_``,
+    ``aten::sort`` and K3's kernels.
 
 It prints one JSON line with every kernel's numbers, then the card's name
 and power limit, then as the last line
@@ -899,17 +907,44 @@ def launch_counters():
     return kernels, plains
 
 
-def phase_main(dev, ds, backend="kernel"):
-    """The MonoGS session on the full-size scene under ``backend``, every
-    counter set to 0 just before; returns its launches and results."""
+def frame_split(stats_rows, kf_flags, step_ms):
+    """Mean ms, dispatches, syncs and graph replays of the tracking-only
+    frames and of the keyframes that captured no graph, from per-step
+    ``EngineStats`` deltas."""
+    import numpy as np
+    out = {}
+    for kind in ("tracking", "keyframe"):
+        idx = [i for i, k in enumerate(kf_flags)
+               if i > 0 and k == (kind == "keyframe") and not stats_rows[i].captures]
+        out[kind] = {
+            "ms": float(np.mean([step_ms[i] for i in idx])) if idx else float("nan"),
+            **{f: float(np.mean([getattr(stats_rows[i], f) for i in idx]))
+               if idx else float("nan") for f in ("dispatches", "syncs", "replays")}}
+    return out
+
+
+def split_text(split) -> str:
+    return "; ".join(
+        f"{kind} {v['ms']:.1f} ms, {v['dispatches']:.1f} dispatches, {v['syncs']:.1f} "
+        f"syncs, {v['replays']:.1f} graph replays" for kind, v in split.items())
+
+
+def phase_main(dev, ds, backend="kernel", fused=True, label=None):
+    """The MonoGS session on the full-size scene under ``backend``, fused
+    (phases as CUDA graph replays) or eager, every counter set to 0 just
+    before; returns its launches, results, keyframes, per-frame launches
+    and the per-frame split of times and counts."""
+    import dataclasses
+
     import numpy as np
     import torch
+    from repro_torch.slam.graphs import EngineStats
     from repro_torch.slam.session import (
         SLAMConfig, session_finalize, session_init, session_step)
 
-    tag = "[main]" if backend == "kernel" else f"[main-{backend[:5]}]"
+    tag = label or ("[main]" if backend == "kernel" else f"[main-{backend[:5]}]")
     cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4,
-                     iters_track=12, iters_map=24, backend=backend)
+                     iters_track=12, iters_map=24, backend=backend, fused=fused)
     kernels, plains = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -917,21 +952,25 @@ def phase_main(dev, ds, backend="kernel"):
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
+    stats = EngineStats()
     t_run = time.perf_counter()
-    sess = session_init(ds, cfg, device=dev)
+    sess = session_init(ds, cfg, device=dev, stats=stats)
     torch.cuda.synchronize()
     step_ms, kf_flags = [(time.perf_counter() - t_run) * 1e3], [True]
     per_frame = [{k: fn.launches for k, fn in kernels.items()}]
+    stats_rows = [dataclasses.replace(stats)]
     for idx in range(1, ds.num_frames):
+        before = dataclasses.replace(stats)
         t0 = time.perf_counter()
-        sess, out = session_step(sess, ds.frames[idx])
+        sess, out = session_step(sess, ds.frames[idx], stats=stats)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         kf_flags.append(bool(out.is_kf))
         per_frame.append({k: fn.launches for k, fn in kernels.items()})
+        stats_rows.append(stats.since(before))
     wall = time.perf_counter() - t_run
     res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames],
-                           wall_time_s=wall)
+                           wall_time_s=wall, stats=stats)
     launches = {k: fn.launches for k, fn in kernels.items()}
     plain_calls = sum(fn.calls for fn in plains)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -940,11 +979,18 @@ def phase_main(dev, ds, backend="kernel"):
     kf_ms = [t for t, k in zip(step_ms[1:], kf_flags[1:]) if k]
     tr_ms = [t for t, k in zip(step_ms[1:], kf_flags[1:]) if not k]
     keyframes = [i for i, k in enumerate(kf_flags) if k]
+    split = frame_split(stats_rows, kf_flags, step_ms)
     log(f"{tag} room0 {W}x{H}, {frames} frames, capacity {cfg.capacity}, "
-        f"K={K}, window {cfg.map_window}, backend {backend}: wall {wall:.2f} s, "
+        f"K={K}, window {cfg.map_window}, backend {backend}, "
+        f"{'fused' if fused else 'eager'}: wall {wall:.2f} s, "
         f"{wall * 1e3 / frames:.1f} ms per frame (init+boot {step_ms[0]:.0f} ms, "
         f"tracking-only frame {np.mean(tr_ms):.1f} ms, keyframe "
-        f"{np.mean(kf_ms) if kf_ms else float('nan'):.1f} ms)")
+        f"{np.mean(kf_ms) if kf_ms else float('nan'):.1f} ms); run totals "
+        f"{res.dispatches} dispatches, {res.syncs} syncs, {stats.replays} graph "
+        f"replays, {stats.captures} captures; per frame without a capture: "
+        f"{split_text(split)}; frames that captured a graph: "
+        + (", ".join(f"{i} {step_ms[i]:.1f} ms" for i in range(1, frames)
+                     if stats_rows[i].captures) or "none"))
     digest = hashlib.sha256(np.ascontiguousarray(np.stack(res.est_w2c)).tobytes())
     log(f"{tag} ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.2f} dB "
         f"({', '.join(f'{p:.2f}' for p in res.keyframe_psnr)}), keyframes "
@@ -954,7 +1000,8 @@ def phase_main(dev, ds, backend="kernel"):
         f"{k} {v} ({v / frames:.2f} per frame)" for k, v in launches.items())
         + f", plain versions {plain_calls}; peak device memory {peak_gb:.2f} GB; "
         f"cached-list fragments {int(sess.frags.total)}, overflow "
-        f"{int(sess.frags.overflow)}; work {res.work}")
+        f"{int(sess.frags.overflow)}; launched through graph replays: "
+        f"{sess.runner.replayed_launches}; work {res.work}")
     ours = ("K1", "K2", "K3") if backend == "kernel" else ("K4", "K5", "K3")
     others = [k for k in ("K1", "K2", "K4", "K5") if k not in ours]
     require(all(launches[k] > 0 for k in ours),
@@ -967,13 +1014,46 @@ def phase_main(dev, ds, backend="kernel"):
     require(plain_calls == 0, f"the main path ran a plain version {plain_calls} times")
     require(np.isfinite(res.ate) and res.ate < 0.30, f"ATE {res.ate:.3f} m >= 0.30 m")
     require(res.mean_psnr > 17.0, f"mean keyframe PSNR {res.mean_psnr:.2f} dB <= 17")
-    return launches, res, keyframes, per_frame
+    require((stats.replays > 0) == fused,
+            f"{tag} fused={fused} made {stats.replays} graph replays")
+    return launches, res, keyframes, per_frame, dict(
+        split=split, peak_gb=peak_gb, ms=wall * 1e3 / frames,
+        replayed=dict(sess.runner.replayed_launches))
+
+
+def phase_main_eager(dev, ds, main):
+    """``[main-eager]``: the same session with ``fused=False``, equal to
+    ``[main]`` bit for bit with the same kernel launches; then the two
+    again in turns (fused, eager, eager, fused), for ms per frame within
+    one call."""
+    import numpy as np
+    launches, res, kfs, _, info = phase_main(dev, ds, fused=False, label="[main-eager]")
+    m_launches, m_res, m_kfs, _, m_info = main
+    same = (all(np.array_equal(a, b) for a, b in zip(res.est_w2c, m_res.est_w2c))
+            and res.keyframe_psnr == m_res.keyframe_psnr and kfs == m_kfs
+            and res.work == m_res.work)
+    log(f"[main-eager] vs [main]: poses, PSNR, keyframes and work equal bit for bit: "
+        f"{same}; launches equal: {launches == m_launches}; dispatches {res.dispatches} "
+        f"vs {m_res.dispatches}, syncs {res.syncs} vs {m_res.syncs}")
+    require(same, "[main-eager] differs from [main]")
+    require(launches == m_launches,
+            f"[main-eager] launches {launches} != [main]'s {m_launches}")
+    turns = [("fused", m_info), ("eager", info)]
+    for fused in (False, True):
+        *_, again = phase_main(dev, ds, fused=fused,
+                               label="[main]" if fused else "[main-eager]")
+        turns.append(("fused" if fused else "eager", again))
+    log("[main] fused / eager in turns (fused, eager, eager, fused), ms per frame, "
+        "tracking-only frame and keyframe ms: " + "; ".join(
+            f"{mode} {t['ms']:.1f} / {t['split']['tracking']['ms']:.1f} / "
+            f"{t['split']['keyframe']['ms']:.1f}" for mode, t in turns))
+    return launches, turns
 
 
 def phase_main_sched(dev, ds, main_res, main_keyframes):
     """The same session on the WSU ``schedule`` backend, against [main]."""
     import numpy as np
-    launches, res, keyframes, _ = phase_main(dev, ds, backend="schedule")
+    launches, res, keyframes, _, info = phase_main(dev, ds, backend="schedule")
     require(keyframes == main_keyframes,
             f"schedule session keyframes {keyframes} != kernel session's {main_keyframes}")
     pose_d = max(float(np.abs(a - b).max()) for a, b in zip(res.est_w2c, main_res.est_w2c))
@@ -984,7 +1064,7 @@ def phase_main_sched(dev, ds, main_res, main_keyframes):
     log(f"[main-sched] vs [main]: largest pose entry difference {pose_d:.3g}, "
         f"camera centres within {centre_d * 1e3:.4f} mm, same keyframes")
     require(centre_d < 1e-3, f"schedule and kernel camera centres differ by {centre_d:.3g} m")
-    return launches
+    return launches, info["replayed"]
 
 
 RTGS_H = 448     # TUM's 640x480 less 32 rows: 64-divisible, as §4.2 needs
@@ -1026,25 +1106,27 @@ def phase_new_grids(dev, ds):
     return out
 
 
-def phase_rtgs(dev, ds, backend="kernel"):
+def phase_rtgs(dev, ds, backend="kernel", fused=True):
     """The RTGS session (MonoGS + §4.1 pruning + §4.2 downsampling) on the
-    640x448 scene under ``backend``, each frame at the factor
-    ``run_sequence`` chooses, every counter set to 0 just before."""
+    640x448 scene under ``backend``, fused or eager, each frame at the
+    factor ``run_sequence`` chooses, every counter set to 0 just before."""
     import numpy as np
     import torch
     from repro_torch.core import pruning
+    from repro_torch.slam.graphs import EngineStats
     from repro_torch.slam.session import (
         frame_factor, session_finalize, session_init, session_step)
 
-    tag = "[rtgs]" if backend == "kernel" else "[rtgs-sched]"
-    cfg = rtgs_config(backend)
+    tag = "[rtgs" + ("" if backend == "kernel" else "-sched") + ("" if fused else "-eager") + "]"
+    cfg = rtgs_config(backend, fused=fused)
+    stats = EngineStats()
     fwd_k, bwd_k = ("K1", "K2") if backend == "kernel" else ("K4", "K5")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels, plains = reset_counters()
     reads0 = pruning.interval_update.host_reads
     t0 = time.perf_counter()
-    sess = session_init(ds, cfg, device=dev)
+    sess = session_init(ds, cfg, device=dev, stats=stats)
     torch.cuda.synchronize()
     init_ms, rows, last = (time.perf_counter() - t0) * 1e3, [], 0
     for idx in range(1, ds.num_frames):
@@ -1055,16 +1137,18 @@ def phase_rtgs(dev, ds, backend="kernel"):
             pre = sess.stage_at(factor)._build_core(sess.g, sess.cur_masked,
                                                     sess.velocity @ sess.pose)
         before = {k: fn.launches for k, fn in kernels.items()}
+        counts0 = EngineStats(**vars(stats))
         t0 = time.perf_counter()
-        sess, out = session_step(sess, ds.frames[idx], factor=factor)
+        sess, out = session_step(sess, ds.frames[idx], factor=factor, stats=stats)
         torch.cuda.synchronize()
         rows.append(dict(idx=idx, factor=factor, kf=out.is_kf,
                          ms=(time.perf_counter() - t0) * 1e3,
+                         counts=stats.since(counts0),
                          fired=int(out.fired.sum()), alive=int(out.alive),
                          overflow=int(pre.overflow), frags=int(pre.total),
                          launches={k: fn.launches - before[k] for k, fn in kernels.items()}))
         last = idx if out.is_kf else last
-    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames], stats=stats)
     launches = {k: fn.launches for k, fn in kernels.items()}
     plain_calls = sum(fn.calls for fn in plains)
     host_reads = pruning.interval_update.host_reads - reads0
@@ -1079,7 +1163,13 @@ def phase_rtgs(dev, ds, backend="kernel"):
         f"K={K}, backend {backend}, factors {factors}: init+boot {init_ms:.0f} ms, "
         + ", ".join(f"{k} {np.mean([r['ms'] for r in v]):.1f} ms ({len(v)} frames)"
                     for k, v in sorted(groups.items()))
-        + f"; {np.mean([r['ms'] for r in rows]):.1f} ms per tracked frame")
+        + f"; {np.mean([r['ms'] for r in rows]):.1f} ms per tracked frame; "
+        + ", ".join(f"{k} {np.mean([r['counts'].dispatches for r in v]):.1f} dispatches "
+                    f"{np.mean([r['counts'].syncs for r in v]):.1f} syncs "
+                    f"{np.mean([r['counts'].replays for r in v]):.1f} graph replays"
+                    for k, v in sorted(groups.items()))
+        + f"; run totals {res.dispatches} dispatches, {res.syncs} syncs, "
+        f"{stats.replays} graph replays")
     fired = [r["fired"] for r in rows]
     log(f"{tag} pruning boundaries fired per frame {fired} ({sum(fired)} in all), "
         f"{host_reads} host reads for them; alive per frame {res.alive_per_frame}; "
@@ -1099,7 +1189,8 @@ def phase_rtgs(dev, ds, backend="kernel"):
         + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f", plain versions {plain_calls}; {fwd_k} launches per frame at "
         + ", ".join(f"{tiles[f]} tiles {at_grid[f]}" for f in (4, 2, 1))
-        + f"; peak device memory {peak_gb:.2f} GB; work {res.work}")
+        + f"; peak device memory {peak_gb:.2f} GB; launched through graph replays: "
+        f"{sess.runner.replayed_launches}; work {res.work}")
     full = W * RTGS_H
     pixels_f1 = res.work.pixels + cfg.iters_track * sum(
         full - (W // r["factor"]) * (RTGS_H // r["factor"]) for r in rows)
@@ -1120,7 +1211,34 @@ def phase_rtgs(dev, ds, backend="kernel"):
     require(res.prune_removed > 0, f"{tag} removed no Gaussian")
     require(res.work.pixels < pixels_f1, f"{tag} pixels not below the factor-1 count")
     require(host_reads == sum(fired), f"{tag} {host_reads} host reads for {sum(fired)} boundaries")
+    require((stats.replays > 0) == fused, f"{tag} made {stats.replays} graph replays")
     return launches, res, keyframes, rows
+
+
+def phase_rtgs_eager(dev, ds, rtgs):
+    """``[rtgs-eager]``: the RTGS session with ``fused=False``, equal to
+    ``[rtgs]`` bit for bit with the same launches; prints both runs' ms per
+    tracking frame by factor."""
+    import numpy as np
+    launches, res, keyframes, rows = phase_rtgs(dev, ds, fused=False)
+    f_launches, f_res, f_keyframes, f_rows = rtgs
+    same = (all(np.array_equal(a, b) for a, b in zip(res.est_w2c, f_res.est_w2c))
+            and keyframes == f_keyframes and res.prune_removed == f_res.prune_removed
+            and res.work == f_res.work)
+
+    def by_factor(rs):
+        steady = [r for r in rs if not r["kf"] and not r["counts"].captures]
+        return ", ".join(
+            f"factor {f} {np.mean([r['ms'] for r in steady if r['factor'] == f]):.1f}"
+            for f in (4, 2)) + "; frames that captured a graph: " + (", ".join(
+                f"{r['idx']} (factor {r['factor']}) {r['ms']:.1f}" for r in rs
+                if r["counts"].captures) or "none")
+
+    log(f"[rtgs-eager] vs [rtgs]: equal bit for bit: {same}, launches equal: "
+        f"{launches == f_launches}; tracking-only ms per frame, fused: {by_factor(f_rows)}; "
+        f"eager: {by_factor(rows)}")
+    require(same, "[rtgs-eager] differs from [rtgs]")
+    require(launches == f_launches, f"[rtgs-eager] launches {launches} != {f_launches}")
 
 
 def phase_rtgs_sched(dev, ds, rtgs_res, rtgs_keyframes):
@@ -1145,22 +1263,26 @@ def phase_norb(dev, ds, main_res, main_per_frame):
     for bit, with K1 launched once more per backward."""
     import numpy as np
     import torch
+    from repro_torch.slam.graphs import EngineStats
     from repro_torch.slam.session import SLAMConfig, session_init, session_step
 
     cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4, iters_track=12,
                      iters_map=24, backend="kernel_norb")
     kernels, plains = reset_counters()
+    stats = EngineStats()
     t0 = time.perf_counter()
-    sess = session_init(ds, cfg, device=dev)
+    sess = session_init(ds, cfg, device=dev, stats=stats)
     for idx in range(1, 4):
-        sess, _ = session_step(sess, ds.frames[idx])
+        sess, _ = session_step(sess, ds.frames[idx], stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     plain_calls = sum(fn.calls for fn in plains)
     traj = sess.traj[:4].cpu().numpy()
     main4 = main_per_frame[3]
-    log(f"[norb] [main]'s first 4 frames on kernel_norb: {wall * 1e3 / 4:.1f} ms per frame; "
+    log(f"[norb] [main]'s first 4 frames on kernel_norb: {wall * 1e3 / 4:.1f} ms per frame, "
+        f"{stats.dispatches} dispatches, {stats.syncs} syncs, {stats.replays} graph replays "
+        f"(launching {sess.runner.replayed_launches}); "
         f"launches {launches} against [main]'s {main4}; poses equal to [main]'s: "
         f"{bool(np.array_equal(traj, np.stack(main_res.est_w2c[:4])))}")
     require(np.array_equal(traj, np.stack(main_res.est_w2c[:4])),
@@ -1200,7 +1322,8 @@ def phase_algos(dev, ds, frames=6):
         log(f"[algos] {algo} + RTGS, {W}x{RTGS_H}, {frames} frames: "
             f"{res.wall_time_s * 1e3 / frames:.1f} ms per frame, ATE {res.ate * 100:.2f} cm, "
             f"mean keyframe PSNR {res.mean_psnr:.2f} dB, {len(res.keyframe_psnr)} keyframes, "
-            f"removed {res.prune_removed}, alive {res.alive_per_frame}; launches {launches}, "
+            f"removed {res.prune_removed}, alive {res.alive_per_frame}; {res.dispatches} "
+            f"dispatches, {res.syncs} syncs; launches {launches}, "
             f"plain versions {plain_calls}; work {res.work}")
         require(all(launches[k] > 0 for k in ("K1", "K2", "K3")),
                 f"[algos] {algo} did not launch K1, K2 and K3: {launches}")
@@ -1279,13 +1402,15 @@ def sparse_run(dev, ds, backend, sparse, profile=False):
     import numpy as np
     import torch
     from repro_torch.core import gaussians as G
+    from repro_torch.slam.graphs import EngineStats
     from repro_torch.slam.session import session_finalize, session_init, session_step
 
     cfg = sparse_config(backend, sparse)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels, plains = reset_counters()
-    sess = session_init(ds, cfg, device=dev)
+    stats = EngineStats()
+    sess = session_init(ds, cfg, device=dev, stats=stats)
     rows, frozen, busy = [], [], None
     tail_kf = max(i for i in range(SPARSE_TAIL, SPARSE_FRAMES) if i % 2 == 0)
     for idx in range(1, SPARSE_FRAMES):
@@ -1296,9 +1421,9 @@ def sparse_run(dev, ds, backend, sparse, profile=False):
         if profile and idx == tail_kf:
             sess, out, busy = profiled_step(
                 sess, ds.frames[idx], f"[sparse] {ds.name} "
-                f"{'sparse' if sparse else 'dense'} keyframe {idx}")
+                f"{'sparse' if sparse else 'dense'} keyframe {idx}", stats)
         else:
-            sess, out = session_step(sess, ds.frames[idx])
+            sess, out = session_step(sess, ds.frames[idx], stats=stats)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rows.append(dict(idx=idx, kf=out.is_kf, ms=ms, profiled=busy is not None
@@ -1311,17 +1436,18 @@ def sparse_run(dev, ds, backend, sparse, profile=False):
                           and all(not bool(sess.map_opt.mu[k][st].any())
                                   and not bool(sess.map_opt.nu[k][st].any())
                                   for k in before))
-    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames], stats=stats)
     fields = list(type(out.work)._fields)
     tail = {f: sum(r["work"][fields.index(f)] for r in rows if r["idx"] >= SPARSE_TAIL)
             for f in fields}
-    return dict(res=res, rows=rows, tail=tail, frozen=frozen, busy_ms=busy,
+    return dict(res=res, rows=rows, tail=tail, frozen=frozen, busy_ms=busy, stats=stats,
+                replayed=sess.runner.replayed_launches,
                 launches={k: fn.launches for k, fn in kernels.items()},
                 plain=sum(fn.calls for fn in plains),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def profiled_step(sess, frame, label):
+def profiled_step(sess, frame, label, stats=None):
     """One session step under ``torch.profiler``: the step's results and
     its kernel-busy time (ms, the kernel rows' device time); prints the
     operators by device time."""
@@ -1330,7 +1456,7 @@ def profiled_step(sess, frame, label):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.slam.session import session_step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sess, out = session_step(sess, frame)
+        sess, out = session_step(sess, frame, stats=stats)
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
@@ -1364,7 +1490,9 @@ def phase_sparse(dev, profile=False):
         tr = [x["ms"] for x in timed if not x["kf"]]
         log(f"[sparse] {name} {label}: ATE {res.ate * 100:.2f} cm, mean keyframe PSNR "
             f"{res.mean_psnr:.3f} dB, keyframe {np.mean(kf):.1f} ms, tracking-only frame "
-            f"{np.mean(tr):.1f} ms, peak device memory {r['peak_gb']:.2f} GB; stable rows "
+            f"{np.mean(tr):.1f} ms, peak device memory {r['peak_gb']:.2f} GB, "
+            f"{res.dispatches} dispatches, {res.syncs} syncs, {r['stats'].replays} graph "
+            f"replays launching {r['replayed']}; stable rows "
             f"per frame {[x['stable'] for x in rows]}; tail (steps {SPARSE_TAIL}-"
             f"{SPARSE_FRAMES - 1}) unstable_gaussians {r['tail']['unstable_gaussians']}, "
             f"sched_programs {r['tail']['sched_programs']}, skipped_fragments "
@@ -1419,47 +1547,70 @@ def phase_sparse(dev, profile=False):
     return paths, busy
 
 
-def phase_profile(dev, ds, ds_rtgs):
+def phase_profile(dev, ds, ds_rtgs, main_split):
     """Where a frame's time goes (after the default run, with ``profile``):
     a ``torch.profiler`` trace of one tracking-only frame and one keyframe of
-    the full-size MonoGS session, and of one RTGS tracking frame (factor 2,
-    pruning on) of the 640x448 session, summed by operator, printed as
-    tables."""
+    the full-size MonoGS session, fused and eager, and of one RTGS tracking
+    frame (factor 2, pruning on) of the 640x448 session, fused, summed by
+    operator, printed as tables, with each frame's ``cudaLaunchKernel`` and
+    ``cudaGraphLaunch`` calls, dispatches, syncs and the device's idle
+    share.  Every traced frame replays graphs captured in an earlier,
+    untraced step."""
+    import dataclasses
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.slam.graphs import EngineStats
     from repro_torch.slam.session import SLAMConfig, session_init, session_step
 
-    cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4,
-                     iters_track=12, iters_map=24)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    sess = session_init(ds, cfg, device=dev)
+    stats = EngineStats()
+    sessions = {fused: session_init(ds, SLAMConfig(
+        capacity=131072, frag_capacity=K, map_window=4, iters_track=12, iters_map=24,
+        fused=fused), device=dev) for fused in (True, False)}
     with profile(activities=activities):          # the tracer's own start-up
-        sess, _ = session_step(sess, ds.frames[1])
+        sessions[True], _ = session_step(sessions[True], ds.frames[1])
         torch.cuda.synchronize()
-    rtgs = session_init(ds_rtgs, rtgs_config(), device=dev)
-    rtgs, _ = session_step(rtgs, ds_rtgs.frames[1], factor=RTGS_FACTORS[0])
-    for idx, label in ((2, "tracking-only frame"), (8, "keyframe"),
-                       (2, "RTGS tracking frame (factor 2, pruning)")):
-        if label.startswith("RTGS"):
-            sess, step = rtgs, dict(factor=RTGS_FACTORS[idx - 1])
-        else:
-            step = {}
-            while sess.frame_idx < idx:
-                sess, _ = session_step(sess, ds.frames[sess.frame_idx])
-        frames = ds_rtgs.frames if step else ds.frames
+    sessions["rtgs"] = session_init(ds_rtgs, rtgs_config(), device=dev)
+    out = {}
+    for key, idx, label in ((True, 2, "tracking-only frame"), (True, 8, "keyframe"),
+                            (False, 2, "eager tracking-only frame"),
+                            (False, 8, "eager keyframe"),
+                            ("rtgs", 3, "RTGS tracking frame (factor 2, pruning)")):
+        frames = ds_rtgs.frames if key == "rtgs" else ds.frames
+        sess = sessions[key]
+        while sess.frame_idx < idx:
+            step = {"factor": RTGS_FACTORS[sess.frame_idx - 1]} if key == "rtgs" else {}
+            sess, _ = session_step(sess, frames[sess.frame_idx], **step)
+        step = {"factor": RTGS_FACTORS[idx - 1]} if key == "rtgs" else {}
+        before = dataclasses.replace(stats)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=activities) as prof:
-            sess, _ = session_step(sess, frames[idx], **step)
+            sess, _ = session_step(sess, frames[idx], stats=stats, **step)
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        sessions[key] = sess
+        counts = stats.since(before)
         events = prof.key_averages()
         # Kernel rows only: an operator's self device time repeats its kernels'.
         dev_ms = sum(e.self_device_time_total for e in events
                      if e.device_type == DeviceType.CUDA) / 1e3
+        calls = {name: sum(e.count for e in events if e.key == name)
+                 for name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                              "cudaGraphLaunch", "cudaMemcpyAsync")}
+        out[label] = dict(calls, busy_ms=dev_ms, wall_ms=wall_ms,
+                          dispatches=counts.dispatches, syncs=counts.syncs)
+        ref = main_split["keyframe" if "keyframe" in label else "tracking"]["ms"]
         log(f"[profile] {label} {idx}: wall {wall_ms:.1f} ms under the profiler, "
-            f"kernels busy {dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.0f}%)")
+            f"kernels busy {dev_ms:.1f} ms, device idle {100 * (1 - dev_ms / wall_ms):.0f}% "
+            f"of it" + ("" if key is not True else
+                        f" ({100 * (1 - dev_ms / ref):.0f}% of [main]'s untraced "
+                        f"{ref:.1f} ms)")
+            + "; host calls " + ", ".join(f"{n} {c}" for n, c in calls.items())
+            + f"; {counts.dispatches} dispatches, {counts.syncs} syncs, "
+            f"{counts.replays} graph replays")
         log(events.table(sort_by="self_cuda_time_total", row_limit=25))
         log(events.table(sort_by="self_cpu_time_total", row_limit=15))
         ops_ = {name: [e for e in events if e.key == name]
@@ -1470,6 +1621,12 @@ def phase_profile(dev, ds, ds_rtgs):
             f"{sum(e.device_time_total for e in es) / 1e3:.2f} ms" for name, es in ops_.items())
             + f", K3 kernels {sum(e.count for e in k3)} launches "
             f"{sum(e.self_device_time_total for e in k3) / 1e3:.2f} ms (device time)")
+    fused, eager = out["tracking-only frame"], out["eager tracking-only frame"]
+    log(f"[profile] cudaLaunchKernel per tracking-only frame: fused {fused['cudaLaunchKernel']}"
+        f" (+ {fused['cudaGraphLaunch']} cudaGraphLaunch) against eager "
+        f"{eager['cudaLaunchKernel']}")
+    require(fused["cudaGraphLaunch"] > 0, "[profile] the fused frame launched no graph")
+    return out
 
 
 def main(argv) -> int:
@@ -1509,19 +1666,24 @@ def main(argv) -> int:
     phase_small_session(dev)
     counters = launch_counters()[0]
     k3_check_launches = counters["K3"].launches + counters["K3 scan"].launches
-    launches, main_res, main_kfs, main_per_frame = phase_main(dev, ds)
-    launches_s = phase_main_sched(dev, ds, main_res, main_kfs)
+    main = phase_main(dev, ds)
+    launches, main_res, main_kfs, main_per_frame, main_info = main
+    launches_e, _ = phase_main_eager(dev, ds, main)
+    launches_s, replayed_s = phase_main_sched(dev, ds, main_res, main_kfs)
     launches_n = phase_norb(dev, ds, main_res, main_per_frame)
-    launches_r, rtgs_res, rtgs_kfs, _ = phase_rtgs(dev, ds_rtgs)
+    rtgs = phase_rtgs(dev, ds_rtgs)
+    launches_r, rtgs_res, rtgs_kfs, _ = rtgs
+    phase_rtgs_eager(dev, ds_rtgs, rtgs)
     launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
     launches_a = phase_algos(dev, ds_rtgs)
     launches_sp, busy = phase_sparse(dev, profile=argv == ["profile"])
     if argv == ["profile"]:
         log("[profile] [sparse] tail keyframe (step 14), kernels busy: " + ", ".join(
             f"{n} dense {d:.1f} ms, sparse {sp:.1f} ms" for n, (d, sp) in busy.items()))
-        phase_profile(dev, ds, ds_rtgs)
+        phase_profile(dev, ds, ds_rtgs, main_info["split"])
 
-    paths = {"main": launches, "main_sched": launches_s, "norb": launches_n,
+    paths = {"main": launches, "main_eager": launches_e, "main_sched": launches_s,
+             "norb": launches_n,
              "rtgs": launches_r, "rtgs_sched": launches_rs,
              **{f"algos_{a}": v for a, v in launches_a.items()},
              "scenes": launches_sc, **launches_sp}
@@ -1544,6 +1706,9 @@ def main(argv) -> int:
         row = {
             "name": f"{key} {name}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
+            # of them, launched by CUDA graph replays ([main] / [main-sched])
+            "launches_replayed": (main_info["replayed"] if key in ("K1", "K2")
+                                  else replayed_s)[name],
             "launches_by_path": {p: v[key] for p, v in paths.items()},
             "max_abs_err": max(o["max_abs_err"] for o in (b1, b4, rv, f2, f4, *sc.values())),
             "ms": b1["ms"], "plain_ms": b1["plain_ms"],
@@ -1577,6 +1742,7 @@ def main(argv) -> int:
         # count, then [main-sched]'s; the scan epilogue's counts on both
         # paths; then both epilogues' launches in the checks and timings.
         "launches": launches["K3"], "launches_sched": launches_s["K3"],
+        "launches_replayed": main_info["replayed"]["merge_runs"],
         "launches_by_path": {p: v["K3"] for p, v in paths.items()},
         "scan_launches": launches["K3 scan"], "scan_launches_sched": launches_s["K3 scan"],
         "check_launches": k3_check_launches,

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import constant
 from repro_torch.core import lie
 
 
@@ -58,6 +59,5 @@ def look_at(eye: torch.Tensor, target: torch.Tensor,
     R = torch.stack([right, down, fwd], dim=0)  # rows: camera axes in world
     t = -R @ eye
     top = torch.cat([R, t[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype,
-                          device=top.device)
+    bottom = constant(((0.0, 0.0, 0.0, 1.0),), top.dtype, top.device)
     return torch.cat([top, bottom], dim=0)

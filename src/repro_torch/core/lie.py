@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import constant
+
 _SERIES_CUT = 1e-8
 # (t - sin t)/t^3 and (1 - a/2b)/t^2 cancel catastrophically in f32 well
 # above the NaN threshold — series until theta < 0.1.
@@ -82,8 +84,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def _homogeneous(top: torch.Tensor) -> torch.Tensor:
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), top.dtype, top.device)
     bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch._device import constant
 from repro_torch.core.gaussians import GaussianField
 
 
@@ -110,16 +111,27 @@ def accumulate(state: PruneState, param_grads: dict, cfg: PruneConfig,
                          opt_steps=state.opt_steps + 1)
     if alive is None:
         return out
+    ema, age, stable = stability_update(state.grad_ema, state.age, s, alive, cfg,
+                                        settle=out.opt_steps >= cfg.stable_warmup)
+    return out._replace(grad_ema=ema, age=age, stable=stable)
+
+
+def stability_update(grad_ema: torch.Tensor, age: torch.Tensor, s: torch.Tensor,
+                     alive: torch.Tensor, cfg: PruneConfig, settle: bool):
+    """One iteration of the stability leaves from the Eq. 7 scores ``s``:
+    ``(grad_ema, age, stable)``, with ``stable`` all False unless
+    ``settle`` (``opt_steps`` has reached ``stable_warmup``).  Device math
+    only: a CUDA graph captures it with ``settle`` fixed."""
     alive_f = alive.to(torch.float32)
-    ema = cfg.stable_ema_beta * state.grad_ema + (1.0 - cfg.stable_ema_beta) * s
+    ema = cfg.stable_ema_beta * grad_ema + (1.0 - cfg.stable_ema_beta) * s
     mean_ema = (ema * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
     thresh = torch.clamp(cfg.stable_rel * mean_ema, min=cfg.stable_thresh)
     low = alive & (ema < thresh)
-    age = torch.where(low, state.age + 1, torch.zeros_like(state.age))
+    age = torch.where(low, age + 1, torch.zeros_like(age))
     stable = alive & (age >= cfg.stable_age)
-    if out.opt_steps < cfg.stable_warmup:
+    if not settle:
         stable = torch.zeros_like(stable)
-    return out._replace(grad_ema=ema, age=age, stable=stable)
+    return ema, age, stable
 
 
 def optimizable_mask(state: PruneState) -> torch.Tensor:
@@ -169,7 +181,7 @@ def retile_state(state: PruneState, num_tiles: int,
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """A Python float as a float32 scalar, as JAX rounds a weakly typed
     constant that meets a float32 array."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return constant(x, torch.float32, like.device)
 
 
 def interval_update(state: PruneState, g: GaussianField,

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch._device import check_on, resolve_device
+from repro_torch._device import check_on, constant, resolve_device
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianField
 from repro_torch.core.projection import ProjectedGaussians, project
@@ -39,7 +39,7 @@ class RenderOutput(NamedTuple):
 
 
 def _composite(color_pm, depth_pm, final_t, frags, proj, background):
-    bg = torch.as_tensor(background, dtype=torch.float32, device=color_pm.device)
+    bg = constant(tuple(float(c) for c in background), torch.float32, color_pm.device)
     image = color_pm + final_t[..., None] * bg
     return RenderOutput(image=image, depth=depth_pm, alpha=1.0 - final_t,
                         final_t=final_t, frags=frags, proj=proj)

@@ -8,8 +8,10 @@ global depth argsort and a (T, N) membership matrix.  ``idx``, ``count``,
 * ``jnp.argsort`` is stable and ``torch.argsort`` is not unless asked, so
   the depth sort passes ``stable=True`` (ties among invalid rows at +inf);
 * the reference scatters every membership pair with dropped ones aimed at
-  an out-of-range column (``mode="drop"``); here only the kept
-  ``(row, col)`` pairs are written.
+  an out-of-range column (``mode="drop"``); here the kept ``(row, col)``
+  pairs come from a fixed-size ``nonzero_static`` (at most ``K`` per tile),
+  whose padding writes ``-1`` into one spare slot.  The build reads
+  nothing back to the host, so a CUDA graph can capture it.
 
 At the full slice size (1200 tiles x 131072 Gaussians) the membership is a
 157 MB bool matrix plus a 629 MB int32 prefix sum per view; callers build
@@ -71,8 +73,7 @@ def build_fragment_lists(proj: ProjectedGaussians, grid: TileGrid,
     depth = proj.depth
     dev = mu2d.device
     n = mu2d.shape[0]
-    inf = torch.tensor(float("inf"), dtype=depth.dtype, device=dev)
-    order = torch.argsort(torch.where(valid, depth, inf), stable=True)
+    order = torch.argsort(torch.where(valid, depth, float("inf")), stable=True)
     mu_s, rad_s, val_s = mu2d[order], radius[order], valid[order]
 
     tx0 = _tile_range(mu_s[:, 0] - rad_s, grid.grid_w)
@@ -97,10 +98,16 @@ def build_fragment_lists(proj: ProjectedGaussians, grid: TileGrid,
 
     keep = m & (pos <= capacity)
     del m
-    rows, cols_n = keep.nonzero(as_tuple=True)
-    out = torch.full((grid.num_tiles, capacity), -1, dtype=torch.int32, device=dev)
-    out[rows, (pos[rows, cols_n] - 1).long()] = order[cols_n].to(torch.int32)
-    return FragmentLists(idx=out, count=count, overflow=overflow, total=total)
+    slots = grid.num_tiles * capacity
+    out = torch.full((slots + 1,), -1, dtype=torch.int32, device=dev)
+    if n:
+        rows, cols_n = torch.nonzero_static(keep, size=slots, fill_value=-1).unbind(1)
+        kept = rows >= 0
+        rows, cols_n = rows.clamp(min=0), cols_n.clamp(min=0)
+        dest = torch.where(kept, rows * capacity + pos[rows, cols_n] - 1, slots)
+        out[dest] = torch.where(kept, order[cols_n].to(torch.int32), -1)
+    return FragmentLists(idx=out[:slots].view(grid.num_tiles, capacity), count=count,
+                         overflow=overflow, total=total)
 
 
 @torch.no_grad()
@@ -125,17 +132,6 @@ def stack_fragment_lists(lists):
     """Stack per-view lists (or any NamedTuples of tensors, such as
     schedules) along a new leading axis."""
     return type(lists[0])(*(torch.stack(xs) for xs in zip(*lists)))
-
-
-def update_fragment_slot(stack, i: int, fresh):
-    """A copy of ``stack`` with window slot ``i`` replaced by ``fresh``
-    (fragment lists or schedules)."""
-    out = []
-    for s, f in zip(stack, fresh):
-        s = s.clone()
-        s[i] = f
-        out.append(s)
-    return type(stack)(*out)
 
 
 def tile_trips(count: torch.Tensor, chunk: int) -> torch.Tensor:

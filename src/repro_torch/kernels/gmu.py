@@ -52,8 +52,10 @@ MAX_COLUMNS = 32  # K3's register and shared-memory bound
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # Per-device arrival counters of K3's pass 1, zeroed once; every launch
-# leaves them zero again.
+# leaves them zero again.  A CUDA graph that captured a launch keeps the
+# buffer's address, so a buffer that has to grow is retired, never freed.
 _ARRIVALS: dict[torch.device, torch.Tensor] = {}
+_RETIRED: list[torch.Tensor] = []
 
 
 def _lib():
@@ -77,7 +79,9 @@ def _scratch(device, views: int, rows: int, g: int, merge: bool):
     scratch = torch.empty(size, dtype=torch.float32, device=device)
     need = views * (groups + 1)
     if device not in _ARRIVALS or _ARRIVALS[device].numel() < need:
-        _ARRIVALS[device] = torch.zeros(max(need, 64), dtype=torch.int32,
+        if device in _ARRIVALS:
+            _RETIRED.append(_ARRIVALS[device])
+        _ARRIVALS[device] = torch.zeros(max(need, 4096), dtype=torch.int32,
                                         device=device)
     return scratch, _ARRIVALS[device]
 

@@ -1,19 +1,36 @@
-"""The SLAM step engine's cores as plain loops (counterpart of
-``repro/slam/engine.py``).
+"""The SLAM step engine (counterpart of ``repro/slam/engine.py``).
 
-The reference fuses each phase into one ``lax.scan`` dispatch.  PyTorch
-runs eagerly, so each scan becomes a Python loop over iterations, each
-``lax.cond`` a host ``if`` and each ``vmap`` over the keyframe window a
-loop over views.  Every mapping iteration still renders the whole window
-as ONE batched raster call (one stacked forward and one stacked backward
-launch).  On the ``schedule`` backend a WSU schedule rides next to each
-cached fragment list and is rebuilt only where the list is.  A stage
-renders at one §4.2 downsampling factor; tracking with §4.1 pruning
-(``_track_scan_prune``) accumulates the importance scores from the
-tracking gradients and takes each interval boundary as a host ``if``.
-With ``cfg.sparse_opt`` mapping freezes the stability-frozen Gaussians out
-of the Adam step, the fragment builds and the WSU schedule, and composites
-every iteration's render over one stable-background render per phase.
+The reference fuses each phase into one ``lax.scan`` dispatch.  Here each
+phase's iterations are *segments* (functions over fixed-shape tensors)
+that the session's :class:`~repro_torch.slam.graphs.PhaseRunner` captures
+once as a CUDA graph and replays (``SLAMConfig.fused``, the default), or
+runs eagerly, one iteration after another (``fused=False``, the oracle):
+
+* tracking without pruning: the frame's fragment-list build (and WSU
+  schedule) and the K iterations, one segment, one replay per frame;
+* tracking with §4.1 pruning: the host knows each interval boundary from
+  its own clock, so the iterations between boundaries are replays of a
+  one-iteration segment that carries the pose, its Adam state, the scores
+  and the stability leaves; a fired boundary's rebuild and
+  ``interval_update`` run eagerly in between;
+* mapping: ``map_rebuild_stride`` iterations per segment, replayed
+  ``iters_map / map_rebuild_stride`` times; the stride rebuild runs
+  eagerly between replays and writes the fresh slot into the segment's
+  cached fragment lists and schedules in place.  The window fill is a
+  device tensor, so one graph serves every fill.
+
+The other fragment-list builds (pruning's, mapping's window builds and
+stride rebuilds) run eagerly between replays, though none reads the
+device; so do densification, the eval renders and sparse mapping's one
+stable-background render per phase.  Each ``lax.cond``
+is a host ``if`` and each ``vmap`` over the keyframe window a loop over
+views; every mapping iteration still renders the whole window as ONE
+batched raster call.  On the ``schedule`` backend a WSU schedule rides
+next to each cached fragment list and is rebuilt only where the list is.
+A stage renders at one §4.2 downsampling factor.  With ``cfg.sparse_opt``
+mapping freezes the stability-frozen Gaussians out of the Adam step, the
+fragment builds and the WSU schedule, and composites every iteration's
+render over one stable-background render per phase.
 """
 
 from __future__ import annotations
@@ -26,13 +43,14 @@ from repro_torch.core.camera import Camera, Intrinsics
 from repro_torch.core.losses import slam_loss
 from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
-from repro_torch.core.schedule import scheduled_trips
+from repro_torch.core.schedule import TileSchedule, scheduled_trips
 from repro_torch.core.sorting import (
     FragmentLists, build_fragment_lists, count_skipped_fragments, make_tile_grid,
-    stack_fragment_lists, tile_trips, update_fragment_slot,
+    stack_fragment_lists, tile_trips,
 )
 from repro_torch.core.projection import project
 from repro_torch.kernels.ops import build_plan_schedule
+from repro_torch.slam.graphs import PhaseRunner, flat, unflat
 from repro_torch.slam.metrics import DeviceWork, device_work_add
 from repro_torch.train.optimizer import (
     Adam, AdamState, apply_updates, apply_updates_masked,
@@ -62,7 +80,7 @@ class _Stage:
     downsampling factor of the frames this stage renders."""
 
     def __init__(self, intr: Intrinsics, cfg, device: torch.device,
-                 factor: int = 1):
+                 factor: int = 1, runner: PhaseRunner | None = None):
         self.factor = factor
         self.intr = intr.scaled(factor)
         self.grid = make_tile_grid(self.intr.height, self.intr.width)
@@ -73,6 +91,8 @@ class _Stage:
         self.pixels = self.intr.height * self.intr.width
         self.cfg = cfg
         self.device = device
+        # One runner per session: its graphs, memory pool and counts.
+        self.runner = runner or PhaseRunner(device, cfg.fused)
         # Sparse stable/unstable mapping reads the stability bit that
         # PruneState carries, so it needs pruning on.
         if cfg.sparse_opt and cfg.prune is None:
@@ -86,10 +106,15 @@ class _Stage:
     # ---- cores -----------------------------------------------------------
 
     @torch.no_grad()
-    def _build_core(self, g, masked, w2c, keep=None) -> FragmentLists:
+    def _build(self, g, masked, w2c, keep=None) -> FragmentLists:
         proj = project(silence(g, masked), Camera(self.intr, w2c))
         return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
                                     keep)
+
+    def _build_core(self, g, masked, w2c, keep=None) -> FragmentLists:
+        """:meth:`_build` as an eager call of its own."""
+        self.runner.count()
+        return self._build(g, masked, w2c, keep)
 
     @torch.no_grad()
     def _sparse_build_core(self, g, masked, keep, w2c):
@@ -97,6 +122,7 @@ class _Stage:
         int32 count of fragments the mask dropped against the dense build
         (0 when ``keep`` is None).  Tiles that only dropped rows cover get
         ``count == 0``."""
+        self.runner.count()
         proj = project(silence(g, masked), Camera(self.intr, w2c))
         frags = build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
                                      keep)
@@ -107,6 +133,7 @@ class _Stage:
     def _sched_core(self, frags: FragmentLists):
         """The WSU schedule of one view's cached fragment counts (device
         math, no host sync)."""
+        self.runner.count()
         return build_plan_schedule(frags, self.plan)
 
     def _slot_programs_core(self, frags: FragmentLists, sched=None):
@@ -192,6 +219,7 @@ class _Stage:
         cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b], stable)
                                       for b in range(w_len)])
         scheds = self._sched_core(cache) if self.scheduled else None
+        self.runner.count()             # the background render
         out = self._render(silence(g, masked), kf_w2c, cache, scheds)
         progs = torch.stack([
             self._slot_programs_core(
@@ -201,31 +229,138 @@ class _Stage:
 
     @torch.no_grad()
     def _render_eval_core(self, g, masked, w2c):
+        self.runner.count()
         return self._render(silence(g, masked), w2c).image
+
+    # ---- segments (one or more iterations over fixed-shape tensors) -------
+
+    def _track_segment(self, n: int, prune: bool, settle: bool = True):
+        """``n`` tracking iterations over the tensors ``_track_inputs``
+        names.  Without ``prune`` the segment first builds the frame's
+        fragment lists (and schedule) at the base pose; with it, it takes
+        them as inputs and every iteration also accumulates the Eq. 7
+        scores and the stability leaves from its own backward (``settle``
+        is False while ``opt_steps`` is under ``stable_warmup``)."""
+        prune_cfg = self.cfg.prune
+
+        def fn(t):
+            g = unflat(t, "g", G.GaussianField)
+            masked, xi = t["masked"], t["xi"]
+            if prune:
+                frags = unflat(t, "frags", FragmentLists)
+                sched = unflat(t, "sched", TileSchedule) if self.scheduled else None
+            else:
+                frags = self._build(g, masked, t["base"])
+                sched = build_plan_schedule(frags, self.plan) if self.scheduled else None
+            ostate = AdamState(step=t["opt.step"], mu={"xi": t["opt.mu.xi"]},
+                               nu={"xi": t["opt.nu.xi"]})
+            work = unflat(t, "work", DeviceWork)
+            if prune:
+                score, ema, age = t["p.score"], t["p.grad_ema"], t["p.age"]
+            alive_eff = (g.alive & ~masked).sum()
+            losses = []
+            for _ in range(n):
+                loss, xi, ostate, grads = self._track_iter_core(
+                    g, masked, xi, ostate, t["base"], t["obs_rgb"], t["obs_depth"],
+                    frags, sched, score_grads=prune)
+                work = device_work_add(work, frags.total, self.pixels, alive_eff,
+                                       unstable=0)
+                if prune:
+                    s = pruning.importance_scores(grads, prune_cfg)
+                    score = score + s
+                    ema, age, stable = pruning.stability_update(
+                        ema, age, s, g.alive, prune_cfg, settle)
+                losses.append(loss)
+            out = {"xi": xi, **flat("opt", ostate), **flat("work", work),
+                   "losses": torch.stack(losses)}
+            if prune:
+                out.update({"p.score": score, "p.grad_ema": ema, "p.age": age,
+                            "p.stable": stable})
+            return out
+
+        return fn
+
+    def _track_inputs(self, g, masked, base_w2c, obs_rgb, obs_depth, frags,
+                      sched, xi, ostate, work, pstate=None) -> dict:
+        out = {**flat("g", g), "masked": masked, "base": base_w2c,
+               "obs_rgb": obs_rgb, "obs_depth": obs_depth,
+               **flat("frags", frags), **flat("sched", sched), "xi": xi,
+               **flat("opt", ostate), **flat("work", work)}
+        if pstate is not None:
+            out.update({"p.score": pstate.score, "p.grad_ema": pstate.grad_ema,
+                        "p.age": pstate.age, "p.stable": pstate.stable})
+        return out
+
+    _TRACK_CARRY = ("xi", "opt.step", "opt.mu.xi", "opt.nu.xi",
+                    *(f"work.{f}" for f in DeviceWork._fields))
+    _PRUNE_CARRY = ("p.score", "p.grad_ema", "p.age", "p.stable")
+
+    def _map_segment(self, n: int, sparse: bool):
+        """``n`` mapping iterations over the tensors ``_map_scan_masked``
+        names: each one batched window render, the valid-masked loss, an
+        Adam step and the work counters (the window fill ``n_valid`` is a
+        device tensor)."""
+        keys = G.PARAM_FIELDS
+
+        def fn(t):
+            g = unflat(t, "g", G.GaussianField)
+            opt = AdamState(step=t["opt.step"],
+                            mu={k: t[f"opt.mu.{k}"] for k in keys},
+                            nu={k: t[f"opt.nu.{k}"] for k in keys})
+            cache = unflat(t, "cache", FragmentLists)
+            scheds = unflat(t, "scheds", TileSchedule) if self.scheduled else None
+            unstable = t["unstable"] if sparse else None
+            stable_bg = ((t["bg.image"], t["bg.depth"], t["bg.final_t"])
+                         if sparse else None)
+            kf_valid, n_valid = t["kf_valid"], t["n_valid"]
+            valid_i = kf_valid.to(torch.int64)
+            w_len = kf_valid.shape[0]
+            work = unflat(t, "work", DeviceWork)
+            losses = []
+            for _ in range(n):
+                loss, g, opt = self._map_iter_core(
+                    g, t["masked"], opt, t["kf_w2c"], t["kf_rgb"], t["kf_depth"],
+                    cache, kf_valid, scheds, unstable=unstable, stable_bg=stable_bg)
+                n_alive = g.alive.sum()
+                n_opt = n_alive if not sparse else (g.alive & unstable).sum()
+                progs = torch.stack([
+                    self._slot_programs_core(
+                        _slot(cache, b), None if scheds is None else _slot(scheds, b))
+                    for b in range(w_len)])
+                work = device_work_add(
+                    work, (cache.total.to(torch.int64) * valid_i).sum(),
+                    n_valid * self.pixels, n_valid * n_alive,
+                    unstable=n_valid * n_opt, programs=(progs * valid_i).sum(),
+                    skipped=(t["skipped_w"].to(torch.int64) * valid_i).sum())
+                losses.append(loss)
+            return {**flat("g", G.params_of(g)), **flat("opt", opt),
+                    **flat("work", work), "losses": torch.stack(losses)}
+
+        return fn
 
     # ---- phases ----------------------------------------------------------
 
+    def _pose_start(self):
+        return (torch.zeros(6, dtype=torch.float32, device=self.device),
+                _pose_adam_zero(self.device))
+
     def _track_scan_noprune(self, g, masked, base_w2c, obs_rgb, obs_depth,
-                            frags, work: DeviceWork):
-        """The K tracking iterations on the frame's fragment lists (and, on
-        the ``schedule`` backend, one schedule built from them for the
-        whole phase)."""
-        sched = self._sched_core(frags) if self.scheduled else None
+                            work: DeviceWork):
+        """The frame's fragment-list build at the base pose (and, on the
+        ``schedule`` backend, one schedule from it for the whole phase) and
+        the K tracking iterations on them: one segment run."""
         work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
-        xi = torch.zeros(6, dtype=torch.float32, device=self.device)
-        ostate = _pose_adam_zero(self.device)
-        alive_eff = (g.alive & ~masked).sum()
-        losses = []
-        for _ in range(self.cfg.iters_track):
-            loss, xi, ostate, _ = self._track_iter_core(
-                g, masked, xi, ostate, base_w2c, obs_rgb, obs_depth, frags,
-                sched)
-            work = device_work_add(work, frags.total, self.pixels, alive_eff,
-                                   unstable=0)
-            losses.append(loss)
-        fired = torch.zeros(self.cfg.iters_track, dtype=torch.bool,
-                            device=self.device)
-        return xi, work, torch.stack(losses), fired
+        k = self.cfg.iters_track
+        xi, ostate = self._pose_start()
+        final, runs = self.runner.run(
+            ("track", self.cfg.backend, self.factor, k),
+            self._track_segment(k, prune=False),
+            self._track_inputs(g, masked, base_w2c, obs_rgb, obs_depth, None,
+                               None, xi, ostate, work),
+            self._TRACK_CARRY, iters=k)
+        fired = torch.zeros(k, dtype=torch.bool, device=self.device)
+        return (final["xi"], unflat(final, "work", DeviceWork), runs[0]["losses"],
+                fired)
 
     def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
                           obs_rgb, obs_depth, frags, work: DeviceWork):
@@ -233,24 +368,42 @@ class _Stage:
         accumulates the Eq. 7 scores from its own backward; on a fired
         boundary the fragment lists are rebuilt at the current pose before
         ``interval_update`` (and, on the ``schedule`` backend, the schedule
-        with them).  Returns ``(xi, g, pstate, work, losses, fired)``."""
+        with them).  The iterations between boundaries (and on either side
+        of the stability warmup's end) are runs of a one-iteration segment.
+        Returns ``(xi, g, pstate, work, losses, fired)``."""
         prune_cfg = self.cfg.prune
         sched = self._sched_core(frags) if self.scheduled else None
         n_rows = g.capacity
         # The caller's pre-track build, plus one per fired boundary below.
         work = work._replace(frag_build_rows=work.frag_build_rows + n_rows)
-        xi = torch.zeros(6, dtype=torch.float32, device=self.device)
-        ostate = _pose_adam_zero(self.device)
+        xi, ostate = self._pose_start()
+        k, done = self.cfg.iters_track, 0
         losses, fired = [], []
-        for _ in range(self.cfg.iters_track):
-            loss, xi, ostate, g_params = self._track_iter_core(
-                g, pstate.masked, xi, ostate, base_w2c, obs_rgb, obs_depth,
-                frags, sched, score_grads=True)
-            alive_eff = (g.alive & ~pstate.masked).sum()
-            work = device_work_add(work, frags.total, self.pixels, alive_eff,
-                                   unstable=0)
-            pstate = pruning.accumulate(pstate, g_params, prune_cfg,
-                                        alive=g.alive)
+        while done < k:
+            # Iterations to the boundary (``iters_left`` runs out), to the
+            # frame's end, or to the end of the stability warmup.
+            settle = pstate.opt_steps + 1 >= prune_cfg.stable_warmup
+            n = min(pstate.iters_left, k - done)
+            if not settle:
+                n = min(n, prune_cfg.stable_warmup - 1 - pstate.opt_steps)
+            n = max(n, 1)
+            final, runs = self.runner.run(
+                ("track-prune", self.cfg.backend, self.factor, settle),
+                self._track_segment(1, prune=True, settle=settle),
+                self._track_inputs(g, pstate.masked, base_w2c, obs_rgb, obs_depth,
+                                   frags, sched, xi, ostate, work, pstate),
+                self._TRACK_CARRY + self._PRUNE_CARRY, times=n)
+            xi = final["xi"]
+            ostate = AdamState(step=final["opt.step"], mu={"xi": final["opt.mu.xi"]},
+                               nu={"xi": final["opt.nu.xi"]})
+            work = unflat(final, "work", DeviceWork)
+            pstate = pstate._replace(
+                score=final["p.score"], grad_ema=final["p.grad_ema"],
+                age=final["p.age"], stable=final["p.stable"],
+                iters_left=pstate.iters_left - n, opt_steps=pstate.opt_steps + n)
+            losses += [r["losses"] for r in runs]
+            fired += [False] * n
+            done += n
 
             def build_fn(gg, mm):
                 return self._build_core(gg, mm, lie.se3_exp(xi) @ base_w2c)
@@ -258,13 +411,13 @@ class _Stage:
             pstate, g, frags, hit = pruning.cond_interval_update(
                 pstate, g, frags, build_fn, prune_cfg)
             if hit:
+                self.runner.count(syncs=1)      # interval_update's churn read
+                fired[-1] = True
                 work = work._replace(
                     frag_build_rows=work.frag_build_rows + n_rows)
                 if self.scheduled:
                     sched = self._sched_core(frags)
-            losses.append(loss)
-            fired.append(hit)
-        return (xi, g, pstate, work, torch.stack(losses),
+        return (xi, g, pstate, work, torch.cat(losses),
                 torch.tensor(fired, dtype=torch.bool, device=self.device))
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
@@ -274,7 +427,9 @@ class _Stage:
         first).  Invalid slots render but add nothing to the loss, the
         counters, the round-robin stride rebuild or the final eval.  On the
         ``schedule`` backend each window slot's schedule is rebuilt with
-        its fragment list.
+        its fragment list.  The iterations run as segments of
+        ``map_rebuild_stride`` iterations with the stride rebuild between
+        them.
 
         ``stable`` (an (N,) bool mask, ``cfg.sparse_opt``) freezes the
         stable rows: the Adam step skips them, the fragment builds (stride
@@ -313,30 +468,49 @@ class _Stage:
         work = work._replace(
             frag_build_rows=work.frag_build_rows
             + (n_valid + cfg.iters_map // stride + 1) * g.capacity)
+        tensors = {
+            **flat("g", g), **flat("opt", opt_state), **flat("work", work),
+            "masked": masked, "kf_w2c": kf_w2c, "kf_rgb": kf_rgb,
+            "kf_depth": kf_depth, **flat("cache", cache), **flat("scheds", scheds),
+            "kf_valid": kf_valid, "skipped_w": skipped_w,
+            "n_valid": torch.full((), n_valid, dtype=torch.int64, device=self.device)}
+        if stable is not None:
+            tensors.update({"unstable": keep, "bg.image": stable_bg[0],
+                            "bg.depth": stable_bg[1], "bg.final_t": stable_bg[2]})
+        carry = (*flat("g", G.params_of(g)), *flat("opt", opt_state),
+                 *flat("work", work))
+
+        def rebuild(r, t):
+            """The round-robin stride rebuild after segment run ``r``,
+            written in place into the segment's cached lists, schedules and
+            skipped counts (its static buffers when fused) and into
+            ``tensors``, which a remainder segment reads."""
+            slot = r % n_valid
+            fresh, skipped = self._sparse_build_core(
+                unflat(t, "g", G.GaussianField), masked, keep, kf_w2c[slot])
+            fresh_scheds = self._sched_core(fresh) if self.scheduled else None
+            for name, x in {**flat("cache", fresh), **flat("scheds", fresh_scheds),
+                            "skipped_w": skipped}.items():
+                t[name][slot] = x
+                if tensors[name] is not t[name]:
+                    tensors[name][slot] = x
+
         losses = []
-        for it in range(cfg.iters_map):
-            loss, g, opt_state = self._map_iter_core(
-                g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid,
-                scheds, unstable=keep, stable_bg=stable_bg)
-            n_alive = g.alive.sum()
-            n_opt = n_alive if stable is None else (g.alive & ~stable).sum()
-            progs = torch.stack([
-                self._slot_programs_core(
-                    _slot(cache, b), None if scheds is None else _slot(scheds, b))
-                for b in range(w_len)])
-            work = device_work_add(
-                work, (cache.total.to(torch.int64) * valid_i).sum(),
-                n_valid * self.pixels, n_valid * n_alive,
-                unstable=n_valid * n_opt, programs=(progs * valid_i).sum(),
-                skipped=(skipped_w.to(torch.int64) * valid_i).sum())
-            losses.append(loss)
-            if (it + 1) % stride == 0:
-                slot = ((it + 1) // stride - 1) % n_valid   # round-robin
-                fresh, skipped_w[slot] = self._sparse_build_core(
-                    g, masked, keep, kf_w2c[slot])
-                cache = update_fragment_slot(cache, slot, fresh)
-                if self.scheduled:
-                    scheds = update_fragment_slot(scheds, slot,
-                                                  self._sched_core(fresh))
+        for n, times, between in ((stride, cfg.iters_map // stride, rebuild),
+                                  (cfg.iters_map % stride, 1, None)):
+            if n == 0 or times == 0:
+                continue
+            final, runs = self.runner.run(
+                ("map", self.cfg.backend, self.factor, n, stable is not None),
+                self._map_segment(n, sparse=stable is not None), tensors, carry,
+                times=times, iters=n, between=between)
+            tensors.update(final)
+            losses += [r["losses"] for r in runs]
+        g = G.with_params(g, {k: tensors[f"g.{k}"] for k in G.PARAM_FIELDS})
+        opt_state = AdamState(
+            step=tensors["opt.step"],
+            mu={k: tensors[f"opt.mu.{k}"] for k in G.PARAM_FIELDS},
+            nu={k: tensors[f"opt.nu.{k}"] for k in G.PARAM_FIELDS})
         image = self._render_eval_core(g, masked, kf_w2c[n_valid - 1])
-        return g, opt_state, work, torch.stack(losses), image
+        return (g, opt_state, unflat(tensors, "work", DeviceWork), torch.cat(losses),
+                image)

@@ -27,8 +27,11 @@ class DeviceWork(NamedTuple):
     frag_build_rows: torch.Tensor    # rows swept by fragment-list builds
 
 
-def _i64(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).to(torch.int64)
+def _i64(x):
+    """A count as int64: a tensor converted on its device, a host number
+    kept a Python int (added to a device counter as a scalar operand, so
+    no host-to-device copy)."""
+    return x.to(torch.int64) if isinstance(x, torch.Tensor) else int(x)
 
 
 def device_work_zero(device="cpu") -> DeviceWork:
@@ -39,28 +42,21 @@ def device_work_zero(device="cpu") -> DeviceWork:
 def device_work_add(w: DeviceWork, fragments, pixels, alive, unstable=None,
                     programs=0, skipped=0) -> DeviceWork:
     """One iteration's work; ``unstable`` defaults to ``alive``."""
-    dev = w.fragments.device
     if unstable is None:
         unstable = alive
     return w._replace(
-        fragments=w.fragments + _i64(fragments, dev),
-        pixels=w.pixels + _i64(pixels, dev),
-        gaussians_iters=w.gaussians_iters + _i64(alive, dev),
+        fragments=w.fragments + _i64(fragments),
+        pixels=w.pixels + _i64(pixels),
+        gaussians_iters=w.gaussians_iters + _i64(alive),
         iterations=w.iterations + 1,
-        unstable_gaussians=w.unstable_gaussians + _i64(unstable, dev),
-        sched_programs=w.sched_programs + _i64(programs, dev),
-        skipped_fragments=w.skipped_fragments + _i64(skipped, dev),
+        unstable_gaussians=w.unstable_gaussians + _i64(unstable),
+        sched_programs=w.sched_programs + _i64(programs),
+        skipped_fragments=w.skipped_fragments + _i64(skipped),
     )
 
 
 def device_work_merge(a: DeviceWork, b: DeviceWork) -> DeviceWork:
     return DeviceWork(*(x + y for x, y in zip(a, b)))
-
-
-def device_work_totals(w: DeviceWork) -> dict:
-    """Host ints of every counter (one device-to-host copy)."""
-    vals = torch.stack(list(w)).cpu().tolist()
-    return dict(zip(DeviceWork._fields, vals))
 
 
 class ImbalanceStats(NamedTuple):

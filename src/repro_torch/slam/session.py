@@ -15,13 +15,21 @@
 The base algorithms are MonoGS, GS-SLAM, Photo-SLAM (geometric tracking,
 ``slam/geometric.py``) and SplaTAM, each with its keyframe policy.
 
-The reference traces the step into one XLA dispatch; here it is eager
-PyTorch, so ``lax.cond`` branches are host ``if``s on host integers
-(frame index, keyframe ring fill, the pruning interval clock), which costs
-no device sync.  GS-SLAM's and Photo-SLAM's keyframe decisions read one
-device value each per frame, and a fired pruning boundary reads one.  A step
-writes the session's trajectory, PSNR and alive logs in place and returns
-the advanced session: the session passed in is consumed, as the
+The reference traces the step into one XLA dispatch.  Here
+``SLAMConfig.fused`` (the default) runs each phase's iterations as CUDA
+graph replays on the card (the same segments, through the same static
+buffers and with no capture, on the CPU; ``slam/graphs.py``), and
+``fused=False`` runs them eagerly, one iteration after another, as the
+oracle.  Both run the same kernels on the same inputs in the same order,
+so they agree bit for bit.  ``lax.cond`` branches are host ``if``s on
+host integers (frame index, keyframe ring fill, the pruning interval
+clock), which costs no device sync.  GS-SLAM's and Photo-SLAM's keyframe
+decisions read one device value each per frame, a fired pruning boundary
+reads one and densification three.  ``stats=`` (an
+:class:`~repro_torch.slam.graphs.EngineStats`) counts dispatches, syncs
+and graph replays, as the reference counts its dispatches and syncs.  A
+step writes the session's trajectory, PSNR and alive logs in place and
+returns the advanced session: the session passed in is consumed, as the
 reference's donated buffers are.
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
@@ -51,9 +59,9 @@ from repro_torch.core.sorting import FragmentLists
 from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam import geometric
 from repro_torch.slam.engine import _Stage
+from repro_torch.slam.graphs import EngineStats, PhaseRunner
 from repro_torch.slam.metrics import (
-    DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_totals,
-    device_work_zero,
+    DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_zero,
 )
 from repro_torch.train.optimizer import Adam, AdamState
 
@@ -85,6 +93,10 @@ class SLAMConfig:
                                     # stable Gaussians out of the Adam step,
                                     # the fragment builds and the schedule
                                     # (needs prune: the bit rides PruneState)
+    fused: bool = True              # each phase's iterations as CUDA graph
+                                    # replays (the same segments, no
+                                    # capture, on the CPU); False: eager
+                                    # per-iteration oracle
     # Parts of the reference not ported yet: setting any of them raises.
     paged: Optional[object] = None
     sched_bucket: int = 1           # WSU trip bucketing: only 1 (no rounding)
@@ -110,6 +122,8 @@ class SLAMResult:
     alive_per_frame: List[int]
     wall_time_s: float
     prune_removed: int = 0
+    dispatches: int = 0             # see slam/graphs.py for the units
+    syncs: int = 0
 
     @property
     def mean_psnr(self) -> float:
@@ -167,12 +181,19 @@ class SlamSession:
         return self.stages[1]
 
     @property
+    def runner(self) -> PhaseRunner:
+        """The session's phase runner (graphs, pool and counts), shared by
+        its stages."""
+        return self.stages[1].runner
+
+    @property
     def cur_masked(self) -> torch.Tensor:
         return self.pstate.masked if self.pstate is not None else self.masked
 
     def stage_at(self, factor: int) -> _Stage:
         if factor not in self.stages:
-            self.stages[factor] = _Stage(self.intr, self.cfg, self.device, factor)
+            self.stages[factor] = _Stage(self.intr, self.cfg, self.device, factor,
+                                         runner=self.runner)
         return self.stages[factor]
 
     def replace(self, **kw) -> "SlamSession":
@@ -246,7 +267,7 @@ def _densify_core(g: G.GaussianField, rgb, depth, rendered, w2c,
     ok = d > 1e-3
     x_cam = torch.stack([(uu + 0.5 - intr.cx) / intr.fx * d,
                          (vv + 0.5 - intr.cy) / intr.fy * d, d], -1)
-    c2w = torch.linalg.inv(w2c)
+    c2w = torch.linalg.inv_ex(w2c).inverse     # no error check: no sync
     pts = x_cam @ c2w[:3, :3].T + c2w[:3, 3]
     cols = torch.clamp(rgb[vv, uu], 0.02, 0.98)
     scale = _median_linear(d[ok]) / intr.fx * 2.0
@@ -278,8 +299,16 @@ def _push_ring(buf: torch.Tensor, row: torch.Tensor, count: int) -> torch.Tensor
     return out
 
 
+def _charge(stats: Optional[EngineStats], runner: PhaseRunner,
+            before: EngineStats) -> None:
+    """Add the runner's counts since ``before`` to the caller's ``stats``."""
+    if stats is not None:
+        stats.add(runner.stats.since(before))
+
+
 def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
-                 seed: int = 0, device=None) -> SlamSession:
+                 seed: int = 0, device=None,
+                 stats: Optional[EngineStats] = None) -> SlamSession:
     """Seed the map from frame 0 and bootstrap its mapping.  The returned
     session has consumed frame 0."""
     dev = resolve_device(device)
@@ -288,13 +317,15 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
         raise ValueError(
             "dynamic downsampling needs 64-divisible frames (16-pixel tiles "
             f"at the 4x stage); got {intr.height}x{intr.width}")
-    st = _Stage(intr, cfg, dev)
+    runner = PhaseRunner(dev, cfg.fused)
+    st = _Stage(intr, cfg, dev, runner=runner)
     stages = {1: st}
     f0 = dataset.frames[0]
     num_f = int(max_frames or dataset.num_frames)
     w, h, wd = cfg.map_window, intr.height, intr.width
 
     g = _seed_map(dataset, cfg, dev)
+    runner.count(dispatches=0, syncs=2)     # frame 0's depth and colors
     pstate = (pruning.init_state(g, st.grid.num_tiles, cfg.prune)
               if cfg.prune else None)
     # One parked baseline per §4.2 grid, the -1 sentinel ("no comparable
@@ -302,7 +333,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     tile_baselines = {}
     if cfg.prune and cfg.downsample.enabled:
         for f in (1, 2, 4):
-            stages.setdefault(f, _Stage(intr, cfg, dev, f))
+            stages.setdefault(f, _Stage(intr, cfg, dev, f, runner=runner))
             t = stages[f].grid.num_tiles
             tile_baselines[t] = torch.full((t,), -1, dtype=torch.int32, device=dev)
     pose0 = torch.tensor(np.asarray(f0.w2c_gt), dtype=torch.float32, device=dev)
@@ -327,6 +358,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     frags = st._build_core(g, masked, kf_w2c[0])
+    _charge(stats, runner, EngineStats())
     return SlamSession(
         cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
         pstate=pstate, masked=masked,
@@ -342,6 +374,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
 def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
     cfg, st = sess.cfg, sess.stage
     rendered = st._render_eval_core(g, masked, new_pose)
+    sess.runner.count(syncs=3)      # densify's three boolean-mask reads
     g2, dropped = _densify_core(g, rgb, depth, rendered, new_pose, sess.intr,
                                 cfg, sess.rng, perm)
     pstate, stable = sess.pstate, None
@@ -391,28 +424,40 @@ def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
 
 def _track_geometric(sess: SlamSession, base, rgb, depth):
     """Photo-SLAM's tracking: frame-to-frame direct odometry from the
-    previous frame (no render, so nothing for pruning to accumulate)."""
+    previous frame (no render, so nothing for pruning to accumulate), as
+    one segment of the session's runner."""
     cfg, intr, dev = sess.cfg, sess.intr, sess.device
-    pts_w, cols, _, valid = geometric.backproject_grid(
-        sess.prev_rgb, sess.prev_depth, sess.pose, intr, stride=4)
-    xi = geometric.geometric_track(intr, base, pts_w, cols, valid, rgb, depth,
-                                   iters=cfg.iters_track, lr_pose=cfg.lr_pose)
     k = cfg.iters_track
-    work = device_work_zero(dev)._replace(
-        pixels=torch.tensor((intr.height // 4) * (intr.width // 4) * k,
-                            dtype=torch.int64, device=dev),
-        iterations=torch.tensor(k, dtype=torch.int64, device=dev))
+
+    def segment(t):
+        pts_w, cols, _, valid = geometric.backproject_grid(
+            t["prev_rgb"], t["prev_depth"], t["pose"], intr, stride=4)
+        return {"xi": geometric.geometric_track(
+            intr, t["base"], pts_w, cols, valid, t["rgb"], t["depth"], iters=k,
+            lr_pose=cfg.lr_pose)}
+
+    _, runs = sess.runner.run(
+        ("geometric", k), segment,
+        dict(prev_rgb=sess.prev_rgb, prev_depth=sess.prev_depth, pose=sess.pose,
+             base=base, rgb=rgb, depth=depth), iters=k)
+    xi = runs[0]["xi"]
+    work = device_work_zero(dev)
+    work = work._replace(pixels=work.pixels + (intr.height // 4) * (intr.width // 4) * k,
+                         iterations=work.iterations + k)
     losses = torch.zeros((k,), dtype=torch.float32, device=dev)
     fired = torch.zeros((k,), dtype=torch.bool, device=dev)
     return xi, work, losses, fired
 
 
 def session_step(sess: SlamSession, frame, *, factor: int = 1,
-                 perm: Optional[torch.Tensor] = None):
+                 perm: Optional[torch.Tensor] = None,
+                 stats: Optional[EngineStats] = None):
     """Advance the session by one frame; returns ``(session, StepResult)``.
     ``factor`` is the §4.2 side factor of this frame's tracking (the host
     chooses it, as :func:`run_sequence` does).  ``perm`` fixes the densify
     pick on a keyframe (see ``_densify_core``)."""
+    runner = sess.runner
+    before = dataclasses.replace(runner.stats)
     sess = _maybe_retile(sess, factor)
     cfg, dev, kp = sess.cfg, sess.device, sess.cfg.keyframe
     rgb, depth = _as_image(frame.rgb, dev), _as_image(frame.depth, dev)
@@ -424,6 +469,8 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
     # GS-SLAM decides after tracking; the others before it.
     pre_kf = kp.kind != "gsslam" and kp.is_keyframe(
         idx, d_since, cur_rgb=rgb, last_kf_rgb=sess.last_kf_rgb)
+    if kp.kind in ("gsslam", "photoslam"):
+        runner.count(dispatches=0, syncs=1)     # the policy's device read
 
     base = sess.velocity @ sess.pose
     if cfg.base_algo == "photoslam":
@@ -432,17 +479,17 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
         st_t = sess.stage_at(factor)
         obs_rgb = downsample_image(rgb, factor)
         obs_depth = downsample_depth(depth, factor)
-        frags = st_t._build_core(g, masked, base)
         if pstate is not None:
+            frags = st_t._build_core(g, masked, base)
             xi, g, pstate, work_t, track_losses, fired = st_t._track_scan_prune(
                 g, pstate, base, obs_rgb, obs_depth, frags, device_work_zero(dev))
             masked = pstate.masked
         else:
             xi, work_t, track_losses, fired = st_t._track_scan_noprune(
-                g, masked, base, obs_rgb, obs_depth, frags, device_work_zero(dev))
+                g, masked, base, obs_rgb, obs_depth, device_work_zero(dev))
     with torch.no_grad():
         new_pose = lie.se3_exp(xi) @ base
-        velocity = new_pose @ torch.linalg.inv(sess.pose)
+        velocity = new_pose @ torch.linalg.inv_ex(sess.pose).inverse
     sess.traj[idx] = new_pose
 
     if kp.kind == "gsslam":
@@ -460,7 +507,7 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
         sess = sess.replace(g=g)
         work_m = device_work_zero(dev)
         map_losses = torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev)
-        psnr_v = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
+        psnr_v = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
     alive_now = sess.g.alive.sum()
     sess.alive_log[idx] = alive_now
@@ -468,6 +515,7 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
     sess = sess.replace(pose=new_pose, velocity=velocity, frame_idx=idx + 1,
                         prev_rgb=rgb, prev_depth=depth,
                         work=device_work_merge(sess.work, step_work))
+    _charge(stats, runner, before)
     return sess, StepResult(pose=new_pose, is_kf=is_kf, psnr=psnr_v,
                             alive=alive_now, work=step_work,
                             track_losses=track_losses, fired=fired,
@@ -475,24 +523,40 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
 
 
 def session_finalize(sess: SlamSession, gt_w2c=None, *,
-                     wall_time_s: float = 0.0) -> SLAMResult:
-    """Fetch the session's logs and assemble a :class:`SLAMResult`.  On the
-    card's WSU path it also reads the scheduled kernels' fault word."""
-    n = sess.frame_idx
+                     wall_time_s: float = 0.0,
+                     stats: Optional[EngineStats] = None) -> SLAMResult:
+    """Fetch the session's logs (two reads: the float logs, the integer
+    ones) and assemble a :class:`SLAMResult`.  On the card's WSU path it
+    also reads the scheduled kernels' fault word."""
+    runner = sess.runner
+    before = dataclasses.replace(runner.stats)
+    n, n_kf = sess.frame_idx, sess.kf_total
     if sess.stage.scheduled and sess.device.type == "cuda":
         raise_on_sched_fault(sess.device)
-    traj = sess.traj[:n].cpu().numpy()
+        runner.count(dispatches=0, syncs=1)
+    removed = (sess.pstate.removed if sess.pstate is not None
+               else torch.zeros((), dtype=torch.int64, device=sess.device))
+    floats = torch.cat([sess.traj[:n].reshape(-1), sess.kf_psnr[:n_kf]]).cpu()
+    ints = torch.cat([sess.alive_log[:n], torch.stack(list(sess.work)),
+                      removed.reshape(1).to(torch.int64)]).cpu().tolist()
+    runner.count(dispatches=0, syncs=2)
+    traj = floats[:16 * n].reshape(n, 4, 4).numpy()
     est = [traj[i] for i in range(n)]
     gt = [np.asarray(p) for p in gt_w2c] if gt_w2c is not None else []
     ate = ate_rmse(est, gt[:n]) if len(gt) >= n >= 2 else float("nan")
+    n_work = len(DeviceWork._fields)
+    _charge(stats, runner, before)
     return SLAMResult(
         est_w2c=est, gt_w2c=gt,
-        keyframe_psnr=[float(x) for x in sess.kf_psnr[:sess.kf_total].cpu()],
+        keyframe_psnr=[float(x) for x in floats[16 * n:]],
         ate=ate,
-        work=WorkCounters(frames=n, **device_work_totals(sess.work)),
-        alive_per_frame=[int(x) for x in sess.alive_log[:n].cpu()],
+        work=WorkCounters(frames=n, **dict(zip(DeviceWork._fields,
+                                               ints[n:n + n_work]))),
+        alive_per_frame=ints[:n],
         wall_time_s=wall_time_s,
-        prune_removed=int(sess.pstate.removed) if sess.pstate is not None else 0)
+        prune_removed=ints[-1],
+        dispatches=stats.dispatches if stats is not None else 0,
+        syncs=stats.syncs if stats is not None else 0)
 
 
 def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:
@@ -512,19 +576,23 @@ def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:
 def run_sequence(dataset, cfg: SLAMConfig, *, device=None, seed: int = 0,
                  perms: Optional[dict] = None) -> SLAMResult:
     """Init, one :func:`session_step` per frame at the factor
-    :func:`frame_factor` chooses, finalize.  ``perms`` maps a frame index
-    to a fixed densify pick (tests only)."""
+    :func:`frame_factor` chooses, finalize, counting dispatches and syncs
+    in one :class:`EngineStats`.  ``perms`` maps a frame index to a fixed
+    densify pick (tests only)."""
     t0 = time.perf_counter()
-    sess = session_init(dataset, cfg, seed=seed, device=device)
+    stats = EngineStats()
+    sess = session_init(dataset, cfg, seed=seed, device=device, stats=stats)
     last_kf_idx = 0
     for idx in range(1, dataset.num_frames):
+        factor = frame_factor(dataset, idx, last_kf_idx, cfg)
+        if cfg.downsample.enabled and cfg.keyframe.kind == "photoslam":
+            stats.syncs += 1        # the photometric pre-decision's read
         sess, res = session_step(
-            sess, dataset.frames[idx],
-            factor=frame_factor(dataset, idx, last_kf_idx, cfg),
-            perm=None if perms is None else perms.get(idx))
+            sess, dataset.frames[idx], factor=factor,
+            perm=None if perms is None else perms.get(idx), stats=stats)
         if res.is_kf:
             last_kf_idx = idx
     if sess.device.type == "cuda":
         torch.cuda.synchronize(sess.device)
     return session_finalize(sess, gt_w2c=[f.w2c_gt for f in dataset.frames],
-                            wall_time_s=time.perf_counter() - t0)
+                            wall_time_s=time.perf_counter() - t0, stats=stats)

@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import constant
+
 
 class AdamState(NamedTuple):
     step: torch.Tensor  # () int32
@@ -46,11 +48,10 @@ class Adam:
         mu = {k: self.b1 * state.mu[k] + (1 - self.b1) * g for k, g in grads.items()}
         nu = {k: self.b2 * state.nu[k] + (1 - self.b2) * g * g
               for k, g in grads.items()}
-        f32 = dict(dtype=torch.float32, device=step.device)
         stepf = step.to(torch.float32)
-        bc1 = 1.0 - torch.tensor(self.b1, **f32) ** stepf
-        bc2 = 1.0 - torch.tensor(self.b2, **f32) ** stepf
-        a = torch.tensor(self.lr, **f32) / bc1
+        bc1 = 1.0 - constant(self.b1, torch.float32, step.device) ** stepf
+        bc2 = 1.0 - constant(self.b2, torch.float32, step.device) ** stepf
+        a = constant(self.lr, torch.float32, step.device) / bc1
         inv_sqrt_bc2 = torch.rsqrt(bc2)
         updates = {k: -a * mu[k] / (torch.sqrt(nu[k]) * inv_sqrt_bc2 + self.eps)
                    for k in grads}

@@ -618,3 +618,151 @@ def test_cuda_sparse_session_schedule_equals_kernel(dev):
     _steps_equal(k_steps, s_steps)
     assert k_frozen and all(k_frozen) and all(s_frozen)
     assert sum(int(r.work.skipped_fragments) for r in k_steps) > 0
+
+
+# ---------------------------------------------------------------------------
+# the fused engine: phases as CUDA graph replays
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return [tile_render_fwd.launches, tile_render_bwd.launches,
+            tile_render_fwd_sched.launches, tile_render_bwd_sched.launches,
+            gmu.merge_runs.launches, gmu.block_cumsum.launches]
+
+
+def _fused_and_eager(path):
+    """The 64x64 session of ``path`` run fused (graph replays) and eager:
+    per mode, the result, the dispatch counts and the kernel launches."""
+    from repro_torch.core.downsample import DownsampleConfig
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SLAMConfig, run_sequence
+
+    ds = make_dataset("room0", num_frames=6, height=64, width=64,
+                      num_gaussians=400, frag_capacity=48)
+    kw = {"kernel": {}, "schedule": dict(backend="schedule"),
+          "rtgs": dict(prune=PruneConfig(k0=2, step_frac=0.08),
+                       downsample=DownsampleConfig(enabled=True))}[path]
+    out = {}
+    for fused in (True, False):
+        before = _launches()
+        res = run_sequence(ds, SLAMConfig(
+            iters_track=3, iters_map=8, capacity=1024, frag_capacity=48,
+            map_window=2, map_rebuild_stride=3, keyframe=KeyframePolicy(interval=2),
+            fused=fused, **kw))
+        out[fused] = (res, [a - b for a, b in zip(_launches(), before)])
+    return out
+
+
+@pytest.mark.parametrize("path", ["kernel", "schedule", "rtgs"])
+def test_cuda_fused_session_equals_eager(dev, path):
+    """Graph replays run the eager path's kernels on the same inputs in the
+    same order: poses, PSNR, alive counts and work counters equal bit for
+    bit, with the same kernel launch counts, one K3 merge per backward, in
+    fewer dispatches."""
+    out = _fused_and_eager(path)
+    (fused, l_f), (eager, l_e) = out[True], out[False]
+    assert all(np.array_equal(a, b) for a, b in zip(fused.est_w2c, eager.est_w2c))
+    assert fused.keyframe_psnr == eager.keyframe_psnr
+    assert fused.alive_per_frame == eager.alive_per_frame
+    assert fused.work == eager.work and fused.prune_removed == eager.prune_removed
+    assert l_f == l_e and l_f[4] == l_f[1] + l_f[3] > 0
+    assert fused.syncs == eager.syncs and fused.dispatches < eager.dispatches
+
+
+def _tracking_stage(dev, backend="kernel", fused=True):
+    """A 64x64 full-resolution stage of a fresh session and the inputs of
+    one tracking phase."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.metrics import device_work_zero
+    from repro_torch.slam.session import SLAMConfig, session_init
+
+    ds = make_dataset("room0", num_frames=3, height=64, width=64,
+                      num_gaussians=400, frag_capacity=48)
+    sess = session_init(ds, SLAMConfig(iters_track=3, iters_map=4, capacity=1024,
+                                       frag_capacity=48, map_window=2,
+                                       backend=backend, fused=fused,
+                                       keyframe=KeyframePolicy(interval=2)))
+    st = sess.stage
+    frame = ds.frames[1]
+    args = (sess.g, sess.masked, sess.pose, frame.rgb, frame.depth,
+            device_work_zero(dev))
+    return st, args
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("backend", ["kernel", "schedule"])
+def test_cuda_replay_makes_no_sync(dev, backend, fused):
+    """Once captured, a tracking phase (copies in, one replay of the
+    fragment-list build and the iterations, clones out) makes no
+    synchronizing CUDA call, and neither does it run eagerly (no device
+    read, no copy from pageable host memory)."""
+    st, args = _tracking_stage(dev, backend, fused)
+    first = st._track_scan_noprune(*args)           # capture, if fused
+    replays = st.runner.stats.replays
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = st._track_scan_noprune(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.runner.stats.replays == replays + fused
+    assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
+
+
+def test_cuda_replay_counts_launches_per_replay(dev):
+    """The kernel wrappers count at capture only; the runner adds the
+    captured delta on every replay, so N replays count N times one eager
+    run's launches."""
+    from repro_torch.slam.graphs import flat
+
+    st, (g, masked, base, rgb, depth, work) = _tracking_stage(dev)
+    xi, ostate = st._pose_start()
+    inputs = st._track_inputs(g, masked, base, rgb, depth, None, None, xi,
+                              ostate, work)
+    fn = st._track_segment(2, prune=False)
+    before = _launches()
+    fn(inputs)
+    eager = [a - b for a, b in zip(_launches(), before)]
+    assert eager[0] == eager[1] == eager[4] == 2
+    for times in (1, 5):
+        before = _launches()
+        st.runner.run(("count", times), fn, inputs, st._TRACK_CARRY, times=times)
+        assert [a - b for a, b in zip(_launches(), before)] == [times * d for d in eager]
+
+
+def test_cuda_failed_capture_raises_and_keeps_nothing(dev):
+    """A segment that reads the card from the host cannot be captured: the
+    runner raises on every attempt, keeps no segment and never runs it
+    eagerly in the graph's place.  In a process of its own, as a failed
+    capture may leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.slam.graphs import PhaseRunner
+        runner = PhaseRunner("cuda")
+        x = torch.ones(4, device="cuda")
+        def fn(t):
+            return {"y": t["x"] * int(t["x"].sum())}   # a device read
+        for attempt in range(2):
+            try:
+                runner.run("bad", fn, {"x": x})
+            except RuntimeError:
+                pass
+            else:
+                raise SystemExit(f"attempt {attempt} did not raise")
+        assert not runner._segments and runner.stats.captures == 0
+        assert runner.stats.dispatches == 0
+        print("raised")
+    """)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr

@@ -54,10 +54,10 @@ def engine_runs():
     xi_j, work_tj, losses_tj, _ = st_j.track_scan_noprune(
         g_j, masked_j, jx(base), jnp.asarray(f1.rgb), jnp.asarray(f1.depth),
         frags_j, jmetrics.device_work_zero())
-    frags_t = st_t._build_core(g_t, masked_t, th(base))
+    # The port's tracking segment builds the frame's lists itself.
     xi_t, work_tt, losses_tt, _ = st_t._track_scan_noprune(
         g_t, masked_t, th(base), ds_t.frames[1].rgb, ds_t.frames[1].depth,
-        frags_t, tmetrics.device_work_zero())
+        tmetrics.device_work_zero())
 
     kf = [ds_j.frames[0], f1]
     kf_w2c = np.stack([np.asarray(f.w2c_gt) for f in kf])
