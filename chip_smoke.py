@@ -66,7 +66,23 @@ Run from the root of a checkout.  In order, it
     equals ``schedule``, stable rows stay byte-frozen, the tail optimizes
     fewer Gaussians and schedules fewer programs, the PSNR loss is under
     0.35 dB, and K3 merges once per backward with no plain run;
-11. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
+11. ``[serve]``: a ``SlamServer`` over a ``ShardedPool`` of S=4 stacked
+    sessions on [main]'s config (room0, desk0, stairs0, corridor0, 12
+    frames each, fed through ``submit`` and ``pump``; stairs0 retired after
+    its frame 6 and a fresh room1 session admitted in its slot), then S=2:
+    every row equals its solo run bit for bit (room0's poses hash to
+    [main]'s), a tracking-only frame-step is 1 dispatch, 0 syncs and 1
+    graph replay for all rows, a keyframe frame-step adds [main]'s
+    keyframe work per keyframe row, K1/K2/K3 launch the sum of the solo
+    runs' launches and no plain version runs; prints ms per frame-step and
+    aggregate frames/s at S=1, 2 and 4, capture ms and peak memory;
+    ``[serve-prune]``: S=2 rows under [rtgs]'s pruning without
+    downsampling, 8 frames, equal to their solo runs with the same
+    boundaries; ``[sched]``: a ``PoolLadder`` of widths (1, 2, 4),
+    ``warmup``, three streams through an ``IngestWorker`` thread with one
+    migration S=1 -> S=2 while frames are queued; the runner census after
+    serving equals the warmup's and every stream its solo run;
+12. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
     then one tracking-only frame and one keyframe of a further full-size
     session, fused and eager, and one RTGS tracking frame with
     ``torch.profiler``, and prints the tables, each frame's
@@ -945,13 +961,9 @@ def phase_main(dev, ds, backend="kernel", fused=True, label=None):
     tag = label or ("[main]" if backend == "kernel" else f"[main-{backend[:5]}]")
     cfg = SLAMConfig(capacity=131072, frag_capacity=K, map_window=4,
                      iters_track=12, iters_map=24, backend=backend, fused=fused)
-    kernels, plains = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    for fn in plains:
-        fn.calls = 0
+    kernels, plains = reset_counters()
     stats = EngineStats()
     t_run = time.perf_counter()
     sess = session_init(ds, cfg, device=dev, stats=stats)
@@ -1018,7 +1030,8 @@ def phase_main(dev, ds, backend="kernel", fused=True, label=None):
             f"{tag} fused={fused} made {stats.replays} graph replays")
     return launches, res, keyframes, per_frame, dict(
         split=split, peak_gb=peak_gb, ms=wall * 1e3 / frames,
-        replayed=dict(sess.runner.replayed_launches))
+        replayed=dict(sess.runner.replayed_launches), sess=sess,
+        digest=digest.hexdigest()[:16])
 
 
 def phase_main_eager(dev, ds, main):
@@ -1072,12 +1085,17 @@ RTGS_FACTORS = [4, 2, 2, 2, 2, 2, 2, 1, 4, 2, 2]   # frames 1-11, keyframe 8
 
 
 def reset_counters():
-    """Every launch and plain-version counter set to 0."""
+    """Every launch and plain-version counter set to 0, and every phase
+    runner's count of launches made by graph replays (sessions of one
+    config share a runner across phases)."""
+    from repro_torch.slam.session import cached_runners
     kernels, plains = launch_counters()
     for fn in kernels.values():
         fn.launches = 0
     for fn in plains:
         fn.calls = 0
+    for runner in cached_runners():
+        runner.replayed_launches = dict.fromkeys(runner.replayed_launches, 0)
     return kernels, plains
 
 
@@ -1547,6 +1565,366 @@ def phase_sparse(dev, profile=False):
     return paths, busy
 
 
+# ---------------------------------------------------------------------------
+# serving: stacked sessions, the server and the scheduler
+# ---------------------------------------------------------------------------
+
+SERVE_SCENES = ("room0", "desk0", "stairs0", "corridor0")
+SERVE_RETIRE = 6        # stairs0 leaves after its frame 6; room1 takes its slot
+SERVE_PRUNE_FRAMES = 8
+# corridor0's camera flies ~10 m down a corridor, and the reference's own
+# MonoGS run there measures an ATE of 50.48 cm (``BENCH_slam.json``, the
+# ``paged`` row): the room scenes' 0.30 m bound does not hold for it.  Its
+# row is held to its solo run bit for bit and to the PSNR bound.
+ATE_UNBOUNDED = ("corridor0",)
+
+
+def main_config(**kw):
+    """[main]'s configuration (one runner with it: sessions of an equal
+    config share their graphs)."""
+    from repro_torch.slam.session import SLAMConfig
+    return SLAMConfig(capacity=131072, frag_capacity=K, map_window=4, iters_track=12,
+                      iters_map=24, **kw)
+
+
+def pose_digest(poses) -> str:
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(np.stack(poses)).tobytes()).hexdigest()[:16]
+
+
+def solo_run(dev, ds, cfg, frames, max_frames=None):
+    """A solo session over ``ds``'s first ``frames`` frames (init and
+    steps), every counter set to 0 just before: the final session, its
+    result, its launches and its boundaries fired."""
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.slam.session import session_finalize, session_init, session_step
+    kernels, plains = reset_counters()
+    reads0 = pruning.interval_update.host_reads
+    sess = session_init(ds, cfg, device=dev, max_frames=max_frames)
+    fired = 0
+    for idx in range(1, frames):
+        sess, out = session_step(sess, ds.frames[idx])
+        fired += int(out.fired.sum())
+    torch.cuda.synchronize()
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames])
+    require(sum(fn.calls for fn in plains) == 0, "a solo run ran a plain version")
+    return dict(sess=sess, res=res, fired=fired,
+                reads=pruning.interval_update.host_reads - reads0,
+                launches={k: fn.launches for k, fn in kernels.items()})
+
+
+def serve_steps(srv, feeds, steps, between=None):
+    """Drive ``srv`` for ``steps`` lockstep frame-steps: each step submits
+    the next frame of every live slot's feed (``feeds[slot]`` is a list of
+    host frames, consumed from its head) and pumps, timed with the host
+    clock to a ``torch.cuda.synchronize()``.  ``between(step)`` runs before
+    each step.  Returns per-step rows: ms, ``EngineStats`` delta, keyframe
+    flags."""
+    import dataclasses
+
+    import torch
+    pool, rows = srv.pool, []
+    for step in range(1, steps + 1):
+        if between is not None:
+            between(step)
+        for slot in srv.live_slots():
+            srv.submit(slot, feeds[slot].pop(0))
+        before = dataclasses.replace(pool.stats)
+        t0 = time.perf_counter()
+        require(srv.pump() == 1, "a lockstep frame-step did not dispatch")
+        torch.cuda.synchronize()
+        rows.append(dict(step=step, ms=(time.perf_counter() - t0) * 1e3,
+                         counts=pool.stats.since(before), kf=srv.last_result.is_kf,
+                         fired=[int(f.sum()) for f in srv.last_result.fired]))
+    srv.drain()
+    return rows
+
+
+def step_split(rows):
+    """Mean ms and counts of the tracking-only frame-steps and of the
+    keyframe frame-steps that captured no graph, and the capturing
+    steps' ms."""
+    import numpy as np
+    out = {}
+    for kind in ("tracking", "keyframe"):
+        sel = [r for r in rows if any(r["kf"]) == (kind == "keyframe")
+               and not r["counts"].captures]
+        out[kind] = {"ms": float(np.mean([r["ms"] for r in sel])) if sel else float("nan"),
+                     "steps": len(sel),
+                     **{f: float(np.mean([getattr(r["counts"], f) for r in sel]))
+                        if sel else float("nan")
+                        for f in ("dispatches", "syncs", "replays")}}
+    out["capture_ms"] = [round(r["ms"], 1) for r in rows if r["counts"].captures]
+    return out
+
+
+def split_line(width, split) -> str:
+    t, k = split["tracking"], split["keyframe"]
+    return (f"S={width}: tracking-only frame-step {t['ms']:.1f} ms ({t['steps']} steps, "
+            f"{t['dispatches']:.1f} dispatches, {t['syncs']:.1f} syncs, "
+            f"{t['replays']:.1f} replays; {width * 1e3 / t['ms']:.1f} frames/s), "
+            f"keyframe frame-step {k['ms']:.1f} ms ({k['steps']} steps, "
+            f"{k['dispatches']:.1f} dispatches, {k['syncs']:.1f} syncs, "
+            f"{k['replays']:.1f} replays), steps that captured a graph "
+            f"{split['capture_ms'] or 'none'} ms")
+
+
+def phase_serve(dev, ds, main_launches, main_info):
+    """``[serve]``: a ``SlamServer`` over a ``ShardedPool`` of S=4 rows on
+    [main]'s config (room0, desk0, stairs0, corridor0, 12 frames each, fed
+    through ``submit`` and ``pump``), stairs0 retired after its frame 6 and
+    a fresh room1 session admitted in its slot; then S=2 (room0, desk0).
+    Every row must equal its solo run bit for bit (room0's is [main]), a
+    tracking-only frame-step must be 1 dispatch, 0 syncs and 1 replay, a
+    keyframe frame-step must add [main]'s keyframe work per keyframe row,
+    K1/K2/K3 must launch the sum of the solo runs' launches, no plain
+    version may run, and every row's ATE must be under 0.30 m (but
+    corridor0's, ``ATE_UNBOUNDED``) and its mean keyframe PSNR over 17 dB."""
+    import numpy as np
+    import torch
+    from _session_state import same_session
+    from repro_torch.slam.sched import default_decode
+    from repro_torch.slam.server import ShardedPool, SlamServer
+    from repro_torch.slam.session import session_finalize, session_init
+
+    cfg = main_config()
+    data = {"room0": ds, **{n: make_scene(dev, n) for n in (*SERVE_SCENES[1:], "room1")}}
+    host = {n: [default_decode(f) for f in d.frames] for n, d in data.items()}
+    solo = {"desk0": solo_run(dev, data["desk0"], cfg, 12),
+            "corridor0": solo_run(dev, data["corridor0"], cfg, 12),
+            "stairs0": solo_run(dev, data["stairs0"], cfg, SERVE_RETIRE + 1),
+            "room1": solo_run(dev, data["room1"], cfg, 12 - SERVE_RETIRE)}
+    solo["room0"] = dict(sess=main_info["sess"], launches=main_launches)
+    gt = {n: [f.w2c_gt for f in d.frames] for n, d in data.items()}
+
+    # S=4, with a retirement and an admission mid-run.
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plains = reset_counters()
+    pool = ShardedPool([session_init(data[n], cfg, device=dev) for n in SERVE_SCENES])
+    srv = SlamServer(pool, queue_depth=2)
+    feeds = {s: host[n][1:] for s, n in enumerate(SERVE_SCENES)}
+    retired = {}
+
+    def churn(step):
+        if step == SERVE_RETIRE + 1:
+            retired["stairs0"] = srv.retire(2)
+            t0 = time.perf_counter()
+            require(srv.admit(session_init(data["room1"], cfg, device=dev)) == 2,
+                    "[serve] room1 not admitted in stairs0's slot")
+            retired["admit_ms"] = (time.perf_counter() - t0) * 1e3
+            feeds[2] = host["room1"][1:]
+
+    t_run = time.perf_counter()
+    rows = serve_steps(srv, feeds, 11, churn)
+    wall = time.perf_counter() - t_run
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    names = {0: "room0", 1: "desk0", 2: "room1", 3: "corridor0"}
+    finals = {n: pool.session(s) for s, n in names.items()}
+    finals["stairs0"] = retired["stairs0"]
+    results = {n: session_finalize(sess, gt_w2c=gt[n]) for n, sess in finals.items()}
+    split4 = step_split(rows)
+    kf = main_info["split"]["keyframe"]
+    per_kf = {f: kf[f] - (1 if f != "syncs" else 0) for f in ("dispatches", "syncs", "replays")}
+    bad_counts = [r["step"] for r in rows if not r["counts"].captures and (
+        (r["counts"].dispatches, r["counts"].syncs, r["counts"].replays)
+        != (1 + per_kf["dispatches"] * sum(r["kf"]), per_kf["syncs"] * sum(r["kf"]),
+            1 + per_kf["replays"] * sum(r["kf"])))]
+    want = {k: sum(solo[n]["launches"][k] for n in solo) for k in ("K1", "K2", "K3")}
+    equal = {n: same_session(finals[n], solo[n]["sess"]) for n in solo}
+    digest = pose_digest(results["room0"].est_w2c)
+    log(f"[serve] S=4 {W}x{H} rows {list(SERVE_SCENES)}, 12 frames each, stairs0 retired "
+        f"after frame {SERVE_RETIRE} and room1 admitted in its slot ({retired['admit_ms']:.0f} "
+        f"ms, session_init included): wall {wall:.2f} s for 11 frame-steps; "
+        + split_line(4, split4) + f"; keyframe steps {[r['step'] for r in rows if any(r['kf'])]} "
+        f"with {[sum(r['kf']) for r in rows if any(r['kf'])]} keyframe rows; per keyframe row "
+        f"+{per_kf['dispatches']:.0f} dispatches, +{per_kf['syncs']:.0f} syncs, "
+        f"+{per_kf['replays']:.0f} replays ([main]'s keyframe less its tracking replay)")
+    log(f"[serve] S=4 rows equal their solo runs bit for bit: {equal}; room0 poses sha256 "
+        f"{digest} ([main] {main_info['digest']}); launches {launches} against the solo "
+        f"runs' sum {want}, plain versions {plain_calls}; peak device memory "
+        f"{peak_gb:.2f} GB ({peak_gb - base_gb:+.2f} GB over the {base_gb:.2f} GB held "
+        f"before the pool); admin swaps {pool.admin_dispatches}; per row ATE / mean "
+        "keyframe PSNR: " + ", ".join(
+            f"{n} {r.ate * 100:.2f} cm / {r.mean_psnr:.2f} dB ({r.work.frames} frames)"
+            for n, r in results.items()))
+    require(all(equal.values()), f"[serve] a row differs from its solo run: {equal}")
+    require(digest == main_info["digest"], f"[serve] room0 sha256 {digest} != [main]'s")
+    require(not bad_counts, f"[serve] frame-steps {bad_counts} break the count formula")
+    require(split4["tracking"]["steps"] > 0 and split4["keyframe"]["steps"] > 0,
+            f"[serve] no tracking-only or keyframe step without a capture: {split4}")
+    require(all(launches[k] == want[k] for k in want),
+            f"[serve] launches {launches} != the solo runs' {want}")
+    require(plain_calls == 0 and launches["K4"] == launches["K5"] == 0,
+            f"[serve] ran a plain version or K4/K5: {launches}, plain {plain_calls}")
+    for n, r in results.items():
+        require(np.isfinite(r.ate) and (r.ate < 0.30 or n in ATE_UNBOUNDED),
+                f"[serve] {n} ATE {r.ate:.3f} m")
+        require(r.mean_psnr > 17.0, f"[serve] {n} mean keyframe PSNR {r.mean_psnr:.2f} dB")
+
+    # S=2: room0 and desk0, 12 frames.
+    torch.cuda.synchronize()
+    base2 = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    pool2 = ShardedPool([session_init(data[n], cfg, device=dev) for n in SERVE_SCENES[:2]])
+    srv2 = SlamServer(pool2, queue_depth=2)
+    rows2 = serve_steps(srv2, {0: host["room0"][1:], 1: host["desk0"][1:]}, 11)
+    peak2 = torch.cuda.max_memory_allocated() / 1e9
+    split2 = step_split(rows2)
+    equal2 = [same_session(pool2.session(0), solo["room0"]["sess"]),
+              same_session(pool2.session(1), solo["desk0"]["sess"])]
+    log(f"[serve] S=2 rows room0, desk0: " + split_line(2, split2)
+        + f"; rows equal their solo runs: {equal2}; peak device memory {peak2:.2f} GB "
+        f"({peak2 - base2:+.2f} GB over {base2:.2f})")
+    s1 = main_info["split"]
+    log(f"[serve] ms per frame-step and aggregate frames/s by S (tracking-only / "
+        f"keyframe steps): S=1 ([main]) {s1['tracking']['ms']:.1f} / "
+        f"{s1['keyframe']['ms']:.1f} ms, {1e3 / s1['tracking']['ms']:.1f} frames/s; S=2 "
+        f"{split2['tracking']['ms']:.1f} / {split2['keyframe']['ms']:.1f} ms, "
+        f"{2e3 / split2['tracking']['ms']:.1f} frames/s; S=4 "
+        f"{split4['tracking']['ms']:.1f} / {split4['keyframe']['ms']:.1f} ms, "
+        f"{4e3 / split4['tracking']['ms']:.1f} frames/s")
+    require(all(equal2), f"[serve] S=2 rows differ from their solo runs: {equal2}")
+    require(split2["tracking"]["dispatches"] == 1 and split2["tracking"]["syncs"] == 0
+            and split2["tracking"]["replays"] == 1, f"[serve] S=2 counts {split2}")
+    return launches, solo, data, host
+
+
+def phase_serve_prune(dev, data, host):
+    """``[serve-prune]``: S=2 rows (room0, desk0) on [rtgs]'s
+    ``PruneConfig`` with downsampling off, at 640x480 for 8 frames: each
+    row equals its solo run bit for bit, with the same boundaries."""
+    import torch
+    from _session_state import same_session
+    from repro_torch.core import pruning
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.server import ShardedPool, SlamServer
+    from repro_torch.slam.session import session_init
+
+    cfg = main_config(prune=PruneConfig(k0=5, step_frac=0.08))
+    names, n = ("room0", "desk0"), SERVE_PRUNE_FRAMES
+    solo = {m: solo_run(dev, data[m], cfg, n, max_frames=n) for m in names}
+    kernels, plains = reset_counters()
+    reads0 = pruning.interval_update.host_reads
+    pool = ShardedPool([session_init(data[m], cfg, device=dev, max_frames=n) for m in names])
+    srv = SlamServer(pool, queue_depth=2)
+    rows = serve_steps(srv, {s: host[m][1:n] for s, m in enumerate(names)}, n - 1)
+    reads = pruning.interval_update.host_reads - reads0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    fired = [sum(r["fired"][s] for r in rows) for s in range(2)]
+    equal = [same_session(pool.session(s), solo[m]["sess"]) for s, m in enumerate(names)]
+    want = {k: sum(solo[m]["launches"][k] for m in names) for k in ("K1", "K2", "K3")}
+    split = step_split(rows)
+    log(f"[serve-prune] S=2 {W}x{H} rows {list(names)}, {n} frames, PruneConfig(k0=5, "
+        f"step_frac=0.08), no downsampling: boundaries fired per row {fired} (solo "
+        f"{[solo[m]['fired'] for m in names]}), {reads} host reads for them; rows equal "
+        f"their solo runs bit for bit: {equal}; " + split_line(2, split)
+        + f"; launches {launches} against the solo runs' sum {want}, plain versions "
+        f"{plain_calls}; per step dispatches "
+        f"{[r['counts'].dispatches for r in rows]}, replays "
+        f"{[r['counts'].replays for r in rows]}")
+    require(all(equal), f"[serve-prune] rows differ from their solo runs: {equal}")
+    require(fired == [solo[m]["fired"] for m in names] and sum(fired) > 0,
+            f"[serve-prune] boundaries {fired} != solo")
+    require(reads == sum(fired), f"[serve-prune] {reads} reads for {sum(fired)} boundaries")
+    require(all(launches[k] == want[k] for k in want) and plain_calls == 0,
+            f"[serve-prune] launches {launches} != {want} or plain {plain_calls}")
+    return launches
+
+
+def phase_sched(dev, data, host, solo):
+    """``[sched]``: a ``PoolLadder`` of widths (1, 2, 4) on [main]'s config;
+    ``warmup``, then room0, desk0 and corridor0 through an
+    ``IngestWorker`` thread, room0 migrated S=1 -> S=2 mid-trajectory with
+    frames queued.  ``compile_cache_stats()`` must equal its warmup
+    baseline at the end, and every stream its solo run bit for bit."""
+    import torch
+    from _session_state import same_session
+    from repro_torch.obs import Telemetry
+    from repro_torch.slam.sched import (
+        IngestWorker, PoolLadder, QueueDepthPolicy, SlamScheduler)
+    from repro_torch.slam.server import compile_cache_stats
+    from repro_torch.slam.session import session_init
+
+    cfg = main_config()
+    tele = Telemetry()
+    kernels, plains = reset_counters()
+    t0 = time.perf_counter()
+    ladder = PoolLadder(session_init(data["room0"], cfg, device=dev), widths=(1, 2, 4),
+                        queue_depth=2, telemetry=tele)
+    before = compile_cache_stats()
+    baseline = ladder.warmup()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    # The policy migrates nothing on its own here (a stream would have to
+    # starve for a minute): the one migration is the manual one below.
+    sched = SlamScheduler(ladder, policy=QueueDepthPolicy(starve_s=60.0),
+                          telemetry=tele, reserve_slots=0)
+    streams = ("room0", "desk0", "corridor0")
+    for n in streams:
+        sched.admit(n, session_init(data[n], cfg, device=dev))
+    placed = {n: sched.placement(n) for n in streams}
+    t_run = time.perf_counter()
+    # room0's first frames from this thread, two at a time; its fifth is
+    # left queued when it migrates to the S=2 rung beside desk0.
+    for t in range(1, 5, 2):
+        require(sched.offer("room0", host["room0"][t])
+                and sched.offer("room0", host["room0"][t + 1]), "[sched] offer refused")
+        while ladder[0].server.queue.fill(0):
+            sched.tick()
+    require(sched.offer("room0", host["room0"][5]), "[sched] offer refused")
+    migrated_at = (ladder[0].server.stats.steps, ladder[0].server.queue.fill(0))
+    sched.migrate("room0", 1)
+    # The rest of every stream through the ingest thread.
+    worker = IngestWorker(sched, {n: host[n][6 if n == "room0" else 1:] for n in streams})
+    worker.start()
+    try:
+        sched.serve(worker=worker, timeout_s=300)
+    finally:
+        worker.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    census = compile_cache_stats()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    plain_calls = sum(fn.calls for fn in plains)
+    equal = {n: same_session(sched.row(n), solo[n]["sess"]) for n in streams}
+    groups = []
+    for rung in ladder.rungs:
+        steps = rung.server.stats.steps
+        disp = tele.registry.sum_counters("dispatches", kind="step", group=rung.name)
+        groups.append(f"{rung.name} {steps} frame-steps, {disp / max(steps, 1):.2f} step "
+                      f"dispatches and {rung.pool.stats.dispatches / max(steps, 1):.2f} engine "
+                      f"dispatches per frame-step, {rung.pool.stats.replays} replays, "
+                      f"{rung.server.stats.blank_row_steps} free-slot rows stepped on blank "
+                      f"frames ({rung.server.stats.blank_keyframes} of them keyframes)")
+    log(f"[sched] ladder widths (1, 2, 4) on [main]'s config: construction and warmup "
+        f"{warm_ms:.0f} ms, census before warmup {before}, after {baseline}, at the end "
+        f"{census}; streams placed {placed}; room0 migrated S=1 -> S=2 after "
+        f"{migrated_at[0]} frame-steps with {migrated_at[1]} frame(s) queued; "
+        f"{len(streams) * 11} frames in {wall:.2f} s, {worker.offered} of them through "
+        f"the ingest thread ({worker.rejected} offers bounced); "
+        + "; ".join(groups) + f"; migrations {sched.stats.migrations_by_reason}; rows equal "
+        f"their solo runs bit for bit: {equal}; launches {launches}, plain versions "
+        f"{plain_calls}")
+    require(census == baseline, f"[sched] census {census} != warmup's {baseline}")
+    require(all(equal.values()), f"[sched] a stream differs from its solo run: {equal}")
+    require(migrated_at == (4, 1) and sched.stats.migrations == 1
+            and worker.offered == len(streams) * 11 - 5,
+            f"[sched] migrated at {migrated_at}, migrations {sched.stats.migrations}, "
+            f"offered {worker.offered}")
+    require(plain_calls == 0, f"[sched] ran a plain version {plain_calls} times")
+    for rung in ladder.rungs:
+        disp = tele.registry.sum_counters("dispatches", kind="step", group=rung.name)
+        require(disp == rung.server.stats.steps, f"[sched] {rung.name} {disp} step "
+                f"dispatches for {rung.server.stats.steps} frame-steps")
+    return launches
+
+
 def phase_profile(dev, ds, ds_rtgs, main_split):
     """Where a frame's time goes (after the default run, with ``profile``):
     a ``torch.profiler`` trace of one tracking-only frame and one keyframe of
@@ -1677,6 +2055,10 @@ def main(argv) -> int:
     launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
     launches_a = phase_algos(dev, ds_rtgs)
     launches_sp, busy = phase_sparse(dev, profile=argv == ["profile"])
+    launches_sv, solo, serve_data, serve_host = phase_serve(dev, ds, launches, main_info)
+    launches_sp.update(serve=launches_sv,
+                       serve_prune=phase_serve_prune(dev, serve_data, serve_host),
+                       sched=phase_sched(dev, serve_data, serve_host, solo))
     if argv == ["profile"]:
         log("[profile] [sparse] tail keyframe (step 14), kernels busy: " + ", ".join(
             f"{n} dense {d:.1f} ms, sparse {sp:.1f} ms" for n, (d, sp) in busy.items()))

@@ -117,11 +117,12 @@ def accumulate(state: PruneState, param_grads: dict, cfg: PruneConfig,
 
 
 def stability_update(grad_ema: torch.Tensor, age: torch.Tensor, s: torch.Tensor,
-                     alive: torch.Tensor, cfg: PruneConfig, settle: bool):
+                     alive: torch.Tensor, cfg: PruneConfig, settle):
     """One iteration of the stability leaves from the Eq. 7 scores ``s``:
     ``(grad_ema, age, stable)``, with ``stable`` all False unless
-    ``settle`` (``opt_steps`` has reached ``stable_warmup``).  Device math
-    only: a CUDA graph captures it with ``settle`` fixed."""
+    ``settle`` (``opt_steps`` has reached ``stable_warmup``): a host bool,
+    or a () bool tensor, which a CUDA graph reads at each replay.  Device
+    math only."""
     alive_f = alive.to(torch.float32)
     ema = cfg.stable_ema_beta * grad_ema + (1.0 - cfg.stable_ema_beta) * s
     mean_ema = (ema * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
@@ -129,7 +130,9 @@ def stability_update(grad_ema: torch.Tensor, age: torch.Tensor, s: torch.Tensor,
     low = alive & (ema < thresh)
     age = torch.where(low, age + 1, torch.zeros_like(age))
     stable = alive & (age >= cfg.stable_age)
-    if not settle:
+    if isinstance(settle, torch.Tensor):
+        stable = stable & settle
+    elif not settle:
         stable = torch.zeros_like(stable)
     return ema, age, stable
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import constant
 from repro_torch.core import gaussians as G
 from repro_torch.core import lie, pruning
 from repro_torch.core.camera import Camera, Intrinsics
@@ -50,7 +51,9 @@ from repro_torch.core.sorting import (
 )
 from repro_torch.core.projection import project
 from repro_torch.kernels.ops import build_plan_schedule
-from repro_torch.slam.graphs import PhaseRunner, flat, unflat
+from repro_torch.slam.graphs import (
+    PhaseRunner, flat, row_carry, row_names, row_view, rows_segment, unflat,
+)
 from repro_torch.slam.metrics import DeviceWork, device_work_add
 from repro_torch.train.optimizer import (
     Adam, AdamState, apply_updates, apply_updates_masked,
@@ -234,13 +237,14 @@ class _Stage:
 
     # ---- segments (one or more iterations over fixed-shape tensors) -------
 
-    def _track_segment(self, n: int, prune: bool, settle: bool = True):
+    def _track_segment(self, n: int, prune: bool):
         """``n`` tracking iterations over the tensors ``_track_inputs``
         names.  Without ``prune`` the segment first builds the frame's
         fragment lists (and schedule) at the base pose; with it, it takes
         them as inputs and every iteration also accumulates the Eq. 7
-        scores and the stability leaves from its own backward (``settle``
-        is False while ``opt_steps`` is under ``stable_warmup``)."""
+        scores and the stability leaves from its own backward (the input
+        ``settle``, a () bool, is False while ``opt_steps`` is under
+        ``stable_warmup``)."""
         prune_cfg = self.cfg.prune
 
         def fn(t):
@@ -269,7 +273,7 @@ class _Stage:
                     s = pruning.importance_scores(grads, prune_cfg)
                     score = score + s
                     ema, age, stable = pruning.stability_update(
-                        ema, age, s, g.alive, prune_cfg, settle)
+                        ema, age, s, g.alive, prune_cfg, t["settle"])
                 losses.append(loss)
             out = {"xi": xi, **flat("opt", ostate), **flat("work", work),
                    "losses": torch.stack(losses)}
@@ -348,19 +352,36 @@ class _Stage:
                             work: DeviceWork):
         """The frame's fragment-list build at the base pose (and, on the
         ``schedule`` backend, one schedule from it for the whole phase) and
-        the K tracking iterations on them: one segment run."""
-        work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
+        the K tracking iterations on them: one segment run.  Returns
+        ``(xi, work, losses, fired)``."""
+        return self._track_rows_noprune(
+            [(g, masked, base_w2c, obs_rgb, obs_depth, work)])[0]
+
+    def _track_rows_noprune(self, rows):
+        """:meth:`_track_scan_noprune` of S sessions at once: ``rows`` holds
+        each one's ``(g, masked, base_w2c, obs_rgb, obs_depth, work)``.
+        One run of one S-row segment (each row's tensors and ops its own,
+        as in a solo run); returns each row's ``(xi, work, losses,
+        fired)``."""
         k = self.cfg.iters_track
-        xi, ostate = self._pose_start()
+        inputs = {}
+        for s, (g, masked, base_w2c, obs_rgb, obs_depth, work) in enumerate(rows):
+            work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
+            xi, ostate = self._pose_start()
+            inputs.update(row_names(s, self._track_inputs(
+                g, masked, base_w2c, obs_rgb, obs_depth, None, None, xi, ostate,
+                work)))
         final, runs = self.runner.run(
-            ("track", self.cfg.backend, self.factor, k),
-            self._track_segment(k, prune=False),
-            self._track_inputs(g, masked, base_w2c, obs_rgb, obs_depth, None,
-                               None, xi, ostate, work),
-            self._TRACK_CARRY, iters=k)
-        fired = torch.zeros(k, dtype=torch.bool, device=self.device)
-        return (final["xi"], unflat(final, "work", DeviceWork), runs[0]["losses"],
-                fired)
+            ("track", self.cfg.backend, self.factor, k, len(rows)),
+            rows_segment([self._track_segment(k, prune=False)] * len(rows)),
+            inputs, row_carry(self._TRACK_CARRY, len(rows)), iters=k)
+        out = []
+        for s in range(len(rows)):
+            f = row_view(s, final)
+            out.append((f["xi"], unflat(f, "work", DeviceWork),
+                        row_view(s, runs[0])["losses"],
+                        torch.zeros(k, dtype=torch.bool, device=self.device)))
+        return out
 
     def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
                           obs_rgb, obs_depth, frags, work: DeviceWork):
@@ -371,54 +392,83 @@ class _Stage:
         with them).  The iterations between boundaries (and on either side
         of the stability warmup's end) are runs of a one-iteration segment.
         Returns ``(xi, g, pstate, work, losses, fired)``."""
+        return self._track_rows_prune(
+            [(g, pstate, base_w2c, obs_rgb, obs_depth, frags, work)])[0]
+
+    def _track_rows_prune(self, rows):
+        """:meth:`_track_scan_prune` of S sessions at once: ``rows`` holds
+        each one's ``(g, pstate, base_w2c, obs_rgb, obs_depth, frags,
+        work)``.  The iterations run as replays of one one-iteration S-row
+        segment, up to the next boundary any row's host clock knows (or a
+        row's stability warmup end); after each run every row whose
+        interval ran out takes its own boundary.  Returns each row's
+        ``(xi, g, pstate, work, losses, fired)``."""
         prune_cfg = self.cfg.prune
-        sched = self._sched_core(frags) if self.scheduled else None
-        n_rows = g.capacity
-        # The caller's pre-track build, plus one per fired boundary below.
-        work = work._replace(frag_build_rows=work.frag_build_rows + n_rows)
-        xi, ostate = self._pose_start()
-        k, done = self.cfg.iters_track, 0
-        losses, fired = [], []
+        k, n_rows = self.cfg.iters_track, len(rows)
+        st = []
+        for g, pstate, base_w2c, obs_rgb, obs_depth, frags, work in rows:
+            sched = self._sched_core(frags) if self.scheduled else None
+            xi, ostate = self._pose_start()
+            # The caller's pre-track build, plus one per fired boundary below.
+            st.append(dict(
+                g=g, pstate=pstate, base=base_w2c, rgb=obs_rgb, depth=obs_depth,
+                frags=frags, sched=sched, xi=xi, ostate=ostate, losses=[],
+                fired=[], work=work._replace(
+                    frag_build_rows=work.frag_build_rows + g.capacity)))
+        segment = rows_segment([self._track_segment(1, prune=True)] * n_rows)
+        carry = row_carry(self._TRACK_CARRY + self._PRUNE_CARRY, n_rows)
+        done = 0
         while done < k:
-            # Iterations to the boundary (``iters_left`` runs out), to the
-            # frame's end, or to the end of the stability warmup.
-            settle = pstate.opt_steps + 1 >= prune_cfg.stable_warmup
-            n = min(pstate.iters_left, k - done)
-            if not settle:
-                n = min(n, prune_cfg.stable_warmup - 1 - pstate.opt_steps)
-            n = max(n, 1)
+            # Iterations to the nearest boundary (a row's ``iters_left``
+            # runs out), to the frame's end, or to a row's stability
+            # warmup end.
+            n, inputs = k - done, {}
+            for s, r in enumerate(st):
+                ps = r["pstate"]
+                settle = ps.opt_steps + 1 >= prune_cfg.stable_warmup
+                m = min(ps.iters_left, k - done)
+                if not settle:
+                    m = min(m, prune_cfg.stable_warmup - 1 - ps.opt_steps)
+                n = min(n, max(m, 1))
+                row = self._track_inputs(r["g"], ps.masked, r["base"], r["rgb"],
+                                         r["depth"], r["frags"], r["sched"],
+                                         r["xi"], r["ostate"], r["work"], ps)
+                row["settle"] = constant(settle, torch.bool, self.device)
+                inputs.update(row_names(s, row))
             final, runs = self.runner.run(
-                ("track-prune", self.cfg.backend, self.factor, settle),
-                self._track_segment(1, prune=True, settle=settle),
-                self._track_inputs(g, pstate.masked, base_w2c, obs_rgb, obs_depth,
-                                   frags, sched, xi, ostate, work, pstate),
-                self._TRACK_CARRY + self._PRUNE_CARRY, times=n)
-            xi = final["xi"]
-            ostate = AdamState(step=final["opt.step"], mu={"xi": final["opt.mu.xi"]},
-                               nu={"xi": final["opt.nu.xi"]})
-            work = unflat(final, "work", DeviceWork)
-            pstate = pstate._replace(
-                score=final["p.score"], grad_ema=final["p.grad_ema"],
-                age=final["p.age"], stable=final["p.stable"],
-                iters_left=pstate.iters_left - n, opt_steps=pstate.opt_steps + n)
-            losses += [r["losses"] for r in runs]
-            fired += [False] * n
+                ("track-prune", self.cfg.backend, self.factor, n_rows), segment,
+                inputs, carry, times=n)
             done += n
+            for s, r in enumerate(st):
+                f = row_view(s, final)
+                r["xi"] = f["xi"]
+                r["ostate"] = AdamState(step=f["opt.step"], mu={"xi": f["opt.mu.xi"]},
+                                        nu={"xi": f["opt.nu.xi"]})
+                r["work"] = unflat(f, "work", DeviceWork)
+                ps = r["pstate"]
+                ps = ps._replace(
+                    score=f["p.score"], grad_ema=f["p.grad_ema"], age=f["p.age"],
+                    stable=f["p.stable"], iters_left=ps.iters_left - n,
+                    opt_steps=ps.opt_steps + n)
+                r["losses"] += [row_view(s, run)["losses"] for run in runs]
+                r["fired"] += [False] * n
 
-            def build_fn(gg, mm):
-                return self._build_core(gg, mm, lie.se3_exp(xi) @ base_w2c)
+                def build_fn(gg, mm, xi=r["xi"], base=r["base"]):
+                    return self._build_core(gg, mm, lie.se3_exp(xi) @ base)
 
-            pstate, g, frags, hit = pruning.cond_interval_update(
-                pstate, g, frags, build_fn, prune_cfg)
-            if hit:
-                self.runner.count(syncs=1)      # interval_update's churn read
-                fired[-1] = True
-                work = work._replace(
-                    frag_build_rows=work.frag_build_rows + n_rows)
-                if self.scheduled:
-                    sched = self._sched_core(frags)
-        return (xi, g, pstate, work, torch.cat(losses),
-                torch.tensor(fired, dtype=torch.bool, device=self.device))
+                ps, r["g"], r["frags"], hit = pruning.cond_interval_update(
+                    ps, r["g"], r["frags"], build_fn, prune_cfg)
+                r["pstate"] = ps
+                if hit:
+                    self.runner.count(syncs=1)      # interval_update's churn read
+                    r["fired"][-1] = True
+                    r["work"] = r["work"]._replace(
+                        frag_build_rows=r["work"].frag_build_rows + r["g"].capacity)
+                    if self.scheduled:
+                        r["sched"] = self._sched_core(r["frags"])
+        return [(r["xi"], r["g"], r["pstate"], r["work"], torch.cat(r["losses"]),
+                 torch.tensor(r["fired"], dtype=torch.bool, device=self.device))
+                for r in st]
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
                          n_valid: int, work: DeviceWork, stable=None):

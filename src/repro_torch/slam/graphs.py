@@ -11,7 +11,7 @@ or more iterations of a phase and returns a dict of tensors.  The
   inputs' names, shapes and dtypes, after one warm-up run on a side stream
   that makes every lazily built buffer (cuBLAS workspaces, K3's arrival
   counters, K4/K5's fault word) before capture; every later run replays it.
-  All of a session's graphs share one memory pool.  A failed capture or
+  All of a runner's graphs share one memory pool.  A failed capture or
   replay raises: nothing falls back to eager.
 * ``fused`` on a CPU session: the same function runs directly, through the
   same static buffers, with no capture, so the CPU tests exercise the
@@ -60,6 +60,25 @@ inside it) and no sync; a keyframe adds the eager mapping work around its
 replays (densify and its 3 reads, the window builds, the stride rebuilds,
 the eval renders) and a fired §4.1 boundary its rebuild and read;
 ``tests/test_torch_fused.py`` holds the counts to the formula.
+
+S rows (``session.step_many``).  S stacked sessions share one runner, and
+each tracking segment has an S-row form (:func:`rows_segment`): row ``s``'s
+tensors are named ``"{s}/name"`` and each row runs the solo segment's ops
+on its own tensors, so every row equals its solo run bit for bit.  The
+S-row segment is keyed by S; the mapping segments are keyed by their
+shapes only and serve every row.  A frame-step of S rows counts:
+
+* no row takes a keyframe: 1 dispatch, 0 syncs and 1 replay, for any S
+  (the S rows' fragment-list builds ride inside the one replay);
+* each keyframe row adds its own mapping work, as in a solo keyframe (17
+  dispatches and 3 syncs on ``kernel``);
+* GS-SLAM and Photo-SLAM read all S rows' keyframe decisions in 1 sync;
+* with §4.1 pruning, tracking is S eager builds (and schedules) and K
+  replays of a one-iteration S-row segment, plus each row's fired
+  boundaries (2 dispatches and 1 sync each, 3 and 1 on ``schedule``);
+  Photo-SLAM's geometric tracking is 1 replay for all rows.
+
+``tests/test_torch_stacked.py`` holds the S-row counts to this formula.
 """
 
 from __future__ import annotations
@@ -125,6 +144,33 @@ def unflat(tensors: dict, prefix: str, cls):
     return cls(**{k: tensors[f"{prefix}.{k}"] for k in names})
 
 
+def row_names(s: int, tensors: dict) -> dict:
+    """Row ``s``'s tensors, named ``"{s}/name"`` in an S-row segment."""
+    return {f"{s}/{k}": v for k, v in tensors.items()}
+
+
+def row_view(s: int, tensors: dict) -> dict:
+    """Row ``s``'s tensors of an S-row dict, under their one-row names."""
+    p = f"{s}/"
+    return {k[len(p):]: v for k, v in tensors.items() if k.startswith(p)}
+
+
+def row_carry(carry, n_rows: int) -> tuple:
+    """The carried names of an ``n_rows``-row segment."""
+    return tuple(f"{s}/{k}" for s in range(n_rows) for k in carry)
+
+
+def rows_segment(fns) -> Callable[[dict], dict]:
+    """The S-row segment that runs one-row segment ``fns[s]`` on row
+    ``s``'s tensors (:func:`row_names`), one row after another."""
+    def fn(t):
+        out = {}
+        for s, f in enumerate(fns):
+            out.update(row_names(s, f(row_view(s, t))))
+        return out
+    return fn
+
+
 class _Segment:
     def __init__(self, inputs: dict):
         self.inputs = {k: v.clone() for k, v in inputs.items()}
@@ -134,8 +180,9 @@ class _Segment:
 
 
 class PhaseRunner:
-    """Runs one session's phase segments (see the module docstring) and
-    keeps its :class:`EngineStats`."""
+    """Runs the phase segments of every session of one device, config and
+    intrinsics (``session.runner_for``; see the module docstring) and keeps
+    their :class:`EngineStats`."""
 
     def __init__(self, device, fused: bool = True):
         self.device = torch.device(device)

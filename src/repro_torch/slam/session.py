@@ -12,13 +12,23 @@
 * :func:`run_sequence` — all three over a dataset, choosing each frame's
   downsampling factor on the host.
 
+Scaling up, :func:`step_many` steps S stacked sessions
+(:func:`stack_sessions`) in lockstep through the phase runner they share:
+a frame-step in which no row takes a keyframe is one CUDA graph replay
+for all S rows, and each row equals its solo run bit for bit.
+:class:`SessionPool` is the host wrapper that admits and retires sessions
+by swapping rows.
+
 The base algorithms are MonoGS, GS-SLAM, Photo-SLAM (geometric tracking,
 ``slam/geometric.py``) and SplaTAM, each with its keyframe policy.
 
 The reference traces the step into one XLA dispatch.  Here
 ``SLAMConfig.fused`` (the default) runs each phase's iterations as CUDA
 graph replays on the card (the same segments, through the same static
-buffers and with no capture, on the CPU; ``slam/graphs.py``), and
+buffers and with no capture, on the CPU; ``slam/graphs.py``) through a
+phase runner shared by every session of one device, config and
+intrinsics (:func:`runner_for`: a session of a config already served
+captures nothing), and
 ``fused=False`` runs them eagerly, one iteration after another, as the
 oracle.  Both run the same kernels on the same inputs in the same order,
 so they agree bit for bit.  ``lax.cond`` branches are host ``if``s on
@@ -40,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +62,16 @@ from repro_torch.core.camera import Intrinsics
 from repro_torch.core.downsample import (
     DownsampleConfig, downsample_depth, downsample_image, side_factor,
 )
-from repro_torch.core.keyframes import KeyframePolicy
+from repro_torch.core.keyframes import KeyframePolicy, read_decisions
 from repro_torch.core.losses import psnr as psnr_dev
 from repro_torch.core.pruning import PruneConfig, PruneState
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam import geometric
 from repro_torch.slam.engine import _Stage
-from repro_torch.slam.graphs import EngineStats, PhaseRunner
+from repro_torch.slam.graphs import (
+    EngineStats, PhaseRunner, row_names, row_view, rows_segment,
+)
 from repro_torch.slam.metrics import (
     DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_zero,
 )
@@ -131,6 +143,9 @@ class SLAMResult:
 
 
 class StepResult(NamedTuple):
+    """One step's results; :func:`step_many` stacks them along a leading
+    S axis, with ``is_kf`` a tuple of S bools."""
+
     pose: torch.Tensor          # (4, 4) estimated w2c after tracking
     is_kf: bool
     psnr: torch.Tensor          # () post-mapping PSNR (NaN if not a keyframe)
@@ -171,9 +186,15 @@ class SlamSession:
     tile_baselines: dict        # {num_tiles: (T,) i32} §4.1 churn baselines
                                 # parked across §4.2 factor switches
 
+    batch = None                # a solo session (SessionStack.batch is S)
+
     @property
     def device(self) -> torch.device:
         return self.pose.device
+
+    @property
+    def max_frames(self) -> int:
+        return int(self.traj.shape[0])
 
     @property
     def stage(self) -> _Stage:
@@ -183,7 +204,8 @@ class SlamSession:
     @property
     def runner(self) -> PhaseRunner:
         """The session's phase runner (graphs, pool and counts), shared by
-        its stages."""
+        its stages and by every session of its device, config and
+        intrinsics."""
         return self.stages[1].runner
 
     @property
@@ -200,8 +222,37 @@ class SlamSession:
         return dataclasses.replace(self, **kw)
 
 
+_RUNNERS: dict = {}
+
+
+def runner_for(device, cfg: SLAMConfig, intr: Intrinsics) -> PhaseRunner:
+    """The phase runner of every session of ``device``, ``cfg`` and
+    ``intr`` (the counterpart of the reference's module-level executable
+    caches): its graphs, captured once, serve all of them, solo or
+    stacked, from one memory pool."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev, repr(cfg), tuple(intr))
+    if key not in _RUNNERS:
+        _RUNNERS[key] = PhaseRunner(dev, cfg.fused)
+    return _RUNNERS[key]
+
+
+def cached_runners() -> List[PhaseRunner]:
+    """Every phase runner :func:`runner_for` has made in this process."""
+    return list(_RUNNERS.values())
+
+
 def _as_image(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def frame_arrays(frame, device=None):
+    """A frame's ``(rgb, depth)`` as float32 tensors, on ``device`` if one
+    is given: a dataset frame (``.rgb`` / ``.depth``) or a pair."""
+    rgb, depth = (frame.rgb, frame.depth) if hasattr(frame, "rgb") else frame
+    return _as_image(rgb, device), _as_image(depth, device)
 
 
 def _seed_map(dataset, cfg: SLAMConfig, device) -> G.GaussianField:
@@ -317,7 +368,8 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
         raise ValueError(
             "dynamic downsampling needs 64-divisible frames (16-pixel tiles "
             f"at the 4x stage); got {intr.height}x{intr.width}")
-    runner = PhaseRunner(dev, cfg.fused)
+    runner = runner_for(dev, cfg, intr)
+    before = dataclasses.replace(runner.stats)
     st = _Stage(intr, cfg, dev, runner=runner)
     stages = {1: st}
     f0 = dataset.frames[0]
@@ -358,7 +410,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     frags = st._build_core(g, masked, kf_w2c[0])
-    _charge(stats, runner, EngineStats())
+    _charge(stats, runner, before)
     return SlamSession(
         cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
         pstate=pstate, masked=masked,
@@ -399,7 +451,10 @@ def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
         densify_dropped=work_m.densify_dropped + dropped,
         frag_build_rows=work_m.frag_build_rows + 2 * g.capacity)
     psnr_v = psnr_dev(image, rgb)
-    sess.kf_psnr[sess.kf_total] = psnr_v
+    # Past the log (a free serving slot) the write is dropped, as the
+    # reference's out-of-range updates are.
+    if sess.kf_total < sess.kf_psnr.shape[0]:
+        sess.kf_psnr[sess.kf_total] = psnr_v
     # The serving cache stays dense: renders from outside see the whole map.
     frags = st._build_core(g, masked, new_pose)
     return sess.replace(
@@ -422,11 +477,12 @@ def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
     return sess.replace(pstate=pstate, tile_baselines=baselines)
 
 
-def _track_geometric(sess: SlamSession, base, rgb, depth):
-    """Photo-SLAM's tracking: frame-to-frame direct odometry from the
-    previous frame (no render, so nothing for pruning to accumulate), as
-    one segment of the session's runner."""
-    cfg, intr, dev = sess.cfg, sess.intr, sess.device
+def _track_geometric(rows, bases, obs):
+    """Photo-SLAM's tracking of each session of ``rows``: frame-to-frame
+    direct odometry from its previous frame (no render, so nothing for
+    pruning to accumulate), as one S-row segment of the shared runner.
+    Returns each row's ``(xi, work, losses, fired)``."""
+    cfg, intr, dev = rows[0].cfg, rows[0].intr, rows[0].device
     k = cfg.iters_track
 
     def segment(t):
@@ -436,17 +492,119 @@ def _track_geometric(sess: SlamSession, base, rgb, depth):
             intr, t["base"], pts_w, cols, valid, t["rgb"], t["depth"], iters=k,
             lr_pose=cfg.lr_pose)}
 
-    _, runs = sess.runner.run(
-        ("geometric", k), segment,
-        dict(prev_rgb=sess.prev_rgb, prev_depth=sess.prev_depth, pose=sess.pose,
-             base=base, rgb=rgb, depth=depth), iters=k)
-    xi = runs[0]["xi"]
-    work = device_work_zero(dev)
-    work = work._replace(pixels=work.pixels + (intr.height // 4) * (intr.width // 4) * k,
-                         iterations=work.iterations + k)
-    losses = torch.zeros((k,), dtype=torch.float32, device=dev)
-    fired = torch.zeros((k,), dtype=torch.bool, device=dev)
-    return xi, work, losses, fired
+    inputs = {}
+    for s, (sess, base, (rgb, depth)) in enumerate(zip(rows, bases, obs)):
+        inputs.update(row_names(s, dict(
+            prev_rgb=sess.prev_rgb, prev_depth=sess.prev_depth, pose=sess.pose,
+            base=base, rgb=rgb, depth=depth)))
+    _, runs = rows[0].runner.run(("geometric", k, len(rows)),
+                                 rows_segment([segment] * len(rows)), inputs, iters=k)
+    out = []
+    for s in range(len(rows)):
+        work = device_work_zero(dev)
+        work = work._replace(
+            pixels=work.pixels + (intr.height // 4) * (intr.width // 4) * k,
+            iterations=work.iterations + k)
+        out.append((row_view(s, runs[0])["xi"], work,
+                    torch.zeros((k,), dtype=torch.float32, device=dev),
+                    torch.zeros((k,), dtype=torch.bool, device=dev)))
+    return out
+
+
+def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
+               stats: Optional[EngineStats]):
+    """One step of each session of ``rows`` (one device, config and
+    runner), each on its own ``(rgb, depth)`` of ``obs``: the solo step's
+    work for every row, with the S rows' tracking as one run of an S-row
+    segment and every device keyframe decision read in one transfer.
+    Returns the advanced sessions and their step results."""
+    runner = rows[0].runner
+    before = dataclasses.replace(runner.stats)
+    rows = [_maybe_retile(sess, factor) for sess in rows]
+    cfg, dev, kp = rows[0].cfg, rows[0].device, rows[0].cfg.keyframe
+    perms = perms if perms is not None else [None] * len(rows)
+    idxs = [sess.frame_idx for sess in rows]
+    since = [sess.frame_idx - sess.last_kf_idx for sess in rows]
+
+    # GS-SLAM decides after tracking; the others before it.
+    pre_kf = [kp.kind != "gsslam" and kp.keyframe_test(
+        i, d, cur_rgb=rgb, last_kf_rgb=sess.last_kf_rgb)
+        for sess, i, d, (rgb, _) in zip(rows, idxs, since, obs)]
+    if kp.kind in ("gsslam", "photoslam"):
+        pre_kf = read_decisions(pre_kf)
+        runner.count(dispatches=0, syncs=1)     # the policy's device reads
+    else:
+        pre_kf = [bool(x) for x in pre_kf]
+
+    # Each row's (xi, work, losses, fired); pruning also changes g and
+    # pstate.
+    bases = [sess.velocity @ sess.pose for sess in rows]
+    gs, pstates = [sess.g for sess in rows], [sess.pstate for sess in rows]
+    if cfg.base_algo == "photoslam":
+        tracked = _track_geometric(rows, bases, obs)
+    else:
+        st_t = rows[0].stage_at(factor)
+        obs_t = [(downsample_image(rgb, factor), downsample_depth(depth, factor))
+                 for rgb, depth in obs]
+        if cfg.prune is not None:
+            out = st_t._track_rows_prune([
+                (sess.g, sess.pstate, base, o_rgb, o_depth,
+                 st_t._build_core(sess.g, sess.cur_masked, base), device_work_zero(dev))
+                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)])
+            gs, pstates = [o[1] for o in out], [o[2] for o in out]
+            tracked = [(xi, w, losses, fired) for xi, _, _, w, losses, fired in out]
+        else:
+            tracked = st_t._track_rows_noprune([
+                (sess.g, sess.cur_masked, base, o_rgb, o_depth, device_work_zero(dev))
+                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)])
+
+    with torch.no_grad():
+        new_poses = [lie.se3_exp(t[0]) @ base for t, base in zip(tracked, bases)]
+        velocities = [p @ torch.linalg.inv_ex(sess.pose).inverse
+                      for p, sess in zip(new_poses, rows)]
+    # A row stepped past its logs (a free serving slot on blank frames)
+    # drops the writes, as the reference's out-of-range updates do.
+    for sess, i, p in zip(rows, idxs, new_poses):
+        if i < sess.max_frames:
+            sess.traj[i] = p
+
+    if kp.kind == "gsslam":
+        is_kfs = read_decisions([
+            kp.keyframe_test(i, d, cur_pose=p, last_kf_pose=sess.kf_w2c[sess.kf_count - 1])
+            for sess, i, d, p in zip(rows, idxs, since, new_poses)])
+    else:
+        is_kfs = pre_kf
+
+    out_rows, results = [], []
+    for sess, i, (rgb, depth), g, pstate, (_, work_t, track_losses, fired), \
+            new_pose, velocity, is_kf, perm in zip(
+                rows, idxs, obs, gs, pstates, tracked, new_poses, velocities,
+                is_kfs, perms):
+        masked = pstate.masked if pstate is not None else sess.masked
+        sess = sess.replace(pstate=pstate)
+        if is_kf:
+            sess, work_m, map_losses, psnr_v = _map_branch(
+                sess, g, masked, rgb, depth, new_pose, perm)
+            sess = sess.replace(last_kf_idx=i, last_kf_rgb=rgb)
+        else:
+            sess = sess.replace(g=g)
+            work_m = device_work_zero(dev)
+            map_losses = torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev)
+            psnr_v = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+
+        alive_now = sess.g.alive.sum()
+        if i < sess.max_frames:
+            sess.alive_log[i] = alive_now
+        step_work = device_work_merge(work_t, work_m)
+        out_rows.append(sess.replace(
+            pose=new_pose, velocity=velocity, frame_idx=i + 1, prev_rgb=rgb,
+            prev_depth=depth, work=device_work_merge(sess.work, step_work)))
+        results.append(StepResult(pose=new_pose, is_kf=is_kf, psnr=psnr_v,
+                                  alive=alive_now, work=step_work,
+                                  track_losses=track_losses, fired=fired,
+                                  map_losses=map_losses))
+    _charge(stats, runner, before)
+    return out_rows, results
 
 
 def session_step(sess: SlamSession, frame, *, factor: int = 1,
@@ -456,70 +614,12 @@ def session_step(sess: SlamSession, frame, *, factor: int = 1,
     ``factor`` is the §4.2 side factor of this frame's tracking (the host
     chooses it, as :func:`run_sequence` does).  ``perm`` fixes the densify
     pick on a keyframe (see ``_densify_core``)."""
-    runner = sess.runner
-    before = dataclasses.replace(runner.stats)
-    sess = _maybe_retile(sess, factor)
-    cfg, dev, kp = sess.cfg, sess.device, sess.cfg.keyframe
-    rgb, depth = _as_image(frame.rgb, dev), _as_image(frame.depth, dev)
-    idx = sess.frame_idx
-    d_since = idx - sess.last_kf_idx
-    g, pstate = sess.g, sess.pstate
-    masked = sess.cur_masked
-
-    # GS-SLAM decides after tracking; the others before it.
-    pre_kf = kp.kind != "gsslam" and kp.is_keyframe(
-        idx, d_since, cur_rgb=rgb, last_kf_rgb=sess.last_kf_rgb)
-    if kp.kind in ("gsslam", "photoslam"):
-        runner.count(dispatches=0, syncs=1)     # the policy's device read
-
-    base = sess.velocity @ sess.pose
-    if cfg.base_algo == "photoslam":
-        xi, work_t, track_losses, fired = _track_geometric(sess, base, rgb, depth)
-    else:
-        st_t = sess.stage_at(factor)
-        obs_rgb = downsample_image(rgb, factor)
-        obs_depth = downsample_depth(depth, factor)
-        if pstate is not None:
-            frags = st_t._build_core(g, masked, base)
-            xi, g, pstate, work_t, track_losses, fired = st_t._track_scan_prune(
-                g, pstate, base, obs_rgb, obs_depth, frags, device_work_zero(dev))
-            masked = pstate.masked
-        else:
-            xi, work_t, track_losses, fired = st_t._track_scan_noprune(
-                g, masked, base, obs_rgb, obs_depth, device_work_zero(dev))
-    with torch.no_grad():
-        new_pose = lie.se3_exp(xi) @ base
-        velocity = new_pose @ torch.linalg.inv_ex(sess.pose).inverse
-    sess.traj[idx] = new_pose
-
-    if kp.kind == "gsslam":
-        is_kf = kp.is_keyframe(idx, d_since, cur_pose=new_pose,
-                               last_kf_pose=sess.kf_w2c[sess.kf_count - 1])
-    else:
-        is_kf = pre_kf
-
-    sess = sess.replace(pstate=pstate)
-    if is_kf:
-        sess, work_m, map_losses, psnr_v = _map_branch(
-            sess, g, masked, rgb, depth, new_pose, perm)
-        sess = sess.replace(last_kf_idx=idx, last_kf_rgb=rgb)
-    else:
-        sess = sess.replace(g=g)
-        work_m = device_work_zero(dev)
-        map_losses = torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev)
-        psnr_v = torch.full((), float("nan"), dtype=torch.float32, device=dev)
-
-    alive_now = sess.g.alive.sum()
-    sess.alive_log[idx] = alive_now
-    step_work = device_work_merge(work_t, work_m)
-    sess = sess.replace(pose=new_pose, velocity=velocity, frame_idx=idx + 1,
-                        prev_rgb=rgb, prev_depth=depth,
-                        work=device_work_merge(sess.work, step_work))
-    _charge(stats, runner, before)
-    return sess, StepResult(pose=new_pose, is_kf=is_kf, psnr=psnr_v,
-                            alive=alive_now, work=step_work,
-                            track_losses=track_losses, fired=fired,
-                            map_losses=map_losses)
+    if sess.batch is not None:
+        raise ValueError("session_step takes a solo session; use step_many "
+                         "for stacked sessions")
+    rows, results = _step_rows([sess], [frame_arrays(frame, sess.device)],
+                               factor, [perm], stats)
+    return rows[0], results[0]
 
 
 def session_finalize(sess: SlamSession, gt_w2c=None, *,
@@ -528,6 +628,9 @@ def session_finalize(sess: SlamSession, gt_w2c=None, *,
     """Fetch the session's logs (two reads: the float logs, the integer
     ones) and assemble a :class:`SLAMResult`.  On the card's WSU path it
     also reads the scheduled kernels' fault word."""
+    if sess.batch is not None:
+        raise ValueError("session_finalize takes a solo session; copy a row "
+                         "out of a stack with session_row first")
     runner = sess.runner
     before = dataclasses.replace(runner.stats)
     n, n_kf = sess.frame_idx, sess.kf_total
@@ -557,6 +660,241 @@ def session_finalize(sess: SlamSession, gt_w2c=None, *,
         prune_removed=ints[-1],
         dispatches=stats.dispatches if stats is not None else 0,
         syncs=stats.syncs if stats is not None else 0)
+
+
+# ---------------------------------------------------------------------------
+# stacked sessions: S streams stepped in lockstep
+# ---------------------------------------------------------------------------
+
+
+class Observation(NamedTuple):
+    """One lockstep frame batch on the device: row ``s`` is session
+    ``s``'s frame."""
+
+    rgb: torch.Tensor     # (S, H, W, 3) float32
+    depth: torch.Tensor   # (S, H, W) float32, 0 = invalid
+
+
+def _copy(x):
+    """A deep copy of a session field: tensors cloned, a generator with
+    the same state, containers rebuilt, host values shared."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, torch.Generator):
+        out = torch.Generator(device=x.device)
+        out.set_state(x.get_state())
+        return out
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _copy(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_copy(v) for v in x))
+    if isinstance(x, dict):
+        return {k: _copy(v) for k, v in x.items()}
+    return x
+
+
+def copy_session(sess: SlamSession) -> SlamSession:
+    """A copy of ``sess`` that shares no tensor or generator with it (a
+    step writes its logs in place and draws from its generator), and the
+    same config, stages and runner."""
+    return dataclasses.replace(sess, stages=dict(sess.stages), **{
+        f.name: _copy(getattr(sess, f.name)) for f in dataclasses.fields(sess)
+        if f.name not in ("cfg", "intr", "stages")})
+
+
+@dataclasses.dataclass
+class SessionStack:
+    """S solo sessions of one device, config and intrinsics, stepped in
+    lockstep by :func:`step_many` through the phase runner they share.
+    Made by :func:`stack_sessions`; :func:`session_row` copies a row
+    out."""
+
+    rows: List[SlamSession]
+
+    @property
+    def batch(self) -> int:
+        return len(self.rows)
+
+    @property
+    def cfg(self) -> SLAMConfig:
+        return self.rows[0].cfg
+
+    @property
+    def intr(self) -> Intrinsics:
+        return self.rows[0].intr
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows[0].device
+
+    @property
+    def runner(self) -> PhaseRunner:
+        return self.rows[0].runner
+
+    @property
+    def max_frames(self) -> int:
+        return self.rows[0].max_frames
+
+    def swap_row(self, slot: int, new_session: SlamSession) -> SlamSession:
+        """Put a copy of ``new_session`` in row ``slot``; returns the row it
+        replaces (which the stack no longer holds)."""
+        old = self.rows[slot]
+        self.rows[slot] = copy_session(new_session)
+        return old
+
+
+def _static_key(sess) -> tuple:
+    return (repr(sess.cfg), tuple(sess.intr), sess.device, id(sess.runner))
+
+
+def stack_sessions(sessions: Sequence[SlamSession]) -> SessionStack:
+    """Stack copies of solo sessions for :func:`step_many`.  All sessions
+    must share one device, config and intrinsics (and so one runner)."""
+    sessions = list(sessions)
+    if any(sess.batch is not None for sess in sessions):
+        raise ValueError("stack_sessions takes solo sessions, not stacks")
+    keys = {_static_key(sess) for sess in sessions}
+    if len(keys) != 1:
+        raise ValueError("stack_sessions needs sessions with identical "
+                         "static config (device, SLAMConfig, intrinsics); "
+                         f"got {len(keys)} distinct ones")
+    return SessionStack(rows=[copy_session(sess) for sess in sessions])
+
+
+def session_row(stacked: SessionStack, i: int) -> SlamSession:
+    """A copy of row ``i`` of a stack as a solo session, which
+    :func:`session_step` continues bit for bit."""
+    return copy_session(stacked.rows[i])
+
+
+def require_servable(cfg: SLAMConfig, what: str = "step_many") -> None:
+    """Validate that a config can serve stacked multi-session steps:
+    ``fused=True`` and downsampling off (the §4.2 side factor is a host
+    choice per step that one shared step cannot make per session).  Shared
+    by :func:`step_many` and the serving tier."""
+    if not cfg.fused:
+        raise ValueError(f"{what} requires cfg.fused=True")
+    if cfg.downsample.enabled:
+        raise ValueError(f"{what} requires downsampling disabled (the "
+                         "side factor is a per-step host choice)")
+
+
+def stack_observations(frames, batch: int, device=None) -> Observation:
+    """Coerce S per-session frames (or an already stacked
+    :class:`Observation`) to one :class:`Observation` on ``device``."""
+    if isinstance(frames, Observation):
+        return frames
+    rows = [frame_arrays(f, device) for f in frames]
+    if len(rows) != batch:
+        raise ValueError(f"expected {batch} frames, got {len(rows)}")
+    return Observation(rgb=torch.stack([r for r, _ in rows]),
+                       depth=torch.stack([d for _, d in rows]))
+
+
+def step_many(stacked: SessionStack, frames, *,
+              stats: Optional[EngineStats] = None,
+              perms: Optional[Sequence[Optional[torch.Tensor]]] = None
+              ) -> Tuple[SessionStack, StepResult]:
+    """Advance S stacked sessions by one frame each.  ``frames`` is a
+    sequence of S per-session frames or an :class:`Observation`; ``perms``
+    fixes each row's densify pick (tests only).  Each row does its solo
+    step's work, bit for bit: the S rows' tracking is one run of an S-row
+    segment (one graph replay when no row prunes), each keyframe row then
+    maps in slot order through the shared runner, and GS-SLAM's and
+    Photo-SLAM's decisions of all rows are read in one transfer.  Returns
+    the advanced stack and the stacked :class:`StepResult` (``is_kf`` a
+    tuple of S bools).
+
+    Serving constraints (:func:`require_servable`): ``cfg.fused=True`` and
+    downsampling disabled."""
+    if stacked.batch is None:
+        raise ValueError("step_many takes a stacked session "
+                         "(see stack_sessions)")
+    require_servable(stacked.cfg)
+    obs = stack_observations(frames, stacked.batch, stacked.device)
+    rows, results = _step_rows(
+        stacked.rows, [(obs.rgb[s], obs.depth[s]) for s in range(stacked.batch)],
+        1, perms, stats)
+
+    def stack(*xs):
+        return torch.stack(xs)
+
+    res = StepResult(
+        pose=stack(*(r.pose for r in results)),
+        is_kf=tuple(r.is_kf for r in results),
+        psnr=stack(*(r.psnr for r in results)),
+        alive=stack(*(r.alive for r in results)),
+        work=DeviceWork(*(stack(*xs) for xs in zip(*(r.work for r in results)))),
+        track_losses=stack(*(r.track_losses for r in results)),
+        fired=stack(*(r.fired for r in results)),
+        map_losses=stack(*(r.map_losses for r in results)))
+    return SessionStack(rows=rows), res
+
+
+def validate_admission(new_session: SlamSession, stacked: SessionStack) -> None:
+    """Shared admission preconditions for pool row swaps
+    (:class:`SessionPool` and the serving tier's ``ShardedPool``): equal
+    static config, solo shape, matching trajectory capacity."""
+    if new_session.batch is not None:
+        raise ValueError("admit a solo session, not a stack")
+    if _static_key(new_session) != _static_key(stacked.rows[0]):
+        raise ValueError("admitted session's static config differs from "
+                         "the pool's")
+    if new_session.max_frames != stacked.max_frames:
+        raise ValueError(
+            "admitted session's max_frames "
+            f"({new_session.max_frames}) must match the pool's "
+            f"({stacked.max_frames}); pass max_frames= to session_init")
+
+
+class SessionPool:
+    """Host wrapper serving S concurrent SLAM streams through one stack:
+    every :meth:`step` steps all rows (one graph replay when no row takes a
+    keyframe); :meth:`swap` admits or retires a sequence by replacing a
+    row (the other rows' work is untouched: rows are independent)."""
+
+    def __init__(self, sessions: Sequence[SlamSession]):
+        self._stacked = stack_sessions(sessions)
+        self.stats = EngineStats()
+
+    @property
+    def size(self) -> int:
+        return self._stacked.batch
+
+    @property
+    def stacked(self) -> SessionStack:
+        return self._stacked
+
+    def session(self, slot: int) -> SlamSession:
+        return session_row(self._stacked, slot)
+
+    def step(self, frames, perms=None) -> StepResult:
+        """Advance every slot by one frame.  Returns the stacked
+        :class:`StepResult`."""
+        self._stacked, res = step_many(self._stacked, frames, stats=self.stats,
+                                       perms=perms)
+        return res
+
+    def swap(self, slot: int, new_session: SlamSession) -> SlamSession:
+        """Retire the session in ``slot`` (returned as a solo session) and
+        admit (a copy of) ``new_session`` in its place."""
+        validate_admission(new_session, self._stacked)
+        return self._stacked.swap_row(slot, new_session)
+
+    def finalize(self, slot: int, gt_w2c=None, **kw) -> SLAMResult:
+        return session_finalize(self.session(slot), gt_w2c=gt_w2c,
+                                stats=self.stats, **kw)
+
+
+def warm_keyframe(template: SlamSession) -> None:
+    """Capture the mapping graphs a keyframe of ``template``'s config
+    reaches (the sparse ones under ``cfg.sparse_opt``; the window fill is
+    a device tensor, so they serve every fill) by one scratch keyframe on
+    a copy of it, on its own previous frame."""
+    sess = copy_session(template)
+    _map_branch(sess, sess.g, sess.cur_masked, sess.prev_rgb, sess.prev_depth,
+                sess.pose, None)
 
 
 def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:

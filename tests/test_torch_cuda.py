@@ -766,3 +766,94 @@ def test_cuda_failed_capture_raises_and_keeps_nothing(dev):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env=env)
     assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr
+
+
+# ---------------------------------------------------------------------------
+# stacked sessions and the serving pool
+# ---------------------------------------------------------------------------
+
+
+def _pool_run(prune):
+    """Two 64x64 streams (room0, stairs0) stepped as an S=2 pool and alone:
+    the pool's rows after 4 frame-steps, the solo sessions, the per-step
+    counts and the pool."""
+    import dataclasses
+
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.server import ShardedPool
+    from repro_torch.slam.session import SLAMConfig, session_init, session_step
+
+    cfg = SLAMConfig(iters_track=3, iters_map=4, capacity=1024, frag_capacity=48,
+                     map_window=2, map_rebuild_stride=2,
+                     keyframe=KeyframePolicy(interval=3),
+                     prune=PruneConfig(k0=2, step_frac=0.1) if prune else None)
+    scenes = [make_dataset(n, num_frames=5, height=64, width=64, num_gaussians=400,
+                           frag_capacity=48) for n in ("room0", "stairs0")]
+    solos = []
+    for ds in scenes:
+        sess = session_init(ds, cfg)
+        for t in range(1, 5):
+            sess, _ = session_step(sess, ds.frames[t])
+        solos.append(sess)
+    pool = ShardedPool([session_init(ds, cfg) for ds in scenes])
+    steps = []
+    for t in range(1, 5):
+        before = dataclasses.replace(pool.stats)
+        res = pool.step([ds.frames[t] for ds in scenes])
+        steps.append((pool.stats.since(before), res.is_kf))
+    return [pool.session(s) for s in range(2)], solos, steps, pool, scenes
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_cuda_pool_rows_equal_solo_runs(dev, prune):
+    """An S=2 pool on the card: every row equals its solo run bit for bit
+    (graph replays of the S-row tracking segment, the mapping graphs shared
+    with the solo sessions)."""
+    from _session_state import same_session
+
+    rows, solos, steps, _, _ = _pool_run(prune)
+    assert all(same_session(r, s) for r, s in zip(rows, solos))
+    assert any(any(kf) for _, kf in steps) and not all(any(kf) for _, kf in steps)
+
+
+def test_cuda_pool_tracking_step_is_one_replay(dev):
+    """Once captured, a tracking-only frame-step of both rows is one graph
+    replay, one dispatch and no synchronizing CUDA call."""
+    import dataclasses
+
+    _, _, steps, pool, scenes = _pool_run(False)
+    assert [kf for _, kf in steps] == [(False, False), (False, False), (True, True),
+                                       (False, False)]
+    counts = steps[3][0]
+    assert (counts.dispatches, counts.syncs, counts.replays, counts.captures) == (1, 0, 1, 0)
+    obs = pool.stage([(ds.frames[4].rgb, ds.frames[4].depth) for ds in scenes])
+    before = dataclasses.replace(pool.stats)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = pool.step(obs)                    # frame 5 of 5: tracking only
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = pool.stats.since(before)
+    assert res.is_kf == (False, False)
+    assert (counts.dispatches, counts.syncs, counts.replays) == (1, 0, 1)
+
+
+def test_cuda_swap_captures_nothing(dev):
+    """Swapping a row and stepping the pool on adds no segment and no
+    capture to the runner census, and the admitted row steps as its solo
+    run."""
+    from _session_state import same_session
+    from repro_torch.slam.server import compile_cache_stats
+    from repro_torch.slam.session import session_init, session_step
+
+    _, _, _, pool, scenes = _pool_run(False)
+    fresh = session_init(scenes[1], pool.cfg)
+    census = compile_cache_stats()
+    pool.swap(0, fresh)
+    pool.step([scenes[1].frames[1], scenes[1].frames[1]])
+    assert compile_cache_stats() == census and pool.admin_dispatches == 1
+    solo, _ = session_step(session_init(scenes[1], pool.cfg), scenes[1].frames[1])
+    assert same_session(pool.session(0), solo)
