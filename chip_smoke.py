@@ -45,15 +45,21 @@ Run from the root of a checkout.  In order, it
    just before, fused (the default: each phase's iterations replayed as a
    CUDA graph), and checks that K1, K2 and K3 carried it (one K3 merge per
    backward, counted through the replays), that no plain version ran, and
-   that ATE < 0.30 m and mean keyframe PSNR > 17 dB; then ``[main-eager]``,
+   that ATE < 0.30 m and mean keyframe PSNR > 17 dB, and that every
+   tracking-only frame counts 1 dispatch, 0 syncs and 1 graph replay and
+   every keyframe 2 / 0 / 2 (tracking, then the keyframe graph: densify,
+   the window builds, the 24 iterations with their stride rebuilds, the
+   eval render and the serving-cache build); then ``[main-eager]``,
    the same session with ``fused=False``, which must equal it bit for bit
    with the same launches, and both once more in turns (fused, eager,
    eager, fused), printing ms per frame, dispatches, syncs and graph
-   replays per tracking-only frame and keyframe;
+   replays per tracking-only frame and keyframe, and the keyframe's ms
+   beside the parent's;
 8. runs the same session on the ``schedule`` backend, counters set to 0
    again, and checks that K4, K5 and K3 carried it (one K3 merge per
-   backward; no K1, K2 or plain run), the same bounds, the same keyframes,
-   and camera centres within 1 mm of step 7's; then [main]'s first frames
+   backward; no K1, K2 or plain run), the same bounds, the same counts
+   per step, the same keyframes, and camera centres within 1 mm of step
+   7's; then [main]'s first frames
    on ``kernel_norb``, the RTGS session (pruning and downsampling, 640x448)
    on both backends and eager (``[rtgs-eager]``, equal bit for bit), and
    the other three base algorithms with RTGS;
@@ -1028,8 +1034,18 @@ def phase_main(dev, ds, backend="kernel", fused=True, label=None):
     require(res.mean_psnr > 17.0, f"mean keyframe PSNR {res.mean_psnr:.2f} dB <= 17")
     require((stats.replays > 0) == fused,
             f"{tag} fused={fused} made {stats.replays} graph replays")
+    # Per step (the ones that capture a graph too): a tracking-only frame
+    # is one replay, a keyframe two (tracking, then its keyframe graph).
+    counts = {kind: sorted({(c.dispatches, c.syncs, c.replays)
+                            for c, k in zip(stats_rows[1:], kf_flags[1:])
+                            if k == (kind == "keyframe")})
+              for kind in ("tracking", "keyframe")}
+    log(f"{tag} dispatches, syncs and graph replays per step: {counts}")
+    if fused:
+        require(counts == {"tracking": [(1, 0, 1)], "keyframe": [(2, 0, 2)]},
+                f"{tag} counts {counts}, want tracking (1, 0, 1) and keyframe (2, 0, 2)")
     return launches, res, keyframes, per_frame, dict(
-        split=split, peak_gb=peak_gb, ms=wall * 1e3 / frames,
+        split=split, peak_gb=peak_gb, ms=wall * 1e3 / frames, counts=counts,
         replayed=dict(sess.runner.replayed_launches), sess=sess,
         digest=digest.hexdigest()[:16])
 
@@ -1060,6 +1076,13 @@ def phase_main_eager(dev, ds, main):
         "tracking-only frame and keyframe ms: " + "; ".join(
             f"{mode} {t['ms']:.1f} / {t['split']['tracking']['ms']:.1f} / "
             f"{t['split']['keyframe']['ms']:.1f}" for mode, t in turns))
+    # [main]'s own keyframe captures the keyframe graph; the later fused
+    # turn replays it (the runner is cached per config).
+    kf = [t["split"]["keyframe"] for _, t in turns]
+    log(f"[main] keyframe without a capture: fused {kf[3]['ms']:.1f} ms "
+        f"({kf[3]['dispatches']:.0f} dispatches, {kf[3]['syncs']:.0f} syncs), eager "
+        f"{kf[1]['ms']:.1f} / {kf[2]['ms']:.1f} ms; the parent's fused keyframe "
+        f"468.3-572.1 ms at 17 dispatches and 3 syncs (PERF.md section 5)")
     return launches, turns
 
 
@@ -1728,8 +1751,10 @@ def phase_serve(dev, ds, main_launches, main_info):
     finals["stairs0"] = retired["stairs0"]
     results = {n: session_finalize(sess, gt_w2c=gt[n]) for n, sess in finals.items()}
     split4 = step_split(rows)
-    kf = main_info["split"]["keyframe"]
-    per_kf = {f: kf[f] - (1 if f != "syncs" else 0) for f in ("dispatches", "syncs", "replays")}
+    # [main]'s keyframe less its tracking replay (its counts hold whether or
+    # not the step captured a graph).
+    (kf_d, kf_s, kf_r), = main_info["counts"]["keyframe"]
+    per_kf = {"dispatches": kf_d - 1, "syncs": kf_s, "replays": kf_r - 1}
     bad_counts = [r["step"] for r in rows if not r["counts"].captures and (
         (r["counts"].dispatches, r["counts"].syncs, r["counts"].replays)
         != (1 + per_kf["dispatches"] * sum(r["kf"]), per_kf["syncs"] * sum(r["kf"]),
@@ -2046,7 +2071,7 @@ def main(argv) -> int:
     k3_check_launches = counters["K3"].launches + counters["K3 scan"].launches
     main = phase_main(dev, ds)
     launches, main_res, main_kfs, main_per_frame, main_info = main
-    launches_e, _ = phase_main_eager(dev, ds, main)
+    launches_e, turns = phase_main_eager(dev, ds, main)
     launches_s, replayed_s = phase_main_sched(dev, ds, main_res, main_kfs)
     launches_n = phase_norb(dev, ds, main_res, main_per_frame)
     rtgs = phase_rtgs(dev, ds_rtgs)
@@ -2055,14 +2080,18 @@ def main(argv) -> int:
     launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
     launches_a = phase_algos(dev, ds_rtgs)
     launches_sp, busy = phase_sparse(dev, profile=argv == ["profile"])
-    launches_sv, solo, serve_data, serve_host = phase_serve(dev, ds, launches, main_info)
+    # S=1's ms in [serve]'s table: the fused turn that captured nothing.
+    launches_sv, solo, serve_data, serve_host = phase_serve(
+        dev, ds, launches, dict(main_info, split=turns[-1][1]["split"]))
     launches_sp.update(serve=launches_sv,
                        serve_prune=phase_serve_prune(dev, serve_data, serve_host),
                        sched=phase_sched(dev, serve_data, serve_host, solo))
     if argv == ["profile"]:
         log("[profile] [sparse] tail keyframe (step 14), kernels busy: " + ", ".join(
             f"{n} dense {d:.1f} ms, sparse {sp:.1f} ms" for n, (d, sp) in busy.items()))
-        phase_profile(dev, ds, ds_rtgs, main_info["split"])
+        # The last fused turn replayed every graph: [main]'s own keyframe
+        # captured the keyframe graph.
+        phase_profile(dev, ds, ds_rtgs, turns[-1][1]["split"])
 
     paths = {"main": launches, "main_eager": launches_e, "main_sched": launches_s,
              "norb": launches_n,

@@ -107,19 +107,22 @@ def insert(g: GaussianField, new: GaussianField, max_new: int) -> GaussianField:
     """Insert up to ``max_new`` alive entries of ``new`` into dead slots of
     ``g``: the lowest-index dead slots take the lowest-index alive entries.
 
-    The reference scatters with every invalid source parked at index
-    ``capacity-1`` (duplicate writes, resolved by ``mode="drop"``); here
-    only the valid sources are written, so no index is written twice."""
+    As in the reference, every invalid source is parked at a dump slot and
+    dropped: the scatter writes into a ``capacity + 1`` buffer whose last
+    slot is cut off.  No valid index is written twice, and nothing is read
+    back to the host, so a CUDA graph can capture it."""
     dead = ~g.alive
     dead_rank = torch.cumsum(dead.to(torch.int32), 0, dtype=torch.int32) - 1
     src_rank = torch.cumsum(new.alive.to(torch.int32), 0, dtype=torch.int32) - 1
     take = torch.where(dead & (dead_rank < max_new), dead_rank,
                        torch.full_like(dead_rank, -1))
     valid_src = new.alive & (src_rank < min(max_new, g.capacity))
-    src_idx_for_rank = torch.full((g.capacity,), -1, dtype=torch.int64,
+    dest = torch.where(valid_src, src_rank,
+                       torch.full_like(src_rank, g.capacity)).long()
+    src_idx_for_rank = torch.full((g.capacity + 1,), -1, dtype=torch.int64,
                                   device=g.mu.device)
-    positions = torch.arange(new.capacity, device=g.mu.device)
-    src_idx_for_rank[src_rank[valid_src].long()] = positions[valid_src]
+    src_idx_for_rank.scatter_(0, dest, torch.arange(new.capacity, device=g.mu.device))
+    src_idx_for_rank = src_idx_for_rank[:g.capacity]
     src_for_slot = torch.where(
         take >= 0, src_idx_for_rank[take.clamp(0, g.capacity - 1).long()],
         torch.full_like(src_idx_for_rank, -1))

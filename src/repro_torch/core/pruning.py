@@ -149,10 +149,15 @@ def mark_born(state: PruneState, born: torch.Tensor) -> PruneState:
     """Reset the stability of rows densification just wrote (``born``,
     (N,) bool): they land in dead slots whose stale EMA and age would
     otherwise freeze a newcomer through its first mapping phase."""
-    return state._replace(
-        grad_ema=torch.where(born, torch.zeros_like(state.grad_ema), state.grad_ema),
-        age=torch.where(born, torch.zeros_like(state.age), state.age),
-        stable=state.stable & ~born)
+    grad_ema, age, stable = reset_born(state.grad_ema, state.age, state.stable, born)
+    return state._replace(grad_ema=grad_ema, age=age, stable=stable)
+
+
+def reset_born(grad_ema, age, stable, born):
+    """:func:`mark_born` on the three stability leaves alone (the keyframe
+    graph carries only these)."""
+    return (torch.where(born, torch.zeros_like(grad_ema), grad_ema),
+            torch.where(born, torch.zeros_like(age), age), stable & ~born)
 
 
 def effective_opacity_mask(g: GaussianField, state: PruneState) -> torch.Tensor:

@@ -13,24 +13,25 @@ runs eagerly, one iteration after another (``fused=False``, the oracle):
   one-iteration segment that carries the pose, its Adam state, the scores
   and the stability leaves; a fired boundary's rebuild and
   ``interval_update`` run eagerly in between;
-* mapping: ``map_rebuild_stride`` iterations per segment, replayed
-  ``iters_map / map_rebuild_stride`` times; the stride rebuild runs
-  eagerly between replays and writes the fresh slot into the segment's
-  cached fragment lists and schedules in place.  The window fill is a
+* mapping: :meth:`_Stage._map_scan_masked` is device work only (the
+  window builds and their schedules, the sparse stable background, every
+  iteration with the round-robin stride rebuild at a device slot, and the
+  eval render), which the session runs inside one segment with the rest
+  of a keyframe's mapping work (``session._keyframe_segment``) or the
+  bootstrap mapping (``session._boot_segment``).  The window fill is a
   device tensor, so one graph serves every fill.
 
-The other fragment-list builds (pruning's, mapping's window builds and
-stride rebuilds) run eagerly between replays, though none reads the
-device; so do densification, the eval renders and sparse mapping's one
-stable-background render per phase.  Each ``lax.cond``
-is a host ``if`` and each ``vmap`` over the keyframe window a loop over
-views; every mapping iteration still renders the whole window as ONE
-batched raster call.  On the ``schedule`` backend a WSU schedule rides
-next to each cached fragment list and is rebuilt only where the list is.
-A stage renders at one §4.2 downsampling factor.  With ``cfg.sparse_opt``
-mapping freezes the stability-frozen Gaussians out of the Adam step, the
-fragment builds and the WSU schedule, and composites every iteration's
-render over one stable-background render per phase.
+Only pruning's fragment-list builds run eagerly, between replays; none
+reads the device.  Each ``lax.cond`` of a phase is a host ``if`` on a
+host clock or a select on the device, and each ``vmap`` over the
+keyframe window a loop over views; every mapping iteration still renders
+the whole window as ONE batched raster call.  On the ``schedule``
+backend a WSU schedule rides next to each cached fragment list and is
+rebuilt only where the list is.  A stage renders at one §4.2
+downsampling factor.  With ``cfg.sparse_opt`` mapping freezes the
+stability-frozen Gaussians out of the Adam step, the fragment builds and
+the WSU schedule, and composites every iteration's render over one
+stable-background render per phase.
 """
 
 from __future__ import annotations
@@ -76,6 +77,12 @@ def _pose_adam_zero(device) -> AdamState:
 def _slot(stack, b: int):
     """Window slot ``b`` of stacked fragment lists or schedules."""
     return type(stack)(*(x[b] for x in stack))
+
+
+def _put_slot(stack, slot: torch.Tensor, one):
+    """``stack`` with the window slot at the (1,) int64 device index
+    ``slot`` replaced by the one-view ``one``."""
+    return type(stack)(*(x.index_copy(0, slot, y[None]) for x, y in zip(stack, one)))
 
 
 class _Stage:
@@ -125,7 +132,6 @@ class _Stage:
         int32 count of fragments the mask dropped against the dense build
         (0 when ``keep`` is None).  Tiles that only dropped rows cover get
         ``count == 0``."""
-        self.runner.count()
         proj = project(silence(g, masked), Camera(self.intr, w2c))
         frags = build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
                                      keep)
@@ -219,10 +225,9 @@ class _Stage:
         Returns ``(image, depth, final_t)`` and each slot's fragment total
         and raster programs, which the caller counts once."""
         w_len = kf_w2c.shape[0]
-        cache = stack_fragment_lists([self._build_core(g, masked, kf_w2c[b], stable)
+        cache = stack_fragment_lists([self._build(g, masked, kf_w2c[b], stable)
                                       for b in range(w_len)])
-        scheds = self._sched_core(cache) if self.scheduled else None
-        self.runner.count()             # the background render
+        scheds = build_plan_schedule(cache, self.plan) if self.scheduled else None
         out = self._render(silence(g, masked), kf_w2c, cache, scheds)
         progs = torch.stack([
             self._slot_programs_core(
@@ -232,7 +237,6 @@ class _Stage:
 
     @torch.no_grad()
     def _render_eval_core(self, g, masked, w2c):
-        self.runner.count()
         return self._render(silence(g, masked), w2c).image
 
     # ---- segments (one or more iterations over fixed-shape tensors) -------
@@ -298,49 +302,6 @@ class _Stage:
     _TRACK_CARRY = ("xi", "opt.step", "opt.mu.xi", "opt.nu.xi",
                     *(f"work.{f}" for f in DeviceWork._fields))
     _PRUNE_CARRY = ("p.score", "p.grad_ema", "p.age", "p.stable")
-
-    def _map_segment(self, n: int, sparse: bool):
-        """``n`` mapping iterations over the tensors ``_map_scan_masked``
-        names: each one batched window render, the valid-masked loss, an
-        Adam step and the work counters (the window fill ``n_valid`` is a
-        device tensor)."""
-        keys = G.PARAM_FIELDS
-
-        def fn(t):
-            g = unflat(t, "g", G.GaussianField)
-            opt = AdamState(step=t["opt.step"],
-                            mu={k: t[f"opt.mu.{k}"] for k in keys},
-                            nu={k: t[f"opt.nu.{k}"] for k in keys})
-            cache = unflat(t, "cache", FragmentLists)
-            scheds = unflat(t, "scheds", TileSchedule) if self.scheduled else None
-            unstable = t["unstable"] if sparse else None
-            stable_bg = ((t["bg.image"], t["bg.depth"], t["bg.final_t"])
-                         if sparse else None)
-            kf_valid, n_valid = t["kf_valid"], t["n_valid"]
-            valid_i = kf_valid.to(torch.int64)
-            w_len = kf_valid.shape[0]
-            work = unflat(t, "work", DeviceWork)
-            losses = []
-            for _ in range(n):
-                loss, g, opt = self._map_iter_core(
-                    g, t["masked"], opt, t["kf_w2c"], t["kf_rgb"], t["kf_depth"],
-                    cache, kf_valid, scheds, unstable=unstable, stable_bg=stable_bg)
-                n_alive = g.alive.sum()
-                n_opt = n_alive if not sparse else (g.alive & unstable).sum()
-                progs = torch.stack([
-                    self._slot_programs_core(
-                        _slot(cache, b), None if scheds is None else _slot(scheds, b))
-                    for b in range(w_len)])
-                work = device_work_add(
-                    work, (cache.total.to(torch.int64) * valid_i).sum(),
-                    n_valid * self.pixels, n_valid * n_alive,
-                    unstable=n_valid * n_opt, programs=(progs * valid_i).sum(),
-                    skipped=(t["skipped_w"].to(torch.int64) * valid_i).sum())
-                losses.append(loss)
-            return {**flat("g", G.params_of(g)), **flat("opt", opt),
-                    **flat("work", work), "losses": torch.stack(losses)}
-
-        return fn
 
     # ---- phases ----------------------------------------------------------
 
@@ -471,15 +432,18 @@ class _Stage:
                 for r in st]
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
-                         n_valid: int, work: DeviceWork, stable=None):
-        """The mapping phase over the fixed-shape keyframe ring: the window
-        has ``map_window`` slots, the first ``n_valid`` populated (oldest
-        first).  Invalid slots render but add nothing to the loss, the
-        counters, the round-robin stride rebuild or the final eval.  On the
-        ``schedule`` backend each window slot's schedule is rebuilt with
-        its fragment list.  The iterations run as segments of
-        ``map_rebuild_stride`` iterations with the stride rebuild between
-        them.
+                         n_valid, work: DeviceWork, stable=None):
+        """The mapping phase over the fixed-shape keyframe ring, as device
+        work only: the window has ``map_window`` slots, the first
+        ``n_valid`` populated (oldest first; a () int64 tensor, or an int).
+        Invalid slots render but add nothing to the loss, the counters, the
+        round-robin stride rebuild or the final eval.  The ``iters_map``
+        iterations are unrolled; after every ``map_rebuild_stride``-th the
+        window slot ``r % n_valid`` (a device index) is rebuilt at the
+        current map and written into the cached lists (and, on the
+        ``schedule`` backend, schedules) with ``index_copy``.  Nothing is
+        read back, so the caller's segment captures the whole phase;
+        :meth:`_map_dispatches` counts its eager calls.
 
         ``stable`` (an (N,) bool mask, ``cfg.sparse_opt``) freezes the
         stable rows: the Adam step skips them, the fragment builds (stride
@@ -487,10 +451,12 @@ class _Stage:
         stable-background render, counted once over the valid slots,
         stands in for them in every iteration's loss.  The final eval
         render stays dense.  An all-False ``stable`` equals ``None`` bit
-        for bit."""
+        for bit.  Returns ``(g, opt_state, work, losses, image)``."""
         cfg = self.cfg
         stride = cfg.map_rebuild_stride
         w_len = kf_w2c.shape[0]
+        if not isinstance(n_valid, torch.Tensor):
+            n_valid = torch.full((), n_valid, dtype=torch.int64, device=self.device)
         kf_valid = torch.arange(w_len, device=self.device) < n_valid
         valid_i = kf_valid.to(torch.int64)
         # Dead and masked rows stay in (pruning.optimizable_mask): they
@@ -509,58 +475,53 @@ class _Stage:
                 fragments=work.fragments + (bg_total.to(torch.int64) * valid_i).sum(),
                 sched_programs=work.sched_programs
                 + (bg_progs.to(torch.int64) * valid_i).sum())
-        scheds = (stack_fragment_lists([self._sched_core(_slot(cache, b))
-                                        for b in range(w_len)])
-                  if self.scheduled else None)
+        scheds = build_plan_schedule(cache, self.plan) if self.scheduled else None
         # The window builds, the stride rebuilds and the eval render's
         # build; the stable-background builds are left out, so the
         # all-unstable sparse path counts what the dense one does.
         work = work._replace(
             frag_build_rows=work.frag_build_rows
             + (n_valid + cfg.iters_map // stride + 1) * g.capacity)
-        tensors = {
-            **flat("g", g), **flat("opt", opt_state), **flat("work", work),
-            "masked": masked, "kf_w2c": kf_w2c, "kf_rgb": kf_rgb,
-            "kf_depth": kf_depth, **flat("cache", cache), **flat("scheds", scheds),
-            "kf_valid": kf_valid, "skipped_w": skipped_w,
-            "n_valid": torch.full((), n_valid, dtype=torch.int64, device=self.device)}
-        if stable is not None:
-            tensors.update({"unstable": keep, "bg.image": stable_bg[0],
-                            "bg.depth": stable_bg[1], "bg.final_t": stable_bg[2]})
-        carry = (*flat("g", G.params_of(g)), *flat("opt", opt_state),
-                 *flat("work", work))
-
-        def rebuild(r, t):
-            """The round-robin stride rebuild after segment run ``r``,
-            written in place into the segment's cached lists, schedules and
-            skipped counts (its static buffers when fused) and into
-            ``tensors``, which a remainder segment reads."""
-            slot = r % n_valid
-            fresh, skipped = self._sparse_build_core(
-                unflat(t, "g", G.GaussianField), masked, keep, kf_w2c[slot])
-            fresh_scheds = self._sched_core(fresh) if self.scheduled else None
-            for name, x in {**flat("cache", fresh), **flat("scheds", fresh_scheds),
-                            "skipped_w": skipped}.items():
-                t[name][slot] = x
-                if tensors[name] is not t[name]:
-                    tensors[name][slot] = x
-
         losses = []
-        for n, times, between in ((stride, cfg.iters_map // stride, rebuild),
-                                  (cfg.iters_map % stride, 1, None)):
-            if n == 0 or times == 0:
-                continue
-            final, runs = self.runner.run(
-                ("map", self.cfg.backend, self.factor, n, stable is not None),
-                self._map_segment(n, sparse=stable is not None), tensors, carry,
-                times=times, iters=n, between=between)
-            tensors.update(final)
-            losses += [r["losses"] for r in runs]
-        g = G.with_params(g, {k: tensors[f"g.{k}"] for k in G.PARAM_FIELDS})
-        opt_state = AdamState(
-            step=tensors["opt.step"],
-            mu={k: tensors[f"opt.mu.{k}"] for k in G.PARAM_FIELDS},
-            nu={k: tensors[f"opt.nu.{k}"] for k in G.PARAM_FIELDS})
-        image = self._render_eval_core(g, masked, kf_w2c[n_valid - 1])
-        return (g, opt_state, unflat(tensors, "work", DeviceWork), torch.cat(losses),
-                image)
+        for it in range(cfg.iters_map):
+            loss, g, opt_state = self._map_iter_core(
+                g, masked, opt_state, kf_w2c, kf_rgb, kf_depth, cache, kf_valid,
+                scheds, unstable=keep, stable_bg=stable_bg)
+            n_alive = g.alive.sum()
+            n_opt = n_alive if stable is None else (g.alive & keep).sum()
+            progs = torch.stack([
+                self._slot_programs_core(
+                    _slot(cache, b), None if scheds is None else _slot(scheds, b))
+                for b in range(w_len)])
+            work = device_work_add(
+                work, (cache.total.to(torch.int64) * valid_i).sum(),
+                n_valid * self.pixels, n_valid * n_alive,
+                unstable=n_valid * n_opt, programs=(progs * valid_i).sum(),
+                skipped=(skipped_w.to(torch.int64) * valid_i).sum())
+            losses.append(loss)
+            if (it + 1) % stride == 0:
+                # The round-robin stride rebuild: after stride r, slot r % n_valid.
+                slot = torch.full_like(n_valid, (it + 1) // stride - 1).remainder(
+                    n_valid).reshape(1)
+                fresh, skipped = self._sparse_build_core(
+                    g, masked, keep, kf_w2c.index_select(0, slot)[0])
+                cache = _put_slot(cache, slot, fresh)
+                if self.scheduled:
+                    scheds = _put_slot(scheds, slot, build_plan_schedule(fresh, self.plan))
+                skipped_w = skipped_w.index_copy(0, slot, skipped[None])
+        last = kf_w2c.index_select(0, (n_valid - 1).reshape(1))[0]
+        image = self._render_eval_core(g, masked, last)
+        return g, opt_state, work, torch.stack(losses), image
+
+    def _map_dispatches(self, sparse: bool) -> int:
+        """The eager host calls :meth:`_map_scan_masked` stands for when
+        not fused (``EngineStats`` units): each window build and stride
+        rebuild and its schedule, each iteration and the eval render, and
+        under sparse mapping the stable background's builds, schedule and
+        render."""
+        cfg = self.cfg
+        builds = cfg.map_window + cfg.iters_map // cfg.map_rebuild_stride
+        n = builds * (1 + self.scheduled) + cfg.iters_map + 1
+        if sparse:
+            n += cfg.map_window + self.scheduled + 1
+        return n

@@ -37,41 +37,50 @@ are taken back), so the counters stay exact through replays.
 Units of :class:`EngineStats` (the reference's ``engine.py:96-110``):
 
 * **dispatch** — one graph replay (one run of a segment when fused, also
-  on the CPU), one eager iteration of a segment when not fused, or one
-  eager host call of a phase core outside the segments: a fragment-list
-  build (``_build_core`` and its sparse form), a schedule build
-  (``_sched_core``), a forward render (the eval render and densify's, the
-  stable background), densification, and a fired §4.1 boundary's
+  on the CPU); when not fused, each eager host call that one run of a
+  segment stands for (its iterations and the phase cores it calls: each
+  fragment-list build, schedule build and forward render, densification);
+  and one eager host call of a phase core outside the segments: §4.1
+  pruning's fragment-list build (``_build_core``) and schedule
+  (``_sched_core``), and a fired boundary's rebuild, schedule and
   ``interval_update``;
-* **sync** — one device-to-host read: densification's three boolean-mask
-  reads, GS-SLAM's and Photo-SLAM's keyframe reads
-  (``core/keyframes.py``), a fired boundary's churn read
+* **sync** — one device-to-host read: GS-SLAM's and Photo-SLAM's keyframe
+  reads (``core/keyframes.py``), a fired boundary's churn read
   (``core/pruning.py``), Photo-SLAM's host factor choice under §4.2, the
-  seed map's two frame reads and finalize's reads.  A fragment-list build
-  reads nothing back (``core/sorting.py``);
+  seed map's two frame reads and finalize's reads.  Neither a
+  fragment-list build (``core/sorting.py``) nor densification reads
+  anything back;
 * **replay** — one CUDA graph replay (0 on the CPU);
 * **capture** — one segment captured as a CUDA graph (its warm-up run and
   its capture: a session's first use of a phase at a factor and shape).
 
 The reference counts 1 dispatch and no sync per frame, because its whole
-step is one XLA program.  Here a MonoGS tracking-only frame counts the
-same, 1 dispatch (the tracking replay, the frame's fragment-list build
-inside it) and no sync; a keyframe adds the eager mapping work around its
-replays (densify and its 3 reads, the window builds, the stride rebuilds,
-the eval renders) and a fired §4.1 boundary its rebuild and read;
-``tests/test_torch_fused.py`` holds the counts to the formula.
+step is one XLA program, its keyframe mapping under ``lax.cond``.  Here a
+MonoGS tracking-only frame counts 1 dispatch (the tracking replay, the
+frame's fragment-list build inside it) and no sync, and a keyframe 2
+dispatches, no sync and 2 replays: tracking, then the keyframe segment
+(the eval render, densification, the ring pushes, the window builds, the
+iterations with their stride rebuilds, the PSNR and the serving-cache
+build; ``session._map_branch``).  ``session_init``'s bootstrap mapping is
+one replay too.  When not fused a keyframe's mapping counts ``2 +
+(W + iters_map // stride) * (1 + scheduled) + iters_map + 2`` (``W`` the
+window; ``W + scheduled + 1`` more under sparse mapping), the same kernels
+in the same order.  A fired §4.1 boundary adds
+its rebuild and read; ``tests/test_torch_fused.py`` holds the counts to
+the formula.
 
 S rows (``session.step_many``).  S stacked sessions share one runner, and
 each tracking segment has an S-row form (:func:`rows_segment`): row ``s``'s
 tensors are named ``"{s}/name"`` and each row runs the solo segment's ops
 on its own tensors, so every row equals its solo run bit for bit.  The
-S-row segment is keyed by S; the mapping segments are keyed by their
-shapes only and serve every row.  A frame-step of S rows counts:
+S-row segment is keyed by S; the keyframe segment is keyed by its shapes
+only and every keyframe row replays it in turn.  A frame-step of S rows
+counts:
 
 * no row takes a keyframe: 1 dispatch, 0 syncs and 1 replay, for any S
   (the S rows' fragment-list builds ride inside the one replay);
-* each keyframe row adds its own mapping work, as in a solo keyframe (17
-  dispatches and 3 syncs on ``kernel``);
+* each keyframe row adds 1 dispatch and 1 replay (its keyframe segment)
+  and no sync;
 * GS-SLAM and Photo-SLAM read all S rows' keyframe decisions in 1 sync;
 * with §4.1 pruning, tracking is S eager builds (and schedules) and K
   replays of a one-iteration S-row segment, plus each row's fired
@@ -200,31 +209,25 @@ class PhaseRunner:
         self.stats.syncs += syncs
 
     def run(self, key, fn: Callable[[dict], dict], inputs: dict, carry=(),
-            times: int = 1, iters: int = 1,
-            between: Optional[Callable[[int, dict], None]] = None):
+            times: int = 1, iters: int = 1):
         """Run ``fn`` ``times`` times from ``inputs``; returns ``(carried,
         runs)``: the final value of every ``carry`` output and, per run,
-        the other outputs.  ``iters`` is the iterations one run of ``fn``
-        does (the eager dispatch count).  ``between(r, tensors)``, if
-        given, runs eagerly after run ``r`` and may write into the inputs
-        in place (the runner's static buffers when fused, else the
-        caller's tensors, which it must own)."""
+        the other outputs.  ``iters`` is the dispatches one eager run of
+        ``fn`` counts (its iterations and the phase cores it calls)."""
         if not self.fused:
             tensors, runs = dict(inputs), []
-            for r in range(times):
+            for _ in range(times):
                 out = fn(tensors)
                 tensors.update({k: out[k] for k in carry})
                 runs.append({k: v for k, v in out.items() if k not in carry})
                 self.stats.dispatches += iters
-                if between is not None:
-                    between(r, tensors)
             return {k: tensors[k] for k in carry}, runs
 
         seg = self._segment(key, fn, inputs, carry)
         for k, v in inputs.items():
             seg.inputs[k].copy_(v)
         runs = []
-        for r in range(times):
+        for _ in range(times):
             if seg.graph is None:
                 out = fn(seg.inputs)
                 for k in carry:
@@ -238,8 +241,6 @@ class PhaseRunner:
                 self.stats.replays += 1
             runs.append({k: v.clone() for k, v in out.items() if k not in carry})
             self.stats.dispatches += 1
-            if between is not None:
-                between(r, seg.inputs)
         return {k: seg.inputs[k].clone() for k in carry}, runs
 
     def _segment(self, key, fn, inputs: dict, carry) -> _Segment:

@@ -31,11 +31,14 @@ intrinsics (:func:`runner_for`: a session of a config already served
 captures nothing), and
 ``fused=False`` runs them eagerly, one iteration after another, as the
 oracle.  Both run the same kernels on the same inputs in the same order,
-so they agree bit for bit.  ``lax.cond`` branches are host ``if``s on
-host integers (frame index, keyframe ring fill, the pruning interval
-clock), which costs no device sync.  GS-SLAM's and Photo-SLAM's keyframe
-decisions read one device value each per frame, a fired pruning boundary
-reads one and densification three.  ``stats=`` (an
+so they agree bit for bit.  A keyframe's whole mapping work (densify,
+the ring pushes, the mapping phase, the PSNR and the serving-cache build)
+is one segment, as the reference's ``lax.cond`` branch is one part of its
+step, so a MonoGS keyframe is two replays and no sync.  The other
+``lax.cond`` branches are host ``if``s on host integers (frame index,
+keyframe ring fill, the pruning interval clock), which costs no device
+sync.  GS-SLAM's and Photo-SLAM's keyframe decisions read one device
+value each per frame and a fired pruning boundary reads one.  ``stats=`` (an
 :class:`~repro_torch.slam.graphs.EngineStats`) counts dispatches, syncs
 and graph replays, as the reference counts its dispatches and syncs.  A
 step writes the session's trajectory, PSNR and alive logs in place and
@@ -70,7 +73,7 @@ from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam import geometric
 from repro_torch.slam.engine import _Stage
 from repro_torch.slam.graphs import (
-    EngineStats, PhaseRunner, row_names, row_view, rows_segment,
+    EngineStats, PhaseRunner, flat, row_names, row_view, rows_segment, unflat,
 )
 from repro_torch.slam.metrics import (
     DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_zero,
@@ -283,45 +286,62 @@ def _seed_map(dataset, cfg: SLAMConfig, device) -> G.GaussianField:
         capacity=cfg.capacity, scale=mean_scale, opacity=cfg.seed_opacity)
 
 
-def _median_linear(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmedian`` of a 1-D tensor without NaNs: the two middle values
-    of an even count are blended as ``lo * 0.5 + hi * 0.5`` (linear
-    quantile), where ``torch.median`` would return the lower one."""
-    if x.numel() == 0:
-        return torch.tensor(float("nan"), dtype=x.dtype, device=x.device)
-    vals = torch.sort(x).values
-    q = torch.tensor(0.5, dtype=torch.float32) * (x.numel() - 1)
-    lo_i, hi_i = int(torch.floor(q)), int(torch.ceil(q))
-    hw = (q - torch.floor(q)).to(x.device)
-    return vals[lo_i] * (1.0 - hw) + vals[hi_i] * hw
+def _median_linear(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian`` of the entries of the 1-D ``x`` where ``valid`` is
+    True, without a read: the invalid entries sort to the end as +inf, the
+    valid count stays on the device and picks the two middle values, which
+    an even count blends as ``lo * 0.5 + hi * 0.5`` (linear quantile, where
+    ``torch.median`` would return the lower one).  NaN when no entry is
+    valid."""
+    vals = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf")))).values
+    n = valid.sum()
+    q = (n - 1).to(torch.float32) * 0.5
+    lo, hi = torch.floor(q), torch.ceil(q)
+    hw = q - lo
+
+    def at(i):
+        return vals.index_select(0, i.to(torch.int64).clamp(min=0).reshape(1))[0]
+
+    med = at(lo) * (1.0 - hw) + at(hi) * hw
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def _densify_perm(rng: torch.Generator, intr: Intrinsics, cfg: SLAMConfig):
+    """Densification's random pick: a permutation of its ``2P`` candidates
+    (fewer on a frame of fewer pixels), drawn on the session's generator."""
+    n = min(2 * cfg.densify_per_kf, intr.height * intr.width)
+    return torch.randperm(n, generator=rng, device=rng.device)
 
 
 def _densify_core(g: G.GaussianField, rgb, depth, rendered, w2c,
                   intr: Intrinsics, cfg: SLAMConfig, rng: torch.Generator,
-                  perm: Optional[torch.Tensor] = None):
+                  perm: Optional[torch.Tensor] = None, c2w=None):
     """Add Gaussians where the current render misses observed geometry:
     rank pixels by error (stable sort: the many zero scores tie), take a
-    random ``P`` of the top ``2P``, back-project them.
+    random ``P`` of the top ``2P``, back-project them.  Reads nothing back
+    to the host.
 
     ``perm`` (a permutation of ``range(2P)``) fixes the random pick, so a
     test can feed the reference's ``jax.random`` draw; otherwise it comes
-    from ``rng``.  Returns ``(g, dropped)``."""
+    from ``rng``.  ``c2w``, if given, is ``w2c``'s inverse (the keyframe
+    segment takes it from before its graph).  Returns ``(g, dropped)``."""
     per = cfg.densify_per_kf
     err = torch.abs(rendered - rgb).mean(-1)
     score = torch.where(depth > 1e-3, err, torch.zeros_like(err)).reshape(-1)
     cand = torch.argsort(-score, stable=True)[: per * 2]
     if perm is None:
-        perm = torch.randperm(cand.numel(), generator=rng, device=rng.device)
+        perm = _densify_perm(rng, intr, cfg)
     sel = cand[perm.to(cand.device)][:per]
     vv, uu = sel // err.shape[1], sel % err.shape[1]
     d = depth[vv, uu]
     ok = d > 1e-3
     x_cam = torch.stack([(uu + 0.5 - intr.cx) / intr.fx * d,
                          (vv + 0.5 - intr.cy) / intr.fy * d, d], -1)
-    c2w = torch.linalg.inv_ex(w2c).inverse     # no error check: no sync
+    if c2w is None:
+        c2w = torch.linalg.inv_ex(w2c).inverse     # no error check: no sync
     pts = x_cam @ c2w[:3, :3].T + c2w[:3, 3]
     cols = torch.clamp(rgb[vv, uu], 0.02, 0.98)
-    scale = _median_linear(d[ok]) / intr.fx * 2.0
+    scale = _median_linear(d, ok) / intr.fx * 2.0
     n_sel = sel.numel()
     quat = torch.zeros((n_sel, 4), dtype=torch.float32, device=g.mu.device)
     quat[:, 0] = 1.0
@@ -340,14 +360,15 @@ def _densify_core(g: G.GaussianField, rgb, depth, rendered, w2c,
     return G.insert(g, new, max_new=per), dropped
 
 
-def _push_ring(buf: torch.Tensor, row: torch.Tensor, count: int) -> torch.Tensor:
-    """Append ``row`` to an oldest-first ring: fill slot ``count``, then
-    shift left once full."""
-    if count >= buf.shape[0]:
-        return torch.cat([buf[1:], row[None]], dim=0)
-    out = buf.clone()
-    out[count] = row
-    return out
+def _push_ring(buf: torch.Tensor, row: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Append ``row`` to a fixed-shape oldest-first ring, as the reference
+    does: write slot ``min(count, W - 1)`` while filling, shift left once
+    full, and select by ``count >= W`` on the device (``count`` a () int64
+    tensor), so one graph serves every fill."""
+    w = buf.shape[0]
+    appended = buf.index_copy(0, count.clamp(max=w - 1).reshape(1), row[None])
+    shifted = torch.cat([buf[1:], row[None]], dim=0)
+    return torch.where(count >= w, shifted, appended)
 
 
 def _charge(stats: Optional[EngineStats], runner: PhaseRunner,
@@ -396,72 +417,147 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     kf_rgb[0], kf_depth[0] = rgb0, depth0
     kf_w2c = pose0[None].repeat(w, 1, 1)
 
-    map_opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
-    g, map_opt, work_m, _, image = st._map_scan_masked(
-        g, masked, map_opt0, kf_w2c, kf_rgb, kf_depth, 1, device_work_zero(dev))
-    # The serving-cache build below sweeps the pool once more.
-    work_m = work_m._replace(frag_build_rows=work_m.frag_build_rows + g.capacity)
+    # The bootstrap mapping, its PSNR and the serving-cache build: one run
+    # of one segment (the reference's ``_boot_fn`` is one dispatch).
+    _, (boot,) = runner.run(
+        ("boot", cfg.backend), _boot_segment(st),
+        {**flat("g", g), "masked": masked, "kf_w2c": kf_w2c, "kf_rgb": kf_rgb,
+         "kf_depth": kf_depth}, iters=st._map_dispatches(False) + 1)
+    g = unflat(boot, "g", G.GaussianField)
     kf_psnr = torch.full((num_f,), float("nan"), dtype=torch.float32, device=dev)
-    kf_psnr[0] = psnr_dev(image, rgb0)
+    kf_psnr[0] = boot["psnr"]
     alive_log = torch.zeros((num_f,), dtype=torch.int64, device=dev)
-    alive_log[0] = g.alive.sum()
+    alive_log[0] = boot["alive"]
     traj = torch.zeros((num_f, 4, 4), dtype=torch.float32, device=dev)
     traj[0] = pose0
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
-    frags = st._build_core(g, masked, kf_w2c[0])
     _charge(stats, runner, before)
     return SlamSession(
-        cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
+        cfg=cfg, intr=intr, stages=stages, g=g, map_opt=_adam_of(boot),
         pstate=pstate, masked=masked,
         pose=pose0, velocity=torch.eye(4, dtype=torch.float32, device=dev),
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
         kf_w2c=kf_w2c, kf_count=1, kf_total=1, last_kf_idx=0,
         last_kf_rgb=rgb0, prev_rgb=rgb0, prev_depth=depth0,
-        kf_psnr=kf_psnr, alive_log=alive_log, work=work_m,
-        frags=frags, rng=rng, tile_baselines=tile_baselines)
+        kf_psnr=kf_psnr, alive_log=alive_log, work=unflat(boot, "work", DeviceWork),
+        frags=unflat(boot, "frags", FragmentLists), rng=rng,
+        tile_baselines=tile_baselines)
+
+
+def _adam_of(t: dict) -> AdamState:
+    """The map's Adam state that :func:`~repro_torch.slam.graphs.flat`
+    named under ``"opt"``."""
+    return AdamState(step=t["opt.step"],
+                     mu={k: t[f"opt.mu.{k}"] for k in G.PARAM_FIELDS},
+                     nu={k: t[f"opt.nu.{k}"] for k in G.PARAM_FIELDS})
+
+
+def _boot_segment(st: _Stage):
+    """``session_init``'s bootstrap mapping over the ring's first slot,
+    then its PSNR, alive count and the serving-cache build, as one segment
+    (``_boot_fn`` of ``repro/slam/session.py``)."""
+    cfg = st.cfg
+
+    def fn(t):
+        g, masked = unflat(t, "g", G.GaussianField), t["masked"]
+        opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
+        with torch.enable_grad():
+            g, opt, work, _, image = st._map_scan_masked(
+                g, masked, opt0, t["kf_w2c"], t["kf_rgb"], t["kf_depth"], 1,
+                device_work_zero(st.device))
+        # The serving-cache build below sweeps the pool once more.
+        work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
+        return {**flat("g", g), **flat("opt", opt), **flat("work", work),
+                "psnr": psnr_dev(image, t["kf_rgb"][0]), "alive": g.alive.sum(),
+                **flat("frags", st._build(g, masked, t["kf_w2c"][0]))}
+
+    return fn
+
+
+def _keyframe_segment(st: _Stage, sparse: bool):
+    """A keyframe's mapping work over the tensors :func:`_map_branch`
+    names, in the order of the reference's ``map_branch``
+    (``repro/slam/session.py:552-611``): the eval render at the tracked
+    pose, densification, under ``sparse`` the newcomers' stability reset,
+    a fresh map Adam state, the three ring pushes at the device fill
+    ``kf_count``, the mapping phase, its PSNR and the serving-cache build
+    (dense: renders from outside see the whole map)."""
+    cfg, intr = st.cfg, st.intr
+
+    def fn(t):
+        g, masked, pose = unflat(t, "g", G.GaussianField), t["masked"], t["pose"]
+        rendered = st._render_eval_core(g, masked, pose)
+        g2, dropped = _densify_core(g, t["rgb"], t["depth"], rendered, pose, intr,
+                                    cfg, None, t["perm"], c2w=t["c2w"])
+        out, stable = {}, None
+        if sparse:
+            ema, age, stable = pruning.reset_born(
+                t["p.grad_ema"], t["p.age"], t["p.stable"], g2.alive & ~g.alive)
+            out = {"p.grad_ema": ema, "p.age": age, "p.stable": stable}
+        g = g2
+        opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
+        count = t["kf_count"]
+        ring = {k: _push_ring(t[k], row, count)
+                for k, row in (("kf_rgb", t["rgb"]), ("kf_depth", t["depth"]),
+                               ("kf_w2c", pose))}
+        with torch.enable_grad():
+            g, opt, work, losses, image = st._map_scan_masked(
+                g, masked, opt0, ring["kf_w2c"], ring["kf_rgb"], ring["kf_depth"],
+                torch.clamp(count + 1, max=cfg.map_window),
+                device_work_zero(st.device), stable)
+        # The densify-eval render above and the serving-cache build below
+        # each build one fragment list over g's rows.
+        work = work._replace(densify_dropped=work.densify_dropped + dropped,
+                             frag_build_rows=work.frag_build_rows + 2 * g.capacity)
+        return {**out, **ring, **flat("g", g), **flat("opt", opt),
+                **flat("work", work), "losses": losses,
+                "psnr": psnr_dev(image, t["rgb"]),
+                **flat("frags", st._build(g, masked, pose))}
+
+    return fn
 
 
 @torch.no_grad()
 def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
-    cfg, st = sess.cfg, sess.stage
-    rendered = st._render_eval_core(g, masked, new_pose)
-    sess.runner.count(syncs=3)      # densify's three boolean-mask reads
-    g2, dropped = _densify_core(g, rgb, depth, rendered, new_pose, sess.intr,
-                                cfg, sess.rng, perm)
-    pstate, stable = sess.pstate, None
-    if cfg.sparse_opt:
-        # Newcomers land in dead slots whose stale EMA and age could freeze
-        # them at birth.
-        pstate = pruning.mark_born(pstate, g2.alive & ~g.alive)
-        stable = pstate.stable
-    g = g2
-    opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
-    kf_rgb = _push_ring(sess.kf_rgb, rgb, sess.kf_count)
-    kf_depth = _push_ring(sess.kf_depth, depth, sess.kf_count)
-    kf_w2c = _push_ring(sess.kf_w2c, new_pose, sess.kf_count)
-    n2 = min(sess.kf_count + 1, cfg.map_window)
-    with torch.enable_grad():
-        g, map_opt, work_m, map_losses, image = st._map_scan_masked(
-            g, masked, opt0, kf_w2c, kf_rgb, kf_depth, n2,
-            device_work_zero(sess.device), stable)
-    # The densify-eval render above and the serving-cache refresh below
-    # each build one fragment list over g's rows.
-    work_m = work_m._replace(
-        densify_dropped=work_m.densify_dropped + dropped,
-        frag_build_rows=work_m.frag_build_rows + 2 * g.capacity)
-    psnr_v = psnr_dev(image, rgb)
+    """A keyframe's mapping work as one run of the keyframe segment: one
+    graph replay when fused on the card.  The host passes in what it knows
+    without a read (the ring fill, as a () device tensor) and what must not
+    run inside a graph: the densify pick, drawn on the session's generator
+    (so a capture's warm-up run draws nothing and the generator ends where
+    an eager run leaves it), and the tracked pose's inverse.  Returns
+    ``(session, work, map losses, PSNR)``."""
+    cfg, st, dev = sess.cfg, sess.stage, sess.device
+    sparse = cfg.sparse_opt
+    if perm is None:
+        perm = _densify_perm(sess.rng, sess.intr, cfg)
+    inputs = {**flat("g", g), "masked": masked, "rgb": rgb, "depth": depth,
+              "pose": new_pose, "c2w": torch.linalg.inv_ex(new_pose).inverse,
+              "perm": perm.to(dev), "kf_rgb": sess.kf_rgb, "kf_depth": sess.kf_depth,
+              "kf_w2c": sess.kf_w2c,
+              "kf_count": torch.full((), sess.kf_count, dtype=torch.int64, device=dev)}
+    pstate = sess.pstate
+    if sparse:
+        inputs.update({"p.grad_ema": pstate.grad_ema, "p.age": pstate.age,
+                       "p.stable": pstate.stable})
+    # Eager, a keyframe counts densify's eval render, densify, the mapping
+    # phase's calls and the serving-cache build.
+    _, (out,) = sess.runner.run(
+        ("keyframe", cfg.backend, sparse), _keyframe_segment(st, sparse), inputs,
+        iters=2 + st._map_dispatches(sparse) + 1)
+    if sparse:
+        pstate = pstate._replace(grad_ema=out["p.grad_ema"], age=out["p.age"],
+                                 stable=out["p.stable"])
     # Past the log (a free serving slot) the write is dropped, as the
     # reference's out-of-range updates are.
     if sess.kf_total < sess.kf_psnr.shape[0]:
-        sess.kf_psnr[sess.kf_total] = psnr_v
-    # The serving cache stays dense: renders from outside see the whole map.
-    frags = st._build_core(g, masked, new_pose)
+        sess.kf_psnr[sess.kf_total] = out["psnr"]
     return sess.replace(
-        g=g, map_opt=map_opt, pstate=pstate, kf_rgb=kf_rgb, kf_depth=kf_depth,
-        kf_w2c=kf_w2c,
-        kf_count=n2, kf_total=sess.kf_total + 1,
-        frags=frags), work_m, map_losses, psnr_v
+        g=unflat(out, "g", G.GaussianField), map_opt=_adam_of(out), pstate=pstate,
+        kf_rgb=out["kf_rgb"], kf_depth=out["kf_depth"], kf_w2c=out["kf_w2c"],
+        kf_count=min(sess.kf_count + 1, cfg.map_window), kf_total=sess.kf_total + 1,
+        frags=unflat(out, "frags", FragmentLists)), \
+        unflat(out, "work", DeviceWork), out["losses"], out["psnr"]
 
 
 def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
@@ -888,10 +984,10 @@ class SessionPool:
 
 
 def warm_keyframe(template: SlamSession) -> None:
-    """Capture the mapping graphs a keyframe of ``template``'s config
-    reaches (the sparse ones under ``cfg.sparse_opt``; the window fill is
-    a device tensor, so they serve every fill) by one scratch keyframe on
-    a copy of it, on its own previous frame."""
+    """Capture the keyframe graph of ``template``'s config (its sparse form
+    under ``cfg.sparse_opt``; the window fill is a device tensor, so it
+    serves every fill) by one scratch keyframe on a copy of it, on its own
+    previous frame."""
     sess = copy_session(template)
     _map_branch(sess, sess.g, sess.cur_masked, sess.prev_rgb, sess.prev_depth,
                 sess.pose, None)

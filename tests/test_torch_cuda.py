@@ -857,3 +857,111 @@ def test_cuda_swap_captures_nothing(dev):
     assert compile_cache_stats() == census and pool.admin_dispatches == 1
     solo, _ = session_step(session_init(scenes[1], pool.cfg), scenes[1].frames[1])
     assert same_session(pool.session(0), solo)
+
+
+# ---------------------------------------------------------------------------
+# the keyframe's mapping work as one graph replay
+# ---------------------------------------------------------------------------
+
+
+def _keyframe_session(path, fused):
+    """A 64x64 room0 session of ``path`` stepped to its keyframe at frame
+    2 (frame 1 captures the tracking graph): the dataset, the session and
+    the keyframe's result and counts."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import SLAMConfig, session_init, session_step
+
+    ds = make_dataset("room0", num_frames=5, height=64, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    kw = {"kernel": {}, "schedule": dict(backend="schedule"),
+          "sparse": dict(backend="schedule", sparse_opt=True, prune=PruneConfig(
+              k0=2, step_frac=0.1, stable_ema_beta=0.6, stable_rel=4.0,
+              stable_age=1, stable_warmup=2))}[path]
+    cfg = SLAMConfig(iters_track=3, iters_map=8, capacity=1024, frag_capacity=48,
+                     map_window=2, map_rebuild_stride=3,
+                     keyframe=KeyframePolicy(interval=2), fused=fused, **kw)
+    sess = session_init(ds, cfg)
+    sess, _ = session_step(sess, ds.frames[1])
+    stats = EngineStats()
+    sess, res = session_step(sess, ds.frames[2], stats=stats)
+    assert res.is_kf
+    return ds, sess, res, stats
+
+
+@pytest.mark.parametrize("path", ["kernel", "schedule", "sparse"])
+def test_cuda_fused_keyframe_equals_eager(dev, path):
+    """A keyframe's mapping work replays as one graph: the session (its
+    densify generator's state included) and the step's results equal the
+    eager run's bit for bit, and the keyframe counts 2 dispatches, no sync
+    and 2 replays (with pruning, its tracking's counts plus one dispatch and
+    one replay: a fired boundary's read is pruning's)."""
+    from _session_state import same_bits, same_session
+
+    _, s_f, r_f, c_f = _keyframe_session(path, True)
+    _, s_e, r_e, c_e = _keyframe_session(path, False)
+    assert same_session(s_f, s_e)
+    assert torch.equal(s_f.rng.get_state(), s_e.rng.get_state())
+    for name in ("pose", "alive", "psnr", "map_losses"):
+        assert same_bits(getattr(r_f, name), getattr(r_e, name)), name
+    assert all(same_bits(a, b) for a, b in zip(r_f.work, r_e.work))
+    assert c_f.syncs == c_e.syncs and c_e.replays == 0
+    if path == "sparse":
+        assert int(s_f.pstate.stable.sum()) > 0
+        assert c_f.replays == s_f.cfg.iters_track + 1
+    else:
+        assert (c_f.dispatches, c_f.syncs, c_f.replays) == (2, 0, 2)
+
+
+def test_cuda_keyframe_replay_makes_no_sync(dev):
+    """Once captured, a keyframe (the tracking replay, the densify draw and
+    the keyframe replay) makes no synchronizing CUDA call and captures
+    nothing."""
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import session_step
+
+    ds, sess, _, _ = _keyframe_session("kernel", True)
+    sess, res = session_step(sess, ds.frames[3])
+    assert not res.is_kf
+    stats = EngineStats()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess, res = session_step(sess, ds.frames[4], stats=stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.is_kf
+    assert (stats.dispatches, stats.syncs, stats.replays, stats.captures) == (2, 0, 2, 0)
+
+
+def test_cuda_pool_keyframes_after_warmup_capture_nothing(dev):
+    """``PoolLadder.warmup`` captures the keyframe graph: an S=2 pool
+    stepped through keyframe frame-steps afterwards adds no segment and no
+    capture, and each keyframe row adds one dispatch and one replay."""
+    import dataclasses
+
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.sched import PoolLadder
+    from repro_torch.slam.server import compile_cache_stats
+    from repro_torch.slam.session import SLAMConfig, session_init
+
+    cfg = SLAMConfig(iters_track=3, iters_map=4, capacity=1024, frag_capacity=48,
+                     map_window=2, map_rebuild_stride=2,
+                     keyframe=KeyframePolicy(interval=2))
+    ds = make_dataset("stairs0", num_frames=5, height=64, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    ladder = PoolLadder(session_init(ds, cfg), widths=(2,))
+    census = ladder.warmup()
+    pool = ladder[0].pool
+    kf_rows = 0
+    for t in range(1, 5):
+        before = dataclasses.replace(pool.stats)
+        res = pool.step([ds.frames[t]] * 2)
+        counts = pool.stats.since(before)
+        kf_rows += sum(res.is_kf)
+        assert (counts.dispatches, counts.syncs, counts.replays) == (
+            1 + sum(res.is_kf), 0, 1 + sum(res.is_kf)), t
+    assert kf_rows > 0 and compile_cache_stats() == census

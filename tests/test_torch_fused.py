@@ -191,7 +191,9 @@ def _expected(cfg, kf, fired):
     K-iteration segment; with pruning, an eager build (and schedule), K
     replays of a one-iteration segment and, per fired boundary, a rebuild,
     a schedule and ``interval_update`` (its one read); eager, K iterations
-    in place of the replays.  No fragment-list build reads the device."""
+    in place of the replays.  A keyframe's mapping work is one replay of
+    the keyframe segment; eager, one dispatch per host call it stands for.
+    Neither a fragment-list build nor densification reads the device."""
     sched = cfg.backend == "schedule"
     k = cfg.iters_track
     if cfg.prune is None:
@@ -199,15 +201,14 @@ def _expected(cfg, kf, fired):
     else:
         d = 1 + sched + k + sum(fired) * (2 + sched)
         s = sum(fired)
-    if kf:
+    if kf and cfg.fused:
+        d += 1
+    elif kf:
         w, m, stride = cfg.map_window, cfg.iters_map, cfg.map_rebuild_stride
-        segs = (m // stride + (m % stride > 0)) if cfg.fused else m
         builds = w + m // stride
-        # eval render and densify (its 3 reads), window builds and
-        # schedules, segments, stride rebuilds (and their schedules), eval
-        # render, serving build
-        d += 2 + builds * (1 + sched) + segs + 1 + 1
-        s += 3
+        # eval render and densify, window builds and schedules, iterations,
+        # stride rebuilds (and their schedules), eval render, serving build
+        d += 2 + builds * (1 + sched) + m + 1 + 1
     return d, s
 
 
@@ -261,7 +262,8 @@ def test_fused_port_matches_the_reference_fused_run(data):
     assert abs(res_t.mean_psnr - res_j.mean_psnr) < 0.1
     assert res_t.alive_per_frame == res_j.alive_per_frame
     assert (res_j.dispatches, res_j.syncs) == (FRAMES, 1)
-    # Per tracking-only frame 1 dispatch (one replay) and no sync, as the
-    # reference; keyframes (frames 2 and 4) add densify (3 reads), the
-    # window builds, the mapping replay and the eval and serving builds.
-    assert res_t.dispatches > FRAMES and res_t.syncs > 1
+    # Init's bootstrap mapping is one run and reads frame 0 twice; each
+    # frame's tracking is one run, as in the reference, and each keyframe
+    # (frames 2 and 4) adds its keyframe segment's one run and no read;
+    # finalize reads twice.
+    assert (res_t.dispatches, res_t.syncs) == (1 + (FRAMES - 1) + 2, 2 + 2)

@@ -162,7 +162,8 @@ def test_median_is_the_reference_nanmedian(n):
     x = np.random.default_rng(n).uniform(0.5, 4.0, n).astype(np.float32)
     want = float(jnp.nanmedian(jnp.where(jnp.arange(n + 3) < n,
                                          jnp.pad(jx(x), (0, 3)), jnp.nan)))
-    assert float(tsession._median_linear(th(x))) == pytest.approx(want, rel=1e-7)
+    got = tsession._median_linear(th(x), torch.ones(n, dtype=torch.bool))
+    assert float(got) == pytest.approx(want, rel=1e-7)
 
 
 @pytest.mark.parametrize("count", [0, 1, 2, 5])
@@ -171,7 +172,7 @@ def test_push_ring_matches(count):
     buf = r.normal(size=(2, 3, 4)).astype(np.float32)
     row = r.normal(size=(3, 4)).astype(np.float32)
     want = jsession._push_ring(jx(buf), jx(row), jnp.asarray(count))
-    got = tsession._push_ring(th(buf), th(row), count)
+    got = tsession._push_ring(th(buf), th(row), torch.tensor(count))
     assert np.array_equal(np_(got), np_(want))
 
 
