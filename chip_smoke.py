@@ -88,7 +88,21 @@ Run from the root of a checkout.  In order, it
     ``warmup``, three streams through an ``IngestWorker`` thread with one
     migration S=1 -> S=2 while frames are queued; the runner census after
     serving equals the warmup's and every stream its solo run;
-12. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
+12. ``[paged]``: PagedMap.  [main]'s config with every page in view
+    (``PagedConfig(1024, 128)``) equals ``[main]`` and ``[main-sched]``
+    bit for bit, with their launches and 1 / 0 / 1 and 2 / 0 / 2 counts,
+    and a 2-row pool of it its solo runs; then the reference PagedMap
+    bench's corridor config (48x64, capacity 4096, ``PagedConfig(256,
+    6)``, 24 frames) on the bench's own inputs and on the port's draw, and
+    corridor0 at 640x480 (capacity 131072, ``PagedConfig(1024, 48)``),
+    flat and paged: ms per frame, build rows, ATE, PSNR, peak memory and
+    the bench's four gates (printed as pass or fail); both runs must count
+    the flat step's formula, every paged build must sweep the view's rows,
+    and paged must equal flat bit for bit up to the first step whose view
+    leaves out an alive row; on the bench's own inputs the first tracking
+    iteration's pose gradient over the view must equal flat's bit for bit
+    and the four gates must pass;
+13. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
     then one tracking-only frame and one keyframe of a further full-size
     session, fused and eager, and one RTGS tracking frame with
     ``torch.profiler``, and prints the tables, each frame's
@@ -1087,7 +1101,8 @@ def phase_main_eager(dev, ds, main):
 
 
 def phase_main_sched(dev, ds, main_res, main_keyframes):
-    """The same session on the WSU ``schedule`` backend, against [main]."""
+    """The same session on the WSU ``schedule`` backend, against [main];
+    returns its launches, results, keyframes and info."""
     import numpy as np
     launches, res, keyframes, _, info = phase_main(dev, ds, backend="schedule")
     require(keyframes == main_keyframes,
@@ -1100,7 +1115,7 @@ def phase_main_sched(dev, ds, main_res, main_keyframes):
     log(f"[main-sched] vs [main]: largest pose entry difference {pose_d:.3g}, "
         f"camera centres within {centre_d * 1e3:.4f} mm, same keyframes")
     require(centre_d < 1e-3, f"schedule and kernel camera centres differ by {centre_d:.3g} m")
-    return launches, info["replayed"]
+    return launches, res, keyframes, info
 
 
 RTGS_H = 448     # TUM's 640x480 less 32 rows: 64-divisible, as §4.2 needs
@@ -1950,6 +1965,365 @@ def phase_sched(dev, data, host, solo):
     return launches
 
 
+# PagedMap.  The reference bench's corridor config
+# (``benchmarks/bench_paged.py:57-78``) at its own 48x64, then corridor0 at
+# the card's 640x480 with the same share of storage in view (48 of 128
+# pages: the bench's 6 of 16) and the bench's pose and mapping knobs.
+PAGED_FRAMES = 24
+# (tag, the dataset's source, height, width, capacity, (page_capacity,
+# visible_pages), Gaussians).  "reference": the bench's own inputs, the
+# reference's corridor0 draw (``tests/data``, written by
+# ``tests/_bench_data.py``); "port": the port's numpy draw of the scene.
+PAGED_CORRIDORS = (("bench", "reference", 48, 64, 4096, (256, 6), 4096),
+                   ("bench, port's draw", "port", 48, 64, 4096, (256, 6), 4096),
+                   ("card", "port", H, W, 131072, (1024, 48), 16384))
+BENCH_DATA = TESTS / "data" / "corridor0_48x64_24.npz"
+PAGED_BENCH = dict(iters_track=8, lr_pose=0.02, iters_map=8, map_window=3,
+                   map_rebuild_stride=3, densify_per_kf=128, frag_capacity=256)
+
+
+def paged_bench_config(capacity, paged=None):
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.session import SLAMConfig
+    return SLAMConfig(capacity=capacity, keyframe=KeyframePolicy(kind="monogs", interval=2),
+                      prune=PruneConfig(k0=3, step_frac=0.1), paged=paged, **PAGED_BENCH)
+
+
+def paged_run(dev, ds, cfg, frames, profile_label=None):
+    """A solo session over ``ds``'s first ``frames`` frames, every counter
+    set to 0 just before: per step its ms (host clock to a
+    ``torch.cuda.synchronize()``), ``EngineStats`` delta, keyframe flag and
+    ``frag_build_rows``; the result, launches and peak device memory.  With
+    ``profile_label``, one more keyframe step after the run (frame
+    ``frames - 1``'s images again) under ``torch.profiler``: the device
+    time of its gemm/gemv kernels (the projection's batched 3x3 products,
+    ``aten::bmm``, replayed inside the keyframe graph)."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import session_finalize, session_init, session_step
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kernels, plains = reset_counters()
+    stats = EngineStats()
+    t_run = time.perf_counter()
+    sess = session_init(ds, cfg, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    rows = []
+    for idx in range(1, frames):
+        # Alive rows the step's working set leaves out (paged; computed
+        # outside the timed step, as the step computes it inside).
+        alive_out = 0
+        if cfg.paged is not None:
+            view = torch.zeros_like(sess.g.alive).index_fill_(0, sess.stage._working_set(
+                sess.page, sess.velocity @ sess.pose, sess.kf_w2c), True)
+            alive_out = int((sess.g.alive & ~view).sum())
+            torch.cuda.synchronize()
+        before = dataclasses.replace(stats)
+        t0 = time.perf_counter()
+        sess, out = session_step(sess, ds.frames[idx], stats=stats)
+        torch.cuda.synchronize()
+        rows.append(dict(step=idx, ms=(time.perf_counter() - t0) * 1e3,
+                         counts=stats.since(before), kf=(bool(out.is_kf),),
+                         fired=int(out.fired.sum()), alive_out=alive_out,
+                         pose=out.pose.clone(), build_rows=int(out.work.frag_build_rows)))
+    wall = time.perf_counter() - t_run
+    res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames[:frames]],
+                           wall_time_s=wall, stats=stats)
+    out = dict(sess=sess, res=res, rows=rows, wall=wall,
+               launches={k: fn.launches for k, fn in kernels.items()},
+               plain_calls=sum(fn.calls for fn in plains), base_gb=base_gb,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if profile_label is not None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sess, step = session_step(sess, ds.frames[frames - 1])
+            torch.cuda.synchronize()
+        require(step.is_kf, f"[paged] {profile_label}: the profiled step is no keyframe")
+        events = prof.key_averages()
+        kern = [e for e in events if e.device_type == DeviceType.CUDA]
+        gemm = [e for e in kern if "gemm" in e.key.lower() or "gemv" in e.key.lower()]
+        out["bmm_ms"] = sum(e.self_device_time_total for e in gemm) / 1e3
+        out["busy_ms"] = sum(e.self_device_time_total for e in kern) / 1e3
+        log(f"[profile] [paged] {profile_label} keyframe: kernels busy {out['busy_ms']:.1f} "
+            f"ms, gemm/gemv kernels (the projection's aten::bmm) {out['bmm_ms']:.1f} ms in "
+            f"{sum(e.count for e in gemm)} launches")
+        log(events.table(sort_by="self_cuda_time_total", row_limit=12))
+    return out
+
+
+def paged_text(tag, run, storage_rows):
+    sp = step_split(run["rows"])
+    t, k = sp["tracking"], sp["keyframe"]
+    rows = [r["build_rows"] for r in run["rows"]]
+    res = run["res"]
+    return (f"{tag}: {run['wall'] * 1e3 / (len(run['rows']) + 1):.1f} ms per frame with "
+            f"init; tracking-only frame {t['ms']:.1f} ms ({t['steps']} steps, "
+            f"{t['dispatches']:.1f} / {t['syncs']:.1f} / {t['replays']:.1f} dispatches / syncs "
+            f"/ replays), keyframe {k['ms']:.1f} ms ({k['steps']} steps, {k['dispatches']:.1f} "
+            f"/ {k['syncs']:.1f} / {k['replays']:.1f}), steps that captured a graph "
+            f"{sp['capture_ms'] or 'none'} ms; frag_build_rows {sum(rows)} (last 3 steps "
+            f"{sum(rows[-3:])}; {sum(rows) / (storage_rows * len(rows)):.3f} of storage per "
+            f"step), ATE {res.ate * 100:.2f} cm, mean keyframe PSNR {res.mean_psnr:.3f} dB, "
+            f"alive {res.alive_per_frame[-1]}, densify dropped {res.work.densify_dropped}, "
+            f"peak device memory {run['peak_gb']:.2f} GB ({run['peak_gb'] - run['base_gb']:+.2f} GB "
+            f"over the {run['base_gb']:.2f} GB held before the run), launches "
+            + ", ".join(f"{k_} {v}" for k_, v in run["launches"].items() if v)
+            + (f", gemm/gemv per keyframe {run['bmm_ms']:.1f} ms" if "bmm_ms" in run else "")
+            + f"; sha256 {pose_digest(res.est_w2c)}")
+
+
+def bench_dataset(dev):
+    """The reference bench's corridor0 inputs from ``BENCH_DATA`` as a port
+    dataset."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from repro_torch import convert
+    z = np.load(BENCH_DATA)
+    fx, fy, cx, cy, width, height = z["intrinsics"]
+    frames = [SimpleNamespace(rgb=r, depth=d, w2c_gt=w)
+              for r, d, w in zip(z["rgb"], z["depth"], z["w2c"])]
+    gt = SimpleNamespace(**{k[3:]: z[k] for k in z.files if k.startswith("gt_")})
+    return convert.dataset_from_numpy(SimpleNamespace(
+        name="corridor0", frames=frames, gt_field=gt,
+        intrinsics=SimpleNamespace(fx=fx, fy=fy, cx=cx, cy=cy, width=width,
+                                   height=height)), device=dev)
+
+
+def step_counts_ok(run, cfg) -> bool:
+    """Every step counts what the fused engine's formula gives a flat step
+    of the same boundaries and keyframe decision (``slam/graphs.py``):
+    with pruning, one eager build, ``iters_track`` one-iteration replays,
+    2 dispatches and 1 sync per fired boundary (3 and 1 on ``schedule``)
+    and, on a keyframe, one more dispatch and replay; without it 1 / 0 / 1
+    and 2 / 0 / 2."""
+    k, per = cfg.iters_track, 2 + (cfg.backend == "schedule")
+    for r in run["rows"]:
+        kf, b = int(r["kf"][0]), r["fired"]
+        want = ((1 + k + per * b + kf, b, k + kf) if cfg.prune is not None
+                else (1 + kf, 0, 1 + kf))
+        if (r["counts"].dispatches, r["counts"].syncs, r["counts"].replays) != want:
+            return False
+    return True
+
+
+def paged_first_gradient(dev, ds, pc):
+    """From the first state of a flat and a paged session of the bench's
+    config: the first tracking iteration's render, loss and pose gradient
+    over the whole pool (flat) and over the view (paged, whose products
+    with the pose run over storage-sized operands, ``project``'s
+    ``storage``); they must agree bit for bit."""
+    import torch
+    from repro_torch.core import lie
+    from repro_torch.core.losses import slam_loss
+    from repro_torch.slam.engine import silence
+    from repro_torch.slam.map.paged import gather_field
+    from repro_torch.slam.session import session_init
+
+    sess = session_init(ds, paged_bench_config(4096, pc), device=dev)
+    st, base, frame = sess.stage, sess.velocity @ sess.pose, ds.frames[1]
+    view = st._working_set(sess.page, base, sess.kf_w2c)
+    out = {}
+    for name, g, masked, storage in (
+            ("flat", sess.g, sess.cur_masked, None),
+            ("paged", gather_field(sess.g, view), sess.cur_masked.index_select(0, view),
+             (view, sess.g.capacity))):
+        xi = torch.zeros(6, device=dev, requires_grad=True)
+        with torch.enable_grad():
+            r = st._render(silence(g, masked), lie.se3_exp(xi) @ base,
+                           st._build(g, masked, base), storage=storage)
+            loss = slam_loss(r.image, r.depth, r.alpha, frame.rgb, frame.depth,
+                             st.cfg.lambda_pho)
+            out[name] = (r.image.detach(), loss.detach(), torch.autograd.grad(loss, [xi])[0])
+    (img_f, loss_f, grad_f), (img_p, loss_p, grad_p) = out["flat"], out["paged"]
+    same = {"image": torch.equal(img_f, img_p), "loss": torch.equal(loss_f, loss_p),
+            "pose gradient": torch.equal(grad_f, grad_p)}
+    log(f"[paged] the bench config's first tracking iteration from one state, over the "
+        f"pool's {sess.g.capacity} rows and the view's {view.numel()}: equal bit for bit "
+        f"{same} (largest pose-gradient difference "
+        f"{float((grad_f - grad_p).abs().max()):.3g} of {float(grad_f.abs().max()):.3g})")
+    require(all(same.values()), f"[paged] the first tracking iteration differs: {same}")
+
+
+def paged_gates(flat, paged, cfg, psnr_gate=0.2):
+    """``bench_paged.py:159-171``'s gates, unchanged: late (last 3 steps)
+    fragment-build rows fall >= 1.6x, PSNR loss <= ``psnr_gate`` dB, paged
+    ATE within 5% + 2 cm of flat's; and the port's form of its one-dispatch
+    gate: paged adds no dispatch, sync or replay, i.e. each step of both
+    runs counts the formula of a flat step with its boundaries and keyframe
+    decision (``step_counts_ok``)."""
+    f_rows = [r["build_rows"] for r in flat["rows"]]
+    p_rows = [r["build_rows"] for r in paged["rows"]]
+    late = sum(f_rows[-3:]) / max(sum(p_rows[-3:]), 1)
+    loss = flat["res"].mean_psnr - paged["res"].mean_psnr
+    ate_f, ate_p = flat["res"].ate, paged["res"].ate
+
+    return {
+        f"late build-row reduction {late:.2f}x >= 1.6x": late >= 1.6,
+        f"PSNR loss {loss:.3f} dB <= {psnr_gate} dB": loss <= psnr_gate,
+        f"paged ATE {ate_p * 100:.2f} cm <= flat {ate_f * 100:.2f} cm x 1.05 + 2 cm":
+            ate_p <= ate_f * 1.05 + 2e-2,
+        "paged and flat count the flat step's dispatches, syncs and replays":
+            step_counts_ok(flat, cfg) and step_counts_ok(paged, cfg),
+    }
+
+
+def phase_paged(dev, ds, main, sched, desk0, profile=False):
+    """``[paged]``: PagedMap on the card.
+
+    1. [main]'s config with ``PagedConfig(page_capacity=1024,
+       visible_pages=128)``, every page in view: equal to [main] bit for
+       bit (poses, PSNR, keyframes, every work counter, the map), counting
+       1 / 0 / 1 per tracking-only frame and 2 / 0 / 2 per keyframe, with
+       [main]'s launches; the same on ``schedule`` against [main-sched];
+       then a 2-row pool (room0, desk0) equal to its solo paged runs.
+    2. The corridor runs (:func:`phase_paged_corridors`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from _session_state import same_session
+    from repro_torch.core import gaussians as G
+    from repro_torch.slam.map.paged import PagedConfig
+    from repro_torch.slam.server import ShardedPool
+    from repro_torch.slam.session import session_init
+
+    launches_by = {}
+    capacity = main_config().capacity
+    all_visible = PagedConfig(page_capacity=1024, visible_pages=capacity // 1024)
+    for label, (m_launches, m_res, m_kfs, m_info), backend in (
+            ("kernel", main, "kernel"), ("schedule", sched, "schedule")):
+        cfg = main_config(backend=backend, paged=all_visible)
+        run = paged_run(dev, ds, cfg, ds.num_frames)
+        res, sess = run["res"], run["sess"]
+        kfs = [0] + [r["step"] for r in run["rows"] if r["kf"][0]]
+        same_map = all(torch.equal(getattr(sess.g, f), getattr(m_info["sess"].g, f))
+                       for f in G.PARAM_FIELDS + ("alive",))
+        same = {"poses": pose_digest(res.est_w2c) == m_info["digest"]
+                and all(np.array_equal(a, b) for a, b in zip(res.est_w2c, m_res.est_w2c)),
+                "PSNR": res.keyframe_psnr == m_res.keyframe_psnr,
+                "keyframes": kfs == m_kfs, "work": res.work == m_res.work,
+                "alive": res.alive_per_frame == m_res.alive_per_frame, "map": same_map,
+                "launches": all(run["launches"][k] == m_launches[k] for k in m_launches)}
+        counts = {kind: sorted({(r["counts"].dispatches, r["counts"].syncs,
+                                 r["counts"].replays) for r in run["rows"]
+                                if r["kf"][0] == (kind == "keyframe")})
+                  for kind in ("tracking", "keyframe")}
+        log(f"[paged] all {cfg.capacity // 1024} pages of 1024 in view, [main]'s config on "
+            f"{label}: " + paged_text("room0", run, cfg.capacity)
+            + f"; equal to [main{'' if label == 'kernel' else '-sched'}] bit for bit: {same}; "
+            f"counts per step {counts}")
+        require(all(same.values()), f"[paged] all-visible {label} differs from flat: {same}")
+        require(counts == {"tracking": [(1, 0, 1)], "keyframe": [(2, 0, 2)]},
+                f"[paged] all-visible {label} counts {counts}")
+        require(run["plain_calls"] == 0, f"[paged] {label} ran a plain version")
+        launches_by["paged" if label == "kernel" else "paged_sched"] = run["launches"]
+        if label == "kernel":
+            solo_room0 = sess
+
+    # A 2-row pool of the all-visible config against its solo runs.
+    cfg = main_config(paged=all_visible)
+    solo_desk0 = paged_run(dev, desk0, cfg, desk0.num_frames)["sess"]
+    kernels, plains = reset_counters()
+    pool = ShardedPool([session_init(d, cfg, device=dev) for d in (ds, desk0)])
+    counts = []
+    for t in range(1, ds.num_frames):
+        before = dataclasses.replace(pool.stats)
+        res = pool.step([ds.frames[t], desk0.frames[t]])
+        d = pool.stats.since(before)
+        counts.append((sum(res.is_kf), d.dispatches, d.syncs, d.replays, d.captures))
+    launches_by["paged_pool"] = {k: fn.launches for k, fn in kernels.items()}
+    equal = [same_session(pool.session(0), solo_room0),
+             same_session(pool.session(1), solo_desk0)]
+    log(f"[paged] S=2 pool (room0, desk0), all pages in view: rows equal their solo paged "
+        f"runs bit for bit: {equal}; per frame-step (keyframe rows, dispatches, syncs, "
+        f"replays, captures) {counts}")
+    require(all(equal), f"[paged] pool rows differ from their solo runs: {equal}")
+    require(all((d, s, r) == (1 + n, 0, 1 + n) for n, d, s, r, c in counts if not c),
+            f"[paged] pool counts {counts}")
+    launches_by.update(phase_paged_corridors(dev, profile))
+    return launches_by
+
+
+def phase_paged_corridors(dev, profile=False):
+    """``[paged]``'s corridor runs: the reference bench's corridor config at
+    48x64 (capacity 4096, ``PagedConfig(256, 6)``, 24 frames) on the
+    bench's own inputs (``BENCH_DATA``), then on the port's own draw of
+    corridor0, then corridor0 at 640x480 (capacity 131072,
+    ``PagedConfig(1024, 48)``, the bench's knobs), flat and paged: ms per
+    frame, build rows, ATE, PSNR, peak memory, (``profile``) the keyframe's
+    gemm time, and the bench's four gates, printed as pass or fail.
+    Required of each: both runs count the flat step's formula at every
+    step, every paged build sweeps the view's rows, and paged equals flat
+    bit for bit up to the first step whose view leaves out an alive row;
+    on the bench's own inputs, first, the first tracking iteration's pose
+    gradient over the view equals flat's bit for bit, and the four gates
+    pass."""
+    import numpy as np
+    import torch
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.map.paged import PagedConfig
+
+    launches_by = {}
+    for tag, source, height, width, capacity, (page_capacity, visible), gaussians \
+            in PAGED_CORRIDORS:
+        paged_cfg = PagedConfig(page_capacity=page_capacity, visible_pages=visible)
+        t0 = time.perf_counter()
+        dsc = (bench_dataset(dev) if source == "reference" else make_dataset(
+            "corridor0", num_frames=PAGED_FRAMES, height=height, width=width,
+            num_gaussians=gaussians, frag_capacity=PAGED_BENCH["frag_capacity"], device=dev))
+        require((dsc.num_frames, dsc.intrinsics.height, dsc.intrinsics.width)
+                == (PAGED_FRAMES, height, width), f"[paged] {tag}: dataset shape")
+        if source == "reference":
+            paged_first_gradient(dev, dsc, paged_cfg)
+        runs = {}
+        for name, pc in (("flat", None), ("paged", paged_cfg)):
+            runs[name] = paged_run(dev, dsc, paged_bench_config(capacity, pc), PAGED_FRAMES,
+                                   profile_label=f"{tag} {name}" if profile and tag == "card"
+                                   else None)
+            log(f"[paged] corridor0 ({source}'s draw) {width}x{height}, capacity {capacity}, "
+                + (f"PagedConfig({pc.page_capacity}, {pc.visible_pages}) "
+                   f"({pc.visible_pages * pc.page_capacity / capacity:.3f} of storage)"
+                   if pc else "flat")
+                + f", {PAGED_FRAMES} frames, the bench's knobs: "
+                + paged_text(name, runs[name], capacity))
+            require(runs[name]["plain_calls"] == 0, f"[paged] {tag} {name} ran a plain version")
+            require(np.isfinite(runs[name]["res"].mean_psnr), f"[paged] {tag} {name} PSNR")
+        cfg = paged_bench_config(capacity)
+        gates = paged_gates(runs["flat"], runs["paged"], cfg)
+        # Where paged parts from flat, and where its working set first
+        # leaves out an alive row.
+        f_rows, p_rows = runs["flat"]["rows"], runs["paged"]["rows"]
+        first_out = next((r["step"] for r in p_rows if r["alive_out"]), None)
+        first_diff = next((a["step"] for a, b in zip(f_rows, p_rows)
+                           if not torch.equal(a["pose"], b["pose"])), None)
+        m_rows = visible * page_capacity
+        log(f"[paged] corridor0 {tag} ({width}x{height}) gates: " + "; ".join(
+            f"{g}: {'pass' if ok else 'FAIL'}" for g, ok in gates.items())
+            + f"; alive rows out of the view per step {[r['alive_out'] for r in p_rows]}, "
+            f"first at step {first_out}; paged poses equal flat's bit for bit through step "
+            f"{(first_diff or PAGED_FRAMES) - 1} of {PAGED_FRAMES - 1}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(step_counts_ok(runs["flat"], cfg) and step_counts_ok(runs["paged"], cfg),
+                f"[paged] {tag}: a step breaks the count formula")
+        require(first_diff is None or (first_out is not None and first_diff >= first_out),
+                f"[paged] {tag}: paged parts from flat at step {first_diff}, before any "
+                f"alive row left the view (step {first_out})")
+        if source == "reference":
+            require(all(gates.values()), f"[paged] {tag}: the bench's gates {gates}")
+        require(all(r["build_rows"] % m_rows == 0 for r in p_rows),
+                f"[paged] {tag}: a paged build swept other than the view's {m_rows} rows")
+        if source == "reference" or tag == "card":
+            launches_by[f"paged_corridor_{tag}"] = runs["paged"]["launches"]
+    return launches_by
+
+
 def phase_profile(dev, ds, ds_rtgs, main_split):
     """Where a frame's time goes (after the default run, with ``profile``):
     a ``torch.profiler`` trace of one tracking-only frame and one keyframe of
@@ -2072,7 +2446,8 @@ def main(argv) -> int:
     main = phase_main(dev, ds)
     launches, main_res, main_kfs, main_per_frame, main_info = main
     launches_e, turns = phase_main_eager(dev, ds, main)
-    launches_s, replayed_s = phase_main_sched(dev, ds, main_res, main_kfs)
+    sched = phase_main_sched(dev, ds, main_res, main_kfs)
+    launches_s, replayed_s = sched[0], sched[3]["replayed"]
     launches_n = phase_norb(dev, ds, main_res, main_per_frame)
     rtgs = phase_rtgs(dev, ds_rtgs)
     launches_r, rtgs_res, rtgs_kfs, _ = rtgs
@@ -2086,6 +2461,8 @@ def main(argv) -> int:
     launches_sp.update(serve=launches_sv,
                        serve_prune=phase_serve_prune(dev, serve_data, serve_host),
                        sched=phase_sched(dev, serve_data, serve_host, solo))
+    launches_sp.update(phase_paged(dev, ds, (launches, main_res, main_kfs, main_info),
+                                   sched, serve_data["desk0"], profile=argv == ["profile"]))
     if argv == ["profile"]:
         log("[profile] [sparse] tail keyframe (step 14), kernels busy: " + ", ".join(
             f"{n} dense {d:.1f} ms, sparse {sp:.1f} ms" for n, (d, sp) in busy.items()))

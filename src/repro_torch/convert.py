@@ -20,6 +20,7 @@ from repro_torch.core.pruning import PruneState
 from repro_torch.core.sorting import FragmentLists
 from repro_torch.slam import datasets as D
 from repro_torch.slam.engine import _Stage
+from repro_torch.slam.map.paged import PageTable
 from repro_torch.slam.metrics import DeviceWork
 from repro_torch.slam.session import SLAMConfig, SlamSession
 from repro_torch.train.optimizer import AdamState
@@ -88,10 +89,19 @@ def prune_state_from_numpy(src, device=None) -> PruneState:
     return PruneState(**leaves)
 
 
+def page_table_from_numpy(src, device=None) -> PageTable:
+    """A ``PageTable`` from an object with numpy ``row2page``, ``lo``,
+    ``hi`` and ``occupancy``."""
+    dev = resolve_device(device)
+    return PageTable(row2page=_t(src.row2page, dev, torch.int32),
+                     lo=_t(src.lo, dev, torch.float32), hi=_t(src.hi, dev, torch.float32),
+                     occupancy=_t(src.occupancy, dev, torch.int32))
+
+
 def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
                        device=None, seed: int = 0) -> SlamSession:
     """A session from every leaf of a reference session (numpy), its
-    pruning state and parked churn baselines included.
+    pruning state, parked churn baselines and page table included.
 
     The reference's densify PRNG key has no torch counterpart; the new
     session draws from a generator seeded with ``seed`` (tests inject the
@@ -128,4 +138,6 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
         rng=rng,
         tile_baselines={int(k): _t(v, dev, torch.int32)
                         for k, v in src.tile_baselines.items()},
+        page=(page_table_from_numpy(src.page, dev)
+              if getattr(src, "page", None) is not None else None),
     )

@@ -30,12 +30,32 @@ class ProjectedGaussians(NamedTuple):
     valid: torch.Tensor    # (N,) bool — alive, in front, on screen
 
 
-def project(g: GaussianField, cam: Camera) -> ProjectedGaussians:
+def _over_storage(fn, x: torch.Tensor, storage):
+    """``fn(x)`` row by row; with ``storage = (rows, n)`` (``x`` holds the
+    rows ``rows`` of an n-row storage) ``fn`` runs on the n-row operand,
+    zero off those rows, and its rows ``rows`` are returned."""
+    if storage is None:
+        return fn(x)
+    rows, n = storage
+    full = x.new_zeros((n, *x.shape[1:])).index_copy(0, rows, x)
+    return fn(full).index_select(0, rows)
+
+
+def project(g: GaussianField, cam: Camera, storage=None) -> ProjectedGaussians:
+    """``storage = (rows, n)`` says that ``g`` is a paged view: the rows
+    ``rows`` of an n-row storage.  The two products with the camera's
+    rotation then run over n-row operands, zero off the view, so the
+    pose gradient's sums over rows (the backward of ``mu @ W.T``, ``+ t``
+    and ``J @ W``) have the flat step's shapes, and cuBLAS, which splits a
+    sum by its length, rounds them as it rounds the flat step's.  Rows
+    off the view add exact zeros there (they render nothing), so while
+    every row that renders is in the view the pose gradient equals the
+    flat step's bit for bit."""
     intr = cam.intrinsics
     W = cam.w2c[:3, :3]
     t = cam.w2c[:3, 3]
 
-    p_cam = g.mu @ W.T + t
+    p_cam = _over_storage(lambda mu: mu @ W.T + t, g.mu, storage)
     z = p_cam[:, 2]
     z_safe = torch.clamp(z, min=_NEAR)
 
@@ -57,7 +77,7 @@ def project(g: GaussianField, cam: Camera) -> ProjectedGaussians:
     )
 
     cov3d = g.covariance()
-    JW = J @ W
+    JW = _over_storage(lambda j: j @ W, J, storage)
     cov2d = JW @ cov3d @ JW.transpose(-1, -2)
     cov2d = cov2d + _COV2D_BLUR * torch.eye(2, dtype=cov2d.dtype,
                                             device=cov2d.device)

@@ -89,6 +89,26 @@ def init_state(g: GaussianField, num_tiles: int, cfg: PruneConfig) -> PruneState
 SCORE_FIELDS = ("mu", "log_scale", "quat")
 
 
+#: The (N,) per-Gaussian leaves of :class:`PruneState`; the others are
+#: map-global and pass through a paged view's gather and scatter.
+ROW_FIELDS = ("score", "masked", "grad_ema", "age", "stable")
+
+
+def gather_rows(state: PruneState, idx: torch.Tensor) -> PruneState:
+    """The per-Gaussian leaves' rows ``idx`` (a paged view's (M,) storage
+    rows); the map-global leaves pass through."""
+    return state._replace(**{f: getattr(state, f).index_select(0, idx)
+                             for f in ROW_FIELDS})
+
+
+def scatter_rows(full: PruneState, view: PruneState, idx: torch.Tensor) -> PruneState:
+    """``full``'s per-Gaussian leaves with the view's rows written back at
+    ``idx``, and every map-global leaf from the view (where the step
+    ran)."""
+    return view._replace(**{f: getattr(full, f).index_copy(0, idx, getattr(view, f))
+                            for f in ROW_FIELDS})
+
+
 def importance_scores(param_grads: dict, cfg: PruneConfig) -> torch.Tensor:
     """Eq. 7 from the gradients tracking's backward produced (only
     ``mu``, ``log_scale`` and ``quat`` are read)."""

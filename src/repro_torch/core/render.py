@@ -48,26 +48,28 @@ def _composite(color_pm, depth_pm, final_t, frags, proj, background):
 def render(g: GaussianField, cam: Camera, plan: RasterPlan,
            frags: Optional[FragmentLists] = None, *,
            background=(0.0, 0.0, 0.0), keep: Optional[torch.Tensor] = None,
-           device=None) -> RenderOutput:
+           storage=None, device=None) -> RenderOutput:
     """Render ``g`` from ``cam`` under ``plan``.
 
     Runs on the card unless ``device="cpu"``; the field and camera must
     already live there.  Pass cached ``frags`` (leading B when batched) to
     reuse fragment lists across iterations.  ``keep`` (an (N,) bool mask)
     goes to the fragment build when ``frags`` is None: rows outside it
-    render nothing (sparse mapping passes ``~stable``)."""
+    render nothing (sparse mapping passes ``~stable``).  ``storage`` goes
+    to :func:`project` (a paged view's ``(rows, n)``)."""
     dev = resolve_device(device)
     check_on(g.mu, dev, "the Gaussian field")
     check_on(cam.w2c, dev, "the camera pose")
     if cam.w2c.ndim == 2:
-        proj = project(g, cam)
+        proj = project(g, cam, storage)
         if frags is None:
             frags = build_fragment_lists(proj, plan.grid, plan.capacity, keep)
         out = ops.rasterize(RasterInputs.from_projection(proj, frags), plan)
         return _composite(*out, frags, proj, background)
 
     views = cam.w2c.shape[0]
-    projs = [project(g, Camera(cam.intrinsics, cam.w2c[b])) for b in range(views)]
+    projs = [project(g, Camera(cam.intrinsics, cam.w2c[b]), storage)
+             for b in range(views)]
     if frags is None:
         frags = stack_fragment_lists([
             build_fragment_lists(p, plan.grid, plan.capacity, keep) for p in projs])

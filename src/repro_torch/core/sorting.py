@@ -128,6 +128,16 @@ def count_skipped_fragments(proj: ProjectedGaussians, grid: TileGrid,
     return torch.where(dropped, area, torch.zeros_like(area)).sum(dtype=torch.int32)
 
 
+def remap_fragment_rows(frags: FragmentLists, view_idx: torch.Tensor) -> FragmentLists:
+    """Fragment lists built over a paged view (rows 0..M-1) in storage
+    rows: ``view_idx`` is the (M,) storage row of each view row.  The
+    ``-1`` padding stays; counts, overflow and total pass through."""
+    idx = frags.idx
+    rows = view_idx.index_select(0, torch.clamp(idx, min=0).reshape(-1).to(torch.int64))
+    return frags._replace(idx=torch.where(idx >= 0, rows.reshape(idx.shape).to(torch.int32),
+                                          torch.full_like(idx, -1)))
+
+
 def stack_fragment_lists(lists):
     """Stack per-view lists (or any NamedTuples of tensors, such as
     schedules) along a new leading axis."""

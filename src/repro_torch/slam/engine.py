@@ -55,6 +55,9 @@ from repro_torch.kernels.ops import build_plan_schedule
 from repro_torch.slam.graphs import (
     PhaseRunner, flat, row_carry, row_names, row_view, rows_segment, unflat,
 )
+from repro_torch.slam.map.paged import (
+    PageTable, gather_field, scatter_field, validate_paged, working_set,
+)
 from repro_torch.slam.metrics import DeviceWork, device_work_add
 from repro_torch.train.optimizer import (
     Adam, AdamState, apply_updates, apply_updates_masked,
@@ -92,6 +95,7 @@ class _Stage:
     def __init__(self, intr: Intrinsics, cfg, device: torch.device,
                  factor: int = 1, runner: PhaseRunner | None = None):
         self.factor = factor
+        self.full_intr = intr       # the paged cull's frusta are full-size
         self.intr = intr.scaled(factor)
         self.grid = make_tile_grid(self.intr.height, self.intr.width)
         self.plan = RasterPlan(grid=self.grid, backend=cfg.backend,
@@ -108,10 +112,27 @@ class _Stage:
         if cfg.sparse_opt and cfg.prune is None:
             raise ValueError("sparse_opt=True requires cfg.prune (the "
                              "stability bit rides PruneState)")
+        # PagedMap's cull, gather and scatter ride inside the fused
+        # engine's segments (the reference's ``session_init`` checks).
+        if cfg.paged is not None:
+            if not cfg.fused:
+                raise ValueError("SLAMConfig.paged requires cfg.fused=True: the "
+                                 "frustum cull + working-set gather ride inside "
+                                 "the fused step dispatch")
+            validate_paged(cfg.paged, cfg.capacity)
 
-    def _render(self, g, w2c, frags=None, sched=None):
+    def build_rows(self, g) -> int:
+        """Rows one fragment-list build over storage ``g`` sweeps: the paged
+        view's M, or the whole pool."""
+        p = self.cfg.paged
+        return p.visible_pages * p.page_capacity if p is not None else g.capacity
+
+    def _working_set(self, page: PageTable, w2c, kf_w2c) -> torch.Tensor:
+        return working_set(page, self.full_intr, w2c, kf_w2c, self.cfg.paged)
+
+    def _render(self, g, w2c, frags=None, sched=None, storage=None):
         return render(g, Camera(self.intr, w2c), self.plan.with_sched(sched),
-                      frags=frags, device=self.device)
+                      frags=frags, storage=storage, device=self.device)
 
     # ---- cores -----------------------------------------------------------
 
@@ -125,6 +146,16 @@ class _Stage:
         """:meth:`_build` as an eager call of its own."""
         self.runner.count()
         return self._build(g, masked, w2c, keep)
+
+    def _paged_build_core(self, g, masked, w2c, page: PageTable, kf_w2c):
+        """The pruning path's pre-tracking build in paged mode, as one eager
+        call: the frame's working set at ``w2c`` (the cull, the selection
+        and the view's rows) and the fragment lists of the view.  Returns
+        ``(frags, view_idx)``."""
+        self.runner.count()
+        view_idx = self._working_set(page, w2c, kf_w2c)
+        return self._build(gather_field(g, view_idx), masked.index_select(0, view_idx),
+                           w2c), view_idx
 
     @torch.no_grad()
     def _sparse_build_core(self, g, masked, keep, w2c):
@@ -154,11 +185,13 @@ class _Stage:
         return tile_trips(frags.count, self.plan.chunk)
 
     def _track_iter_core(self, g, masked, xi, ostate, base_w2c, obs_rgb,
-                         obs_depth, frags, sched=None, score_grads=False):
+                         obs_depth, frags, sched=None, score_grads=False, storage=None):
         """One tracking iteration: render -> Eq. 6 loss -> pose Adam step.
         With ``score_grads`` it also returns the gradients of the silenced
         field's ``mu``, ``log_scale`` and ``quat`` (all that Eq. 7 and the
-        stability EMA read); otherwise only the pose is differentiated."""
+        stability EMA read); otherwise only the pose is differentiated.
+        ``storage`` is a paged view's ``(rows, n)`` (``project``: the pose
+        gradient then rounds as the flat step's)."""
         g_eff = silence(g, masked)
         xi_ = xi.detach().requires_grad_(True)
         leaves = {}
@@ -166,7 +199,7 @@ class _Stage:
             leaves = {k: getattr(g_eff, k).detach().requires_grad_(True)
                       for k in pruning.SCORE_FIELDS}
             g_eff = g_eff.replace(**leaves)
-        out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags, sched)
+        out = self._render(g_eff, lie.se3_exp(xi_) @ base_w2c, frags, sched, storage)
         loss = slam_loss(out.image, out.depth, out.alpha, obs_rgb, obs_depth,
                          self.cfg.lambda_pho)
         g_xi, *g_leaves = torch.autograd.grad(loss, [xi_, *leaves.values()])
@@ -248,12 +281,29 @@ class _Stage:
         them as inputs and every iteration also accumulates the Eq. 7
         scores and the stability leaves from its own backward (the input
         ``settle``, a () bool, is False while ``opt_steps`` is under
-        ``stable_warmup``)."""
-        prune_cfg = self.cfg.prune
+        ``stable_warmup``).
+
+        In paged mode (``cfg.paged``) the iterations run on the frame's
+        working set.  Without ``prune`` the segment computes it (the cull,
+        the selection and the view's rows, from the page table, the base
+        pose and the keyframe ring), gathers the view, builds on it and
+        returns ``view_idx``; with it, it takes ``view_idx`` from the
+        pre-tracking build, gathers the view's rows of the map and the
+        pruning leaves, and scatters the leaves back, so the carried
+        leaves stay storage-sized.  A gather after a scatter with the same
+        rows is a copy, so replays of one iteration equal the reference's
+        one gather, K iterations and one scatter bit for bit."""
+        prune_cfg, paged = self.cfg.prune, self.cfg.paged is not None
 
         def fn(t):
             g = unflat(t, "g", G.GaussianField)
             masked, xi = t["masked"], t["xi"]
+            view_idx = storage = None
+            if paged:
+                view_idx = (t["view_idx"] if prune else self._working_set(
+                    unflat(t, "page", PageTable), t["base"], t["kf_w2c"]))
+                storage = (view_idx, g.capacity)
+                g, masked = gather_field(g, view_idx), masked.index_select(0, view_idx)
             if prune:
                 frags = unflat(t, "frags", FragmentLists)
                 sched = unflat(t, "sched", TileSchedule) if self.scheduled else None
@@ -265,12 +315,14 @@ class _Stage:
             work = unflat(t, "work", DeviceWork)
             if prune:
                 score, ema, age = t["p.score"], t["p.grad_ema"], t["p.age"]
+                if paged:
+                    score, ema, age = (x.index_select(0, view_idx) for x in (score, ema, age))
             alive_eff = (g.alive & ~masked).sum()
             losses = []
             for _ in range(n):
                 loss, xi, ostate, grads = self._track_iter_core(
                     g, masked, xi, ostate, t["base"], t["obs_rgb"], t["obs_depth"],
-                    frags, sched, score_grads=prune)
+                    frags, sched, score_grads=prune, storage=storage)
                 work = device_work_add(work, frags.total, self.pixels, alive_eff,
                                        unstable=0)
                 if prune:
@@ -282,18 +334,29 @@ class _Stage:
             out = {"xi": xi, **flat("opt", ostate), **flat("work", work),
                    "losses": torch.stack(losses)}
             if prune:
-                out.update({"p.score": score, "p.grad_ema": ema, "p.age": age,
-                            "p.stable": stable})
+                leaves = {"p.score": score, "p.grad_ema": ema, "p.age": age,
+                          "p.stable": stable}
+                if paged:
+                    leaves = {k: t[k].index_copy(0, view_idx, v) for k, v in leaves.items()}
+                out.update(leaves)
+            elif paged:
+                out["view_idx"] = view_idx
             return out
 
         return fn
 
     def _track_inputs(self, g, masked, base_w2c, obs_rgb, obs_depth, frags,
-                      sched, xi, ostate, work, pstate=None) -> dict:
+                      sched, xi, ostate, work, pstate=None, view=None) -> dict:
+        """The tracking segment's inputs; ``view`` is, in paged mode, the
+        page table and keyframe ring (no pruning) or ``view_idx``."""
         out = {**flat("g", g), "masked": masked, "base": base_w2c,
                "obs_rgb": obs_rgb, "obs_depth": obs_depth,
                **flat("frags", frags), **flat("sched", sched), "xi": xi,
                **flat("opt", ostate), **flat("work", work)}
+        if isinstance(view, torch.Tensor):
+            out["view_idx"] = view
+        elif view is not None:
+            out.update({**flat("page", view[0]), "kf_w2c": view[1]})
         if pstate is not None:
             out.update({"p.score": pstate.score, "p.grad_ema": pstate.grad_ema,
                         "p.age": pstate.age, "p.stable": pstate.stable})
@@ -316,32 +379,35 @@ class _Stage:
         the K tracking iterations on them: one segment run.  Returns
         ``(xi, work, losses, fired)``."""
         return self._track_rows_noprune(
-            [(g, masked, base_w2c, obs_rgb, obs_depth, work)])[0]
+            [(g, masked, base_w2c, obs_rgb, obs_depth, work)])[0][:4]
 
-    def _track_rows_noprune(self, rows):
+    def _track_rows_noprune(self, rows, views=None):
         """:meth:`_track_scan_noprune` of S sessions at once: ``rows`` holds
-        each one's ``(g, masked, base_w2c, obs_rgb, obs_depth, work)``.
-        One run of one S-row segment (each row's tensors and ops its own,
-        as in a solo run); returns each row's ``(xi, work, losses,
-        fired)``."""
+        each one's ``(g, masked, base_w2c, obs_rgb, obs_depth, work)`` and,
+        in paged mode, ``views`` each one's ``(page table, keyframe
+        ring)``.  One run of one S-row segment (each row's tensors and ops
+        its own, as in a solo run); returns each row's ``(xi, work, losses,
+        fired, view_idx)`` (``view_idx`` None unless paged)."""
         k = self.cfg.iters_track
+        views = views or [None] * len(rows)
         inputs = {}
-        for s, (g, masked, base_w2c, obs_rgb, obs_depth, work) in enumerate(rows):
-            work = work._replace(frag_build_rows=work.frag_build_rows + g.capacity)
+        for s, ((g, masked, base_w2c, obs_rgb, obs_depth, work), view) in enumerate(
+                zip(rows, views)):
+            work = work._replace(frag_build_rows=work.frag_build_rows + self.build_rows(g))
             xi, ostate = self._pose_start()
             inputs.update(row_names(s, self._track_inputs(
                 g, masked, base_w2c, obs_rgb, obs_depth, None, None, xi, ostate,
-                work)))
+                work, view=view)))
         final, runs = self.runner.run(
             ("track", self.cfg.backend, self.factor, k, len(rows)),
             rows_segment([self._track_segment(k, prune=False)] * len(rows)),
             inputs, row_carry(self._TRACK_CARRY, len(rows)), iters=k)
         out = []
         for s in range(len(rows)):
-            f = row_view(s, final)
-            out.append((f["xi"], unflat(f, "work", DeviceWork),
-                        row_view(s, runs[0])["losses"],
-                        torch.zeros(k, dtype=torch.bool, device=self.device)))
+            f, r = row_view(s, final), row_view(s, runs[0])
+            out.append((f["xi"], unflat(f, "work", DeviceWork), r["losses"],
+                        torch.zeros(k, dtype=torch.bool, device=self.device),
+                        r.get("view_idx")))
         return out
 
     def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
@@ -356,26 +422,30 @@ class _Stage:
         return self._track_rows_prune(
             [(g, pstate, base_w2c, obs_rgb, obs_depth, frags, work)])[0]
 
-    def _track_rows_prune(self, rows):
+    def _track_rows_prune(self, rows, view_idxs=None):
         """:meth:`_track_scan_prune` of S sessions at once: ``rows`` holds
         each one's ``(g, pstate, base_w2c, obs_rgb, obs_depth, frags,
-        work)``.  The iterations run as replays of one one-iteration S-row
-        segment, up to the next boundary any row's host clock knows (or a
-        row's stability warmup end); after each run every row whose
-        interval ran out takes its own boundary.  Returns each row's
-        ``(xi, g, pstate, work, losses, fired)``."""
+        work)`` and, in paged mode, ``view_idxs`` each one's working set
+        (``frags`` are then the view's).  The iterations run as replays of
+        one one-iteration S-row segment, up to the next boundary any row's
+        host clock knows (or a row's stability warmup end); after each run
+        every row whose interval ran out takes its own boundary (on its
+        view, scattered back).  Returns each row's ``(xi, g, pstate, work,
+        losses, fired)``, ``g`` and ``pstate`` storage-sized."""
         prune_cfg = self.cfg.prune
         k, n_rows = self.cfg.iters_track, len(rows)
+        view_idxs = view_idxs or [None] * n_rows
         st = []
-        for g, pstate, base_w2c, obs_rgb, obs_depth, frags, work in rows:
+        for (g, pstate, base_w2c, obs_rgb, obs_depth, frags, work), view_idx in zip(
+                rows, view_idxs):
             sched = self._sched_core(frags) if self.scheduled else None
             xi, ostate = self._pose_start()
             # The caller's pre-track build, plus one per fired boundary below.
             st.append(dict(
                 g=g, pstate=pstate, base=base_w2c, rgb=obs_rgb, depth=obs_depth,
                 frags=frags, sched=sched, xi=xi, ostate=ostate, losses=[],
-                fired=[], work=work._replace(
-                    frag_build_rows=work.frag_build_rows + g.capacity)))
+                fired=[], view_idx=view_idx, work=work._replace(
+                    frag_build_rows=work.frag_build_rows + self.build_rows(g))))
         segment = rows_segment([self._track_segment(1, prune=True)] * n_rows)
         carry = row_carry(self._TRACK_CARRY + self._PRUNE_CARRY, n_rows)
         done = 0
@@ -393,7 +463,8 @@ class _Stage:
                 n = min(n, max(m, 1))
                 row = self._track_inputs(r["g"], ps.masked, r["base"], r["rgb"],
                                          r["depth"], r["frags"], r["sched"],
-                                         r["xi"], r["ostate"], r["work"], ps)
+                                         r["xi"], r["ostate"], r["work"], ps,
+                                         view=r["view_idx"])
                 row["settle"] = constant(settle, torch.bool, self.device)
                 inputs.update(row_names(s, row))
             final, runs = self.runner.run(
@@ -417,14 +488,22 @@ class _Stage:
                 def build_fn(gg, mm, xi=r["xi"], base=r["base"]):
                     return self._build_core(gg, mm, lie.se3_exp(xi) @ base)
 
-                ps, r["g"], r["frags"], hit = pruning.cond_interval_update(
-                    ps, r["g"], r["frags"], build_fn, prune_cfg)
+                vidx = r["view_idx"]
+                if vidx is None:
+                    ps, r["g"], r["frags"], hit = pruning.cond_interval_update(
+                        ps, r["g"], r["frags"], build_fn, prune_cfg)
+                else:
+                    view_ps, view_g, r["frags"], hit = pruning.cond_interval_update(
+                        pruning.gather_rows(ps, vidx), gather_field(r["g"], vidx),
+                        r["frags"], build_fn, prune_cfg)
+                    ps = pruning.scatter_rows(ps, view_ps, vidx)
+                    r["g"] = scatter_field(r["g"], view_g, vidx)
                 r["pstate"] = ps
                 if hit:
                     self.runner.count(syncs=1)      # interval_update's churn read
                     r["fired"][-1] = True
                     r["work"] = r["work"]._replace(
-                        frag_build_rows=r["work"].frag_build_rows + r["g"].capacity)
+                        frag_build_rows=r["work"].frag_build_rows + self.build_rows(r["g"]))
                     if self.scheduled:
                         r["sched"] = self._sched_core(r["frags"])
         return [(r["xi"], r["g"], r["pstate"], r["work"], torch.cat(r["losses"]),

@@ -172,20 +172,24 @@ class ShardedPool(SessionPool):
         """Per-row memory shape of this pool, and the device's allocator
         counters (``torch.cuda`` memory stats; zeros on the CPU).
         ``storage_rows`` is each row's Gaussian pool; ``working_rows`` the
-        rows a frame-step optimizes (the whole pool: PagedMap is not
-        ported)."""
+        rows a frame-step optimizes (the frustum-culled view when
+        ``cfg.paged`` is set, the whole pool otherwise); the byte figures
+        scale them by the bytes of one Gaussian's leaves."""
         g = self._stacked.rows[0].g
         row_bytes = sum(t[0].numel() * t.element_size() for t in
                         (getattr(g, f.name) for f in dataclasses.fields(g)))
         storage_rows = self.cfg.capacity
+        paged = self.cfg.paged
+        working_rows = (paged.visible_pages * paged.page_capacity
+                        if paged is not None else storage_rows)
         out = {
             "rows": self.size,
             "storage_rows": storage_rows,
-            "working_rows": storage_rows,
-            "working_fraction": 1.0,
+            "working_rows": working_rows,
+            "working_fraction": working_rows / storage_rows,
             "storage_bytes_per_row": storage_rows * row_bytes,
-            "working_bytes_per_row": storage_rows * row_bytes,
-            "paged": False,
+            "working_bytes_per_row": working_rows * row_bytes,
+            "paged": paged is not None,
         }
         cuda = self.device.type == "cuda"
         for key, fn in (("allocated_bytes", torch.cuda.memory_allocated),

@@ -68,16 +68,19 @@ from repro_torch.core.downsample import (
 from repro_torch.core.keyframes import KeyframePolicy, read_decisions
 from repro_torch.core.losses import psnr as psnr_dev
 from repro_torch.core.pruning import PruneConfig, PruneState
-from repro_torch.core.sorting import FragmentLists
+from repro_torch.core.sorting import FragmentLists, remap_fragment_rows
 from repro_torch.kernels.tile_render import raise_on_sched_fault
 from repro_torch.slam import geometric
 from repro_torch.slam.engine import _Stage
 from repro_torch.slam.graphs import (
     EngineStats, PhaseRunner, flat, row_names, row_view, rows_segment, unflat,
 )
+from repro_torch.slam.map import paged as pagedmap
+from repro_torch.slam.map.paged import PagedConfig, PageTable
 from repro_torch.slam.metrics import (
     DeviceWork, WorkCounters, ate_rmse, device_work_merge, device_work_zero,
 )
+from repro_torch.train import optimizer as optim
 from repro_torch.train.optimizer import Adam, AdamState
 
 
@@ -112,19 +115,16 @@ class SLAMConfig:
                                     # replays (the same segments, no
                                     # capture, on the CPU); False: eager
                                     # per-iteration oracle
-    # Parts of the reference not ported yet: setting any of them raises.
-    paged: Optional[object] = None
+    paged: Optional[PagedConfig] = None     # PagedMap: each step on the
+                                    # frame's frustum-culled working set
+                                    # (needs fused)
+    # Not ported yet: setting it raises.
     sched_bucket: int = 1           # WSU trip bucketing: only 1 (no rounding)
 
     def __post_init__(self):
-        unported = {
-            "paged": self.paged is not None,
-            "sched_bucket": self.sched_bucket != 1,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
+        if self.sched_bucket != 1:
             raise NotImplementedError(
-                f"SLAMConfig: {', '.join(bad)} not ported to repro_torch yet")
+                "SLAMConfig: sched_bucket not ported to repro_torch yet")
 
 
 @dataclasses.dataclass
@@ -188,6 +188,9 @@ class SlamSession:
     rng: torch.Generator        # densify draws
     tile_baselines: dict        # {num_tiles: (T,) i32} §4.1 churn baselines
                                 # parked across §4.2 factor switches
+    page: Optional[PageTable] = None    # PagedMap's table (None unless
+                                # cfg.paged); map_opt's rows are then the
+                                # view's
 
     batch = None                # a solo session (SessionStack.batch is S)
 
@@ -423,7 +426,15 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
         ("boot", cfg.backend), _boot_segment(st),
         {**flat("g", g), "masked": masked, "kf_w2c": kf_w2c, "kf_rgb": kf_rgb,
          "kf_depth": kf_depth}, iters=st._map_dispatches(False) + 1)
-    g = unflat(boot, "g", G.GaussianField)
+    g, map_opt = unflat(boot, "g", G.GaussianField), _adam_of(boot)
+    page = None
+    if cfg.paged is not None:
+        # The bootstrap mapped the whole pool (frame 0 sees the whole seed
+        # map).  The first page table; the Adam moments parked at the
+        # frame-0 view's shape (every keyframe re-inits them, so only the
+        # (M, ...) shape matters).
+        page = pagedmap.build_page_table(g, cfg.paged)
+        map_opt = optim.gather_rows(map_opt, st._working_set(page, pose0, kf_w2c))
     kf_psnr = torch.full((num_f,), float("nan"), dtype=torch.float32, device=dev)
     kf_psnr[0] = boot["psnr"]
     alive_log = torch.zeros((num_f,), dtype=torch.int64, device=dev)
@@ -434,7 +445,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     rng.manual_seed(seed)
     _charge(stats, runner, before)
     return SlamSession(
-        cfg=cfg, intr=intr, stages=stages, g=g, map_opt=_adam_of(boot),
+        cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
         pstate=pstate, masked=masked,
         pose=pose0, velocity=torch.eye(4, dtype=torch.float32, device=dev),
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
@@ -442,7 +453,7 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
         last_kf_rgb=rgb0, prev_rgb=rgb0, prev_depth=depth0,
         kf_psnr=kf_psnr, alive_log=alive_log, work=unflat(boot, "work", DeviceWork),
         frags=unflat(boot, "frags", FragmentLists), rng=rng,
-        tile_baselines=tile_baselines)
+        tile_baselines=tile_baselines, page=page)
 
 
 def _adam_of(t: dict) -> AdamState:
@@ -482,19 +493,35 @@ def _keyframe_segment(st: _Stage, sparse: bool):
     pose, densification, under ``sparse`` the newcomers' stability reset,
     a fresh map Adam state, the three ring pushes at the device fill
     ``kf_count``, the mapping phase, its PSNR and the serving-cache build
-    (dense: renders from outside see the whole map)."""
+    (dense: renders from outside see the whole map).
+
+    In paged mode (``cfg.paged``) all of it runs on the frame's working set
+    (the input ``view_idx`` from tracking), as the reference's step does
+    (``:474-499, 596-601, 638-651``): the segment gathers the view's rows
+    of the map, the mask and the stability leaves from storage, remaps the
+    serving-cache lists to storage rows, scatters the map and the leaves
+    back and rebuilds the page table."""
     cfg, intr = st.cfg, st.intr
+    paged = cfg.paged is not None
+    leaf_names = ("p.grad_ema", "p.age", "p.stable") if sparse else ()
 
     def fn(t):
         g, masked, pose = unflat(t, "g", G.GaussianField), t["masked"], t["pose"]
+        leaves = {k: t[k] for k in leaf_names}
+        if paged:
+            view_idx = t["view_idx"]
+            g = pagedmap.gather_field(g, view_idx)
+            masked = masked.index_select(0, view_idx)
+            leaves = {k: v.index_select(0, view_idx) for k, v in leaves.items()}
         rendered = st._render_eval_core(g, masked, pose)
         g2, dropped = _densify_core(g, t["rgb"], t["depth"], rendered, pose, intr,
                                     cfg, None, t["perm"], c2w=t["c2w"])
-        out, stable = {}, None
+        stable = None
         if sparse:
             ema, age, stable = pruning.reset_born(
-                t["p.grad_ema"], t["p.age"], t["p.stable"], g2.alive & ~g.alive)
-            out = {"p.grad_ema": ema, "p.age": age, "p.stable": stable}
+                leaves["p.grad_ema"], leaves["p.age"], leaves["p.stable"],
+                g2.alive & ~g.alive)
+            leaves = {"p.grad_ema": ema, "p.age": age, "p.stable": stable}
         g = g2
         opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
         count = t["kf_count"]
@@ -510,22 +537,33 @@ def _keyframe_segment(st: _Stage, sparse: bool):
         # each build one fragment list over g's rows.
         work = work._replace(densify_dropped=work.densify_dropped + dropped,
                              frag_build_rows=work.frag_build_rows + 2 * g.capacity)
-        return {**out, **ring, **flat("g", g), **flat("opt", opt),
+        frags = st._build(g, masked, pose)
+        out = {}
+        if paged:
+            frags = remap_fragment_rows(frags, view_idx)
+            g = pagedmap.scatter_field(unflat(t, "g", G.GaussianField), g, view_idx)
+            leaves = {k: t[k].index_copy(0, view_idx, v) for k, v in leaves.items()}
+            # The keyframe is the only step that admits rows: newcomers move
+            # from nursery pages to their Morton page.  Between keyframes the
+            # table only over-covers (pruning shrinks pages, never grows them).
+            out = flat("page", pagedmap.build_page_table(g, cfg.paged))
+        return {**out, **leaves, **ring, **flat("g", g), **flat("opt", opt),
                 **flat("work", work), "losses": losses,
-                "psnr": psnr_dev(image, t["rgb"]),
-                **flat("frags", st._build(g, masked, pose))}
+                "psnr": psnr_dev(image, t["rgb"]), **flat("frags", frags)}
 
     return fn
 
 
 @torch.no_grad()
-def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
+def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm,
+                view_idx=None):
     """A keyframe's mapping work as one run of the keyframe segment: one
     graph replay when fused on the card.  The host passes in what it knows
     without a read (the ring fill, as a () device tensor) and what must not
     run inside a graph: the densify pick, drawn on the session's generator
     (so a capture's warm-up run draws nothing and the generator ends where
-    an eager run leaves it), and the tracked pose's inverse.  Returns
+    an eager run leaves it), and the tracked pose's inverse.  In paged
+    mode ``view_idx`` is the frame's working set (tracking's).  Returns
     ``(session, work, map losses, PSNR)``."""
     cfg, st, dev = sess.cfg, sess.stage, sess.device
     sparse = cfg.sparse_opt
@@ -536,6 +574,8 @@ def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
               "perm": perm.to(dev), "kf_rgb": sess.kf_rgb, "kf_depth": sess.kf_depth,
               "kf_w2c": sess.kf_w2c,
               "kf_count": torch.full((), sess.kf_count, dtype=torch.int64, device=dev)}
+    if cfg.paged is not None:
+        inputs["view_idx"] = view_idx
     pstate = sess.pstate
     if sparse:
         inputs.update({"p.grad_ema": pstate.grad_ema, "p.age": pstate.age,
@@ -556,7 +596,8 @@ def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm):
         g=unflat(out, "g", G.GaussianField), map_opt=_adam_of(out), pstate=pstate,
         kf_rgb=out["kf_rgb"], kf_depth=out["kf_depth"], kf_w2c=out["kf_w2c"],
         kf_count=min(sess.kf_count + 1, cfg.map_window), kf_total=sess.kf_total + 1,
-        frags=unflat(out, "frags", FragmentLists)), \
+        frags=unflat(out, "frags", FragmentLists),
+        page=(unflat(out, "page", PageTable) if cfg.paged is not None else None)), \
         unflat(out, "work", DeviceWork), out["losses"], out["psnr"]
 
 
@@ -576,23 +617,30 @@ def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
 def _track_geometric(rows, bases, obs):
     """Photo-SLAM's tracking of each session of ``rows``: frame-to-frame
     direct odometry from its previous frame (no render, so nothing for
-    pruning to accumulate), as one S-row segment of the shared runner.
-    Returns each row's ``(xi, work, losses, fired)``."""
+    pruning to accumulate), as one S-row segment of the shared runner; in
+    paged mode the segment also computes each row's working set.  Returns
+    each row's ``(xi, work, losses, fired, view_idx)``."""
     cfg, intr, dev = rows[0].cfg, rows[0].intr, rows[0].device
-    k = cfg.iters_track
+    k, st = cfg.iters_track, rows[0].stage
 
     def segment(t):
         pts_w, cols, _, valid = geometric.backproject_grid(
             t["prev_rgb"], t["prev_depth"], t["pose"], intr, stride=4)
-        return {"xi": geometric.geometric_track(
+        out = {"xi": geometric.geometric_track(
             intr, t["base"], pts_w, cols, valid, t["rgb"], t["depth"], iters=k,
             lr_pose=cfg.lr_pose)}
+        if cfg.paged is not None:
+            out["view_idx"] = st._working_set(unflat(t, "page", PageTable), t["base"],
+                                              t["kf_w2c"])
+        return out
 
     inputs = {}
     for s, (sess, base, (rgb, depth)) in enumerate(zip(rows, bases, obs)):
+        view = ({**flat("page", sess.page), "kf_w2c": sess.kf_w2c}
+                if cfg.paged is not None else {})
         inputs.update(row_names(s, dict(
             prev_rgb=sess.prev_rgb, prev_depth=sess.prev_depth, pose=sess.pose,
-            base=base, rgb=rgb, depth=depth)))
+            base=base, rgb=rgb, depth=depth, **view)))
     _, runs = rows[0].runner.run(("geometric", k, len(rows)),
                                  rows_segment([segment] * len(rows)), inputs, iters=k)
     out = []
@@ -601,9 +649,11 @@ def _track_geometric(rows, bases, obs):
         work = work._replace(
             pixels=work.pixels + (intr.height // 4) * (intr.width // 4) * k,
             iterations=work.iterations + k)
-        out.append((row_view(s, runs[0])["xi"], work,
+        run = row_view(s, runs[0])
+        out.append((run["xi"], work,
                     torch.zeros((k,), dtype=torch.float32, device=dev),
-                    torch.zeros((k,), dtype=torch.bool, device=dev)))
+                    torch.zeros((k,), dtype=torch.bool, device=dev),
+                    run.get("view_idx")))
     return out
 
 
@@ -632,10 +682,13 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
     else:
         pre_kf = [bool(x) for x in pre_kf]
 
-    # Each row's (xi, work, losses, fired); pruning also changes g and
-    # pstate.
+    # Each row's (xi, work, losses, fired, view_idx); pruning also changes
+    # g and pstate.  In paged mode ``view_idx`` is the frame's working set,
+    # computed inside tracking (inside the pre-tracking build when
+    # pruning) and passed to the keyframe segment.
     bases = [sess.velocity @ sess.pose for sess in rows]
     gs, pstates = [sess.g for sess in rows], [sess.pstate for sess in rows]
+    paged = cfg.paged is not None
     if cfg.base_algo == "photoslam":
         tracked = _track_geometric(rows, bases, obs)
     else:
@@ -643,16 +696,22 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
         obs_t = [(downsample_image(rgb, factor), downsample_depth(depth, factor))
                  for rgb, depth in obs]
         if cfg.prune is not None:
+            built = [st_t._paged_build_core(sess.g, sess.cur_masked, base, sess.page,
+                                            sess.kf_w2c) if paged else
+                     (st_t._build_core(sess.g, sess.cur_masked, base), None)
+                     for sess, base in zip(rows, bases)]
             out = st_t._track_rows_prune([
-                (sess.g, sess.pstate, base, o_rgb, o_depth,
-                 st_t._build_core(sess.g, sess.cur_masked, base), device_work_zero(dev))
-                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)])
+                (sess.g, sess.pstate, base, o_rgb, o_depth, frags, device_work_zero(dev))
+                for sess, base, (o_rgb, o_depth), (frags, _) in zip(
+                    rows, bases, obs_t, built)], [v for _, v in built])
             gs, pstates = [o[1] for o in out], [o[2] for o in out]
-            tracked = [(xi, w, losses, fired) for xi, _, _, w, losses, fired in out]
+            tracked = [(xi, w, losses, fired, v) for (xi, _, _, w, losses, fired), (_, v)
+                       in zip(out, built)]
         else:
             tracked = st_t._track_rows_noprune([
                 (sess.g, sess.cur_masked, base, o_rgb, o_depth, device_work_zero(dev))
-                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)])
+                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)],
+                [(sess.page, sess.kf_w2c) for sess in rows] if paged else None)
 
     with torch.no_grad():
         new_poses = [lie.se3_exp(t[0]) @ base for t, base in zip(tracked, bases)]
@@ -672,7 +731,7 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
         is_kfs = pre_kf
 
     out_rows, results = [], []
-    for sess, i, (rgb, depth), g, pstate, (_, work_t, track_losses, fired), \
+    for sess, i, (rgb, depth), g, pstate, (_, work_t, track_losses, fired, view_idx), \
             new_pose, velocity, is_kf, perm in zip(
                 rows, idxs, obs, gs, pstates, tracked, new_poses, velocities,
                 is_kfs, perms):
@@ -680,7 +739,7 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
         sess = sess.replace(pstate=pstate)
         if is_kf:
             sess, work_m, map_losses, psnr_v = _map_branch(
-                sess, g, masked, rgb, depth, new_pose, perm)
+                sess, g, masked, rgb, depth, new_pose, perm, view_idx)
             sess = sess.replace(last_kf_idx=i, last_kf_rgb=rgb)
         else:
             sess = sess.replace(g=g)
@@ -989,8 +1048,10 @@ def warm_keyframe(template: SlamSession) -> None:
     serves every fill) by one scratch keyframe on a copy of it, on its own
     previous frame."""
     sess = copy_session(template)
+    view_idx = (sess.stage._working_set(sess.page, sess.pose, sess.kf_w2c)
+                if sess.cfg.paged is not None else None)
     _map_branch(sess, sess.g, sess.cur_masked, sess.prev_rgb, sess.prev_depth,
-                sess.pose, None)
+                sess.pose, None, view_idx)
 
 
 def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:

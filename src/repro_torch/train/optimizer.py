@@ -79,6 +79,22 @@ def _row_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
 
 
+def gather_rows(state: AdamState, idx: torch.Tensor) -> AdamState:
+    """The moments' rows ``idx`` (a paged view's (M,) storage rows); the
+    shared step passes through."""
+    return AdamState(step=state.step,
+                     mu={k: v.index_select(0, idx) for k, v in state.mu.items()},
+                     nu={k: v.index_select(0, idx) for k, v in state.nu.items()})
+
+
+def scatter_rows(full: AdamState, view: AdamState, idx: torch.Tensor) -> AdamState:
+    """``full``'s moments with the view's rows written back at ``idx``; the
+    step comes from the view."""
+    return AdamState(step=view.step,
+                     mu={k: v.index_copy(0, idx, view.mu[k]) for k, v in full.mu.items()},
+                     nu={k: v.index_copy(0, idx, view.nu[k]) for k, v in full.nu.items()})
+
+
 def apply_updates(params: dict, updates: dict) -> dict:
     return {k: p + updates[k] for k, p in params.items()}
 

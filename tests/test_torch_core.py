@@ -408,19 +408,24 @@ def test_carry_across_needs_a_card_unless_told_cpu(monkeypatch, which):
         assert calls[which](device="cpu").step.device.type == "cpu"
 
 
-@pytest.mark.parametrize("field,value,error,match", [
-    ("sparse_opt", True, ValueError, "sparse_opt=True requires cfg.prune"),
-    ("paged", object(), NotImplementedError, "paged"),
-    ("sched_bucket", 2, NotImplementedError, "sched_bucket")],
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(sparse_opt=True), ValueError, "sparse_opt=True requires cfg.prune"),
+    (dict(paged="PagedConfig", fused=False), ValueError, "paged requires cfg.fused=True"),
+    (dict(sched_bucket=2), NotImplementedError, "sched_bucket")],
     ids=["sparse_opt-True", "paged-value1", "sched_bucket-2"])
-def test_unported_config_fields_raise(field, value, error, match):
+def test_unported_config_fields_raise(kw, error, match):
     """Unported fields raise when the config is made; ``sparse_opt``
-    without ``prune`` raises the reference's ``ValueError`` when a stage is
-    built from it (the stability bit rides the pruning state)."""
+    without ``prune`` and ``paged`` without the fused engine raise the
+    reference's ``ValueError`` when a stage is built from them (the
+    stability bit rides the pruning state; the paged cull and gather ride
+    inside the fused engine's segments)."""
     from repro_torch.slam.engine import _Stage
+    from repro_torch.slam.map.paged import PagedConfig
     from repro_torch.slam.session import SLAMConfig
+    if kw.get("paged") == "PagedConfig":
+        kw = dict(kw, paged=PagedConfig(page_capacity=128, visible_pages=2))
     with pytest.raises(error, match=match):
-        _Stage(TIntr(**INTR), SLAMConfig(**{field: value}), torch.device("cpu"))
+        _Stage(TIntr(**INTR), SLAMConfig(capacity=1024, **kw), torch.device("cpu"))
 
 
 @pytest.mark.parametrize("field,value", [

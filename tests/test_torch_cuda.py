@@ -965,3 +965,172 @@ def test_cuda_pool_keyframes_after_warmup_capture_nothing(dev):
         assert (counts.dispatches, counts.syncs, counts.replays) == (
             1 + sum(res.is_kf), 0, 1 + sum(res.is_kf)), t
     assert kf_rows > 0 and compile_cache_stats() == census
+
+
+# ---------------------------------------------------------------------------
+# PagedMap: the cull, the gather, the scatter and the table rebuild inside
+# the graphs
+# ---------------------------------------------------------------------------
+
+
+def _paged_cfg(pages, **kw):
+    """A 64x64 room0 config with pruning; ``pages`` visible pages of 128
+    rows of a 1024-row pool (8: every page, the view is the identity), or
+    flat with ``pages=None``."""
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.slam.map.paged import PagedConfig
+    from repro_torch.slam.session import SLAMConfig
+
+    base = dict(iters_track=3, iters_map=4, capacity=1024, frag_capacity=48,
+                map_window=2, map_rebuild_stride=2, densify_per_kf=64,
+                keyframe=KeyframePolicy(interval=2),
+                prune=PruneConfig(k0=2, step_frac=0.1),
+                paged=None if pages is None else PagedConfig(128, pages))
+    base.update(kw)
+    return SLAMConfig(**base)
+
+
+def _paged_run(cfg, frames=5):
+    """A solo run on the card: the session, the step results and each
+    step's (dispatches, syncs, replays)."""
+    import dataclasses
+
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import session_init, session_step
+
+    ds = make_dataset("room0", num_frames=frames, height=64, width=64,
+                      num_gaussians=400, frag_capacity=48)
+    stats = EngineStats()
+    sess = session_init(ds, cfg, stats=stats)
+    results, counts = [], []
+    for t in range(1, frames):
+        before = dataclasses.replace(stats)
+        sess, res = session_step(sess, ds.frames[t], stats=stats)
+        d = stats.since(before)
+        results.append(res)
+        counts.append((d.dispatches, d.syncs, d.replays))
+    return sess, results, counts
+
+
+@pytest.mark.parametrize("path", ["kernel", "schedule", "noprune"])
+def test_cuda_paged_all_visible_equals_flat(dev, path):
+    """On the card, a paged session whose view holds every page equals the
+    flat one bit for bit (the map, poses, PSNR, every work counter) with
+    the same dispatches, syncs and replays per step: the cull, the gather,
+    the scatter and the table rebuild ride inside the graphs."""
+    from repro_torch.core import gaussians as TG
+
+    kw = {"kernel": {}, "schedule": dict(backend="schedule"),
+          "noprune": dict(prune=None)}[path]
+    s_f, r_f, c_f = _paged_run(_paged_cfg(None, **kw))
+    s_p, r_p, c_p = _paged_run(_paged_cfg(8, **kw))
+    assert all(torch.equal(getattr(s_f.g, k), getattr(s_p.g, k))
+               for k in TG.PARAM_FIELDS + ("alive",))
+    for a, b in zip(r_f, r_p):
+        assert torch.equal(a.pose, b.pose) and a.is_kf == b.is_kf
+        assert [int(v) for v in a.work] == [int(v) for v in b.work]
+        assert torch.equal(a.psnr.nan_to_num(), b.psnr.nan_to_num())
+    assert c_f == c_p
+    if path == "noprune":
+        assert c_p[1:] == [(2, 0, 2) if r.is_kf else (1, 0, 1) for r in r_p[1:]]
+
+
+def test_cuda_paged_partial_view_runs_through_the_kernels(dev):
+    """A partial view (6 of 8 pages) on the card: K1, K2 and K3 carry it
+    (one K3 merge per backward), no plain version runs, densification
+    spills into nursery pages and drops nothing, and every build sweeps the
+    view's 768 rows; once captured, a tracking-only frame and a keyframe
+    make no synchronizing CUDA call and count 1 / 0 / 1 and 2 / 0 / 2."""
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import session_step
+
+    plains = (tile_render_fwd_plain, tile_render_bwd_plain, gmu.merge_runs_plain)
+    calls, before = [p.calls for p in plains], _launches()
+    cfg = _paged_cfg(6, prune=None)
+    sess, results, _ = _paged_run(cfg)
+    launched = [a - b for a, b in zip(_launches(), before)]
+    assert [p.calls for p in plains] == calls
+    assert launched[0] > 0 and launched[1] > 0 and launched[4] == launched[1]
+    assert all(int(r.work.densify_dropped) == 0 for r in results)
+    assert all(int(r.work.frag_build_rows) % 768 == 0 for r in results)
+    ds = make_dataset("room0", num_frames=7, height=64, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    for t, want in ((5, (1, 0, 1, 0)), (6, (2, 0, 2, 0))):
+        stats = EngineStats()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sess, res = session_step(sess, ds.frames[t], stats=stats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert res.is_kf == (want[0] == 2)
+        assert (stats.dispatches, stats.syncs, stats.replays, stats.captures) == want
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_cuda_paged_pool_after_warmup(dev, prune):
+    """A paged S=2 pool after ``PoolLadder.warmup``: serving frame-steps add
+    no segment and no capture, count the flat formula (1 + keyframe rows
+    dispatches and replays, no sync, without pruning), and every row equals
+    its solo paged run bit for bit, its page table included."""
+    import dataclasses
+
+    from _session_state import same_session
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.sched import PoolLadder
+    from repro_torch.slam.server import compile_cache_stats
+    from repro_torch.slam.session import session_init, session_step
+
+    cfg = _paged_cfg(6, **({} if prune else dict(prune=None)))
+    ds = make_dataset("stairs0", num_frames=5, height=64, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    solo = session_init(ds, cfg)
+    for t in range(1, 5):
+        solo, _ = session_step(solo, ds.frames[t])
+    ladder = PoolLadder(session_init(ds, cfg), widths=(2,))
+    census = ladder.warmup()
+    pool = ladder[0].pool
+    pool.swap(0, session_init(ds, cfg))
+    pool.swap(1, session_init(ds, cfg))
+    for t in range(1, 5):
+        before = dataclasses.replace(pool.stats)
+        res = pool.step([ds.frames[t]] * 2)
+        counts = pool.stats.since(before)
+        if not prune:
+            assert (counts.dispatches, counts.syncs, counts.replays) == (
+                1 + sum(res.is_kf), 0, 1 + sum(res.is_kf)), t
+    assert compile_cache_stats() == census
+    assert same_session(pool.session(0), solo) and same_session(pool.session(1), solo)
+    assert solo.page is not None
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_cuda_paged_partial_view_equals_flat_while_the_alive_rows_fit(dev, prune):
+    """A partial view (6 of 8 pages) on the card equals the flat session
+    bit for bit (poses, the map, every work counter but the build rows)
+    at every step whose view holds every alive row: the tracking
+    iterations' products with the pose run over storage-sized operands, so
+    cuBLAS sums the pose gradient over the flat step's lengths."""
+    from repro_torch.core import gaussians as TG
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import session_init, session_step
+
+    ds = make_dataset("room0", num_frames=5, height=64, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    kw = {} if prune else dict(prune=None)
+    flat, paged = session_init(ds, _paged_cfg(None, **kw)), session_init(ds, _paged_cfg(6, **kw))
+    for t in range(1, 5):
+        view = paged.stage._working_set(paged.page, paged.velocity @ paged.pose,
+                                        paged.kf_w2c)
+        assert not (paged.g.alive & ~torch.zeros_like(paged.g.alive).index_fill(
+            0, view, True)).any(), t
+        flat, r_f = session_step(flat, ds.frames[t])
+        paged, r_p = session_step(paged, ds.frames[t])
+        assert torch.equal(r_f.pose, r_p.pose) and r_f.is_kf == r_p.is_kf, t
+        assert [int(v) for f, v in zip(r_f.work._fields, r_f.work) if f != "frag_build_rows"] \
+            == [int(v) for f, v in zip(r_p.work._fields, r_p.work) if f != "frag_build_rows"]
+        assert all(torch.equal(getattr(flat.g, k), getattr(paged.g, k))
+                   for k in TG.PARAM_FIELDS + ("alive",)), t

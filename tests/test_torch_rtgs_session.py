@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _shared_runs import shared
 from _torch_parity import np_
 from repro.core.downsample import DownsampleConfig as JDown
 from repro.core.downsample import side_factor as jside_factor
@@ -64,7 +65,11 @@ def _run_port(ds_t, cfg_t, perms):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(request, tmp_path_factory):
+    return shared(request, tmp_path_factory, "torch_rtgs_session_runs", _build_runs)
+
+
+def _build_runs():
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
     cfg_j = jsession.SLAMConfig(backend="ref", keyframe=JPolicy(interval=INTERVAL),

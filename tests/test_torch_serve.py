@@ -313,13 +313,21 @@ def test_sharded_pool_validation(duo):
 def test_telemetry_on_and_off_are_bit_identical(duo):
     """A telemetry-on serving run and a telemetry-off one: the same rows
     bit for bit, the same dispatches and syncs, no new segment; the
-    registry and the trace hold what the server saw."""
+    registry and the trace hold what the server saw.
+
+    Every segment serving reaches exists before the census, as after
+    ``PoolLadder.warmup``: a solo step, a 2-row frame-step and a keyframe
+    (whether an earlier test in the same process made them does not
+    matter)."""
     cfg, scenes = duo
+    S.session_step(_init(scenes[0], cfg), scenes[0].frames[1])
+    ShardedPool([_init(ds, cfg) for ds in scenes]).step([ds.frames[1] for ds in scenes])
+    S.warm_keyframe(_init(scenes[0], cfg))
+    census = compile_cache_stats()
     runs = []
     for tele in (None, Telemetry.on(trace=True)):
         pool = ShardedPool([_init(ds, cfg) for ds in scenes])
         srv = SlamServer(pool, telemetry=tele)
-        census = compile_cache_stats()
         for t in (1, 2, 3):
             for i, ds in enumerate(scenes):
                 srv.submit(i, ds.frames[t])

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _shared_runs import shared
 from _torch_parity import jx, np_, th
 from repro.core import gaussians as JG
 from repro.core.camera import Intrinsics as JIntr
@@ -38,7 +39,11 @@ def _jax_perm(idx, per):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(request, tmp_path_factory):
+    return shared(request, tmp_path_factory, "torch_session_runs", _build_runs)
+
+
+def _build_runs():
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
     cfg_j = jsession.SLAMConfig(backend="ref", keyframe=JPolicy(interval=2), **CFG)
