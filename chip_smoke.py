@@ -62,7 +62,10 @@ Run from the root of a checkout.  In order, it
    7's; then [main]'s first frames
    on ``kernel_norb``, the RTGS session (pruning and downsampling, 640x448)
    on both backends and eager (``[rtgs-eager]``, equal bit for bit), and
-   the other three base algorithms with RTGS;
+   the other three base algorithms with RTGS; then ``[kf-device]``:
+   GS-SLAM and Photo-SLAM at [main]'s config, whose keyframe decisions
+   stay on the device, fused (2 dispatches, 0 syncs and 2 replays on every
+   step, keyframe or not) against eager, bit for bit;
 9. ``[scenes]``: builds desk0, stairs0 and corridor0 at 640x480 through K1
    and holds K1, K2, K4 and K5 against their plain versions on one view of
    each;
@@ -75,23 +78,25 @@ Run from the root of a checkout.  In order, it
 11. ``[serve]``: a ``SlamServer`` over a ``ShardedPool`` of S=4 stacked
     sessions on [main]'s config (room0, desk0, stairs0, corridor0, 12
     frames each, fed through ``submit`` and ``pump``; stairs0 retired after
-    its frame 6 and a fresh room1 session admitted in its slot), then S=2:
+    its frame 6 and a fresh room1 session admitted in its slot; the S=4
+    and S=2 keyframe graphs captured before, as ``PoolLadder.warmup`` does), then S=2:
     every row equals its solo run bit for bit (room0's poses hash to
     [main]'s), a tracking-only frame-step is 1 dispatch, 0 syncs and 1
-    graph replay for all rows, a keyframe frame-step adds [main]'s
-    keyframe work per keyframe row, K1/K2/K3 launch the sum of the solo
-    runs' launches and no plain version runs; prints ms per frame-step and
+    graph replay for all rows, a frame-step with keyframe rows 2 / 0 / 2
+    (one replay of the S-row keyframe graph maps them all), K1/K2/K3
+    launch the sum of the solo runs' launches and no plain version runs; prints ms per frame-step and
     aggregate frames/s at S=1, 2 and 4, capture ms and peak memory;
     ``[serve-prune]``: S=2 rows under [rtgs]'s pruning without
     downsampling, 8 frames, equal to their solo runs with the same
     boundaries; ``[sched]``: a ``PoolLadder`` of widths (1, 2, 4),
-    ``warmup``, three streams through an ``IngestWorker`` thread with one
+    ``warmup`` (each rung's tracking and S-row keyframe graphs), three streams through an ``IngestWorker`` thread with one
     migration S=1 -> S=2 while frames are queued; the runner census after
     serving equals the warmup's and every stream its solo run;
 12. ``[paged]``: PagedMap.  [main]'s config with every page in view
     (``PagedConfig(1024, 128)``) equals ``[main]`` and ``[main-sched]``
     bit for bit, with their launches and 1 / 0 / 1 and 2 / 0 / 2 counts,
-    and a 2-row pool of it its solo runs; then the reference PagedMap
+    and a 2-row pool of it its solo runs (2 / 0 / 2 per frame-step with
+    keyframe rows); then the reference PagedMap
     bench's corridor config (48x64, capacity 4096, ``PagedConfig(256,
     6)``, 24 frames) on the bench's own inputs and on the port's draw, and
     corridor0 at 640x480 (capacity 131072, ``PagedConfig(1024, 48)``),
@@ -1125,8 +1130,12 @@ RTGS_FACTORS = [4, 2, 2, 2, 2, 2, 2, 1, 4, 2, 2]   # frames 1-11, keyframe 8
 def reset_counters():
     """Every launch and plain-version counter set to 0, and every phase
     runner's count of launches made by graph replays (sessions of one
-    config share a runner across phases)."""
+    config share a runner across phases), after folding in the launches of
+    the keyframe bodies the device decided to run (one read per runner
+    that has such bodies, outside every timed window)."""
     from repro_torch.slam.session import cached_runners
+    for runner in cached_runners():
+        runner.fold_launches()
     kernels, plains = launch_counters()
     for fn in kernels.values():
         fn.launches = 0
@@ -1387,6 +1396,109 @@ def phase_algos(dev, ds, frames=6):
         require(plain_calls == 0, f"[algos] {algo} ran a plain version {plain_calls} times")
         require(np.isfinite(res.ate) and res.ate < 0.6, f"[algos] {algo} ATE {res.ate:.3f} m")
         require(res.mean_psnr > 14.0, f"[algos] {algo} PSNR {res.mean_psnr:.2f} dB <= 14")
+        out[algo] = launches
+    return out
+
+
+# [kf-device]'s policies at [main]'s config: room0's camera moves ~0.12 m a
+# frame and two frames apart differ by an RMSE of ~0.10, so both map about
+# every third frame (``tools/main_ab.py`` runs the same ones).
+KF_DEVICE = {"gsslam": dict(kind="gsslam", trans_thresh=0.3, rot_thresh=0.25),
+             "photoslam": dict(kind="photoslam", pho_thresh=0.12)}
+
+
+def phase_kf_device(dev, ds):
+    """``[kf-device]``: GS-SLAM and Photo-SLAM at [main]'s config (room0,
+    640x480, 12 frames), fused, then eager (``fused=False``, which reads
+    each keyframe flag).  Fused, every step must count 2 dispatches, 0
+    syncs and 2 replays, keyframe or not: tracking, then the keyframe
+    graph, whose mapping runs under the device's decision in a conditional
+    node.  The runs must hold keyframes and tracking-only frames and equal
+    each other bit for bit (poses, PSNR, alive counts, work, the session,
+    the launches once the device-counted ones are folded in), K1/K2/K3
+    must carry them with no plain run, ATE < 0.6 m and PSNR > 14 dB
+    ([algos]'s bounds).  Prints each run's poses digest (``tools/main_ab.py
+    --cases gsslam,photoslam`` prints the parent's), keyframes and ms per
+    tracking-only frame and keyframe; the flags are read after the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from _session_state import same_session
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import session_finalize, session_init, session_step
+
+    out = {}
+    for algo, policy in KF_DEVICE.items():
+        runs = {}
+        for fused in (True, False):
+            cfg = main_config(base_algo=algo, keyframe=KeyframePolicy(**policy), fused=fused)
+            torch.cuda.synchronize()
+            kernels, plains = reset_counters()
+            stats = EngineStats()
+            t_run = time.perf_counter()
+            sess = session_init(ds, cfg, device=dev, stats=stats)
+            torch.cuda.synchronize()
+            rows, flags = [], []
+            for idx in range(1, ds.num_frames):
+                before = dataclasses.replace(stats)
+                t0 = time.perf_counter()
+                sess, r = session_step(sess, ds.frames[idx], stats=stats)
+                torch.cuda.synchronize()
+                rows.append(((time.perf_counter() - t0) * 1e3, stats.since(before)))
+                flags.append(r.is_kf)
+            wall = time.perf_counter() - t_run
+            res = session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds.frames],
+                                   wall_time_s=wall, stats=stats)
+            require(all(isinstance(f, torch.Tensor) for f in flags),
+                    f"[kf-device] {algo}: a keyframe flag came back to the host")
+            flags = [bool(f) for f in torch.stack(flags).tolist()]
+            counts = sorted({(c.dispatches, c.syncs, c.replays) for _, c in rows})
+
+            def mean_ms(kf):
+                sel = [t for (t, c), k in zip(rows, flags) if k == kf and not c.captures]
+                return float(np.mean(sel)) if sel else float("nan")
+
+            runs[fused] = dict(
+                res=res, sess=sess, flags=flags, counts=counts,
+                launches={k: fn.launches for k, fn in kernels.items()},
+                plain_calls=sum(fn.calls for fn in plains), digest=pose_digest(res.est_w2c),
+                tracking_ms=mean_ms(False), keyframe_ms=mean_ms(True),
+                capture_ms=[round(t, 1) for t, c in rows if c.captures])
+        f, e = runs[True], runs[False]
+        same = {"poses": f["digest"] == e["digest"],
+                "PSNR": f["res"].keyframe_psnr == e["res"].keyframe_psnr,
+                "keyframes": f["flags"] == e["flags"],
+                "alive": f["res"].alive_per_frame == e["res"].alive_per_frame,
+                "work": f["res"].work == e["res"].work,
+                "session": same_session(f["sess"], e["sess"]),
+                "launches": f["launches"] == e["launches"]}
+        kfs = [i + 1 for i, k in enumerate(f["flags"]) if k]
+        res = f["res"]
+        log(f"[kf-device] {algo} {policy}, [main]'s config, {ds.num_frames} frames: keyframes "
+            f"{kfs}, poses sha256 {f['digest']}, ATE {res.ate * 100:.2f} cm, mean keyframe "
+            f"PSNR {res.mean_psnr:.2f} dB, alive {res.alive_per_frame[-1]}; fused counts per "
+            f"step {f['counts']}, eager {e['counts']}; ms per tracking-only frame / keyframe "
+            f"without a capture: fused {f['tracking_ms']:.1f} / {f['keyframe_ms']:.1f}, eager "
+            f"{e['tracking_ms']:.1f} / {e['keyframe_ms']:.1f}; fused steps that captured "
+            f"{f['capture_ms']} ms; fused equal to eager bit for bit: {same}; launches "
+            f"{f['launches']}, plain versions {f['plain_calls']}; densify pick table "
+            f"{tuple(f['sess'].kf_picks.shape)}, "
+            f"{f['sess'].kf_picks.numel() * f['sess'].kf_picks.element_size()} bytes")
+        require(f["counts"] == [(2, 0, 2)],
+                f"[kf-device] {algo} fused counts {f['counts']}, want (2, 0, 2) on every step")
+        require(all(c[1] == 1 for c in e["counts"]),
+                f"[kf-device] {algo} eager counts {e['counts']}: one flag read per step")
+        require(any(f["flags"]) and not all(f["flags"]),
+                f"[kf-device] {algo} keyframes {kfs}: no mix of keyframes and tracking frames")
+        require(all(same.values()), f"[kf-device] {algo} fused differs from eager: {same}")
+        launches = f["launches"]
+        require(all(launches[k] > 0 for k in ("K1", "K2", "K3"))
+                and launches["K3"] == launches["K2"] and f["plain_calls"] == 0,
+                f"[kf-device] {algo} launches {launches}, plain {f['plain_calls']}")
+        require(np.isfinite(res.ate) and res.ate < 0.6 and res.mean_psnr > 14.0,
+                f"[kf-device] {algo} ATE {res.ate:.3f} m, PSNR {res.mean_psnr:.2f} dB")
         out[algo] = launches
     return out
 
@@ -1715,7 +1827,8 @@ def phase_serve(dev, ds, main_launches, main_info):
     a fresh room1 session admitted in its slot; then S=2 (room0, desk0).
     Every row must equal its solo run bit for bit (room0's is [main]), a
     tracking-only frame-step must be 1 dispatch, 0 syncs and 1 replay, a
-    keyframe frame-step must add [main]'s keyframe work per keyframe row,
+    frame-step with keyframe rows must add [main]'s keyframe work once (2 /
+    0 / 2: the S-row keyframe graph maps every keyframe row in one replay),
     K1/K2/K3 must launch the sum of the solo runs' launches, no plain
     version may run, and every row's ATE must be under 0.30 m (but
     corridor0's, ``ATE_UNBOUNDED``) and its mean keyframe PSNR over 17 dB."""
@@ -1724,7 +1837,7 @@ def phase_serve(dev, ds, main_launches, main_info):
     from _session_state import same_session
     from repro_torch.slam.sched import default_decode
     from repro_torch.slam.server import ShardedPool, SlamServer
-    from repro_torch.slam.session import session_finalize, session_init
+    from repro_torch.slam.session import session_finalize, session_init, warm_keyframe
 
     cfg = main_config()
     data = {"room0": ds, **{n: make_scene(dev, n) for n in (*SERVE_SCENES[1:], "room1")}}
@@ -1735,6 +1848,15 @@ def phase_serve(dev, ds, main_launches, main_info):
             "room1": solo_run(dev, data["room1"], cfg, 12 - SERVE_RETIRE)}
     solo["room0"] = dict(sess=main_info["sess"], launches=main_launches)
     gt = {n: [f.w2c_gt for f in d.frames] for n, d in data.items()}
+
+    # The S=4 and S=2 keyframe graphs, captured before serving as
+    # ``PoolLadder.warmup`` captures them (a scratch keyframe on copies of
+    # room0's session), so that a keyframe frame-step captures nothing.
+    t0 = time.perf_counter()
+    for width in (4, 2):
+        warm_keyframe(session_init(ds, cfg, device=dev), width)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
 
     # S=4, with a retirement and an admission mid-run.
     torch.cuda.synchronize()
@@ -1767,13 +1889,13 @@ def phase_serve(dev, ds, main_launches, main_info):
     results = {n: session_finalize(sess, gt_w2c=gt[n]) for n, sess in finals.items()}
     split4 = step_split(rows)
     # [main]'s keyframe less its tracking replay (its counts hold whether or
-    # not the step captured a graph).
+    # not the step captured a graph), once per frame-step with keyframe rows.
     (kf_d, kf_s, kf_r), = main_info["counts"]["keyframe"]
     per_kf = {"dispatches": kf_d - 1, "syncs": kf_s, "replays": kf_r - 1}
     bad_counts = [r["step"] for r in rows if not r["counts"].captures and (
         (r["counts"].dispatches, r["counts"].syncs, r["counts"].replays)
-        != (1 + per_kf["dispatches"] * sum(r["kf"]), per_kf["syncs"] * sum(r["kf"]),
-            1 + per_kf["replays"] * sum(r["kf"])))]
+        != (1 + per_kf["dispatches"] * any(r["kf"]), per_kf["syncs"] * any(r["kf"]),
+            1 + per_kf["replays"] * any(r["kf"])))]
     want = {k: sum(solo[n]["launches"][k] for n in solo) for k in ("K1", "K2", "K3")}
     equal = {n: same_session(finals[n], solo[n]["sess"]) for n in solo}
     digest = pose_digest(results["room0"].est_w2c)
@@ -1781,11 +1903,13 @@ def phase_serve(dev, ds, main_launches, main_info):
         f"after frame {SERVE_RETIRE} and room1 admitted in its slot ({retired['admit_ms']:.0f} "
         f"ms, session_init included): wall {wall:.2f} s for 11 frame-steps; "
         + split_line(4, split4) + f"; keyframe steps {[r['step'] for r in rows if any(r['kf'])]} "
-        f"with {[sum(r['kf']) for r in rows if any(r['kf'])]} keyframe rows; per keyframe row "
-        f"+{per_kf['dispatches']:.0f} dispatches, +{per_kf['syncs']:.0f} syncs, "
-        f"+{per_kf['replays']:.0f} replays ([main]'s keyframe less its tracking replay)")
+        f"with {[sum(r['kf']) for r in rows if any(r['kf'])]} keyframe rows; per keyframe "
+        f"frame-step +{per_kf['dispatches']:.0f} dispatches, +{per_kf['syncs']:.0f} syncs, "
+        f"+{per_kf['replays']:.0f} replays ([main]'s keyframe less its tracking replay), "
+        "however many rows map")
     log(f"[serve] S=4 rows equal their solo runs bit for bit: {equal}; room0 poses sha256 "
-        f"{digest} ([main] {main_info['digest']}); launches {launches} against the solo "
+        f"{digest} ([main] {main_info['digest']}); the S=4 and S=2 keyframe graphs captured "
+        f"before serving in {warm_ms:.0f} ms; launches {launches} against the solo "
         f"runs' sum {want}, plain versions {plain_calls}; peak device memory "
         f"{peak_gb:.2f} GB ({peak_gb - base_gb:+.2f} GB over the {base_gb:.2f} GB held "
         f"before the pool); admin swaps {pool.admin_dispatches}; per row ATE / mean "
@@ -2245,8 +2369,8 @@ def phase_paged(dev, ds, main, sched, desk0, profile=False):
         f"runs bit for bit: {equal}; per frame-step (keyframe rows, dispatches, syncs, "
         f"replays, captures) {counts}")
     require(all(equal), f"[paged] pool rows differ from their solo runs: {equal}")
-    require(all((d, s, r) == (1 + n, 0, 1 + n) for n, d, s, r, c in counts if not c),
-            f"[paged] pool counts {counts}")
+    require(all((d, s, r) == (1 + (n > 0), 0, 1 + (n > 0)) for n, d, s, r, c in counts
+                if not c), f"[paged] pool counts {counts}")
     launches_by.update(phase_paged_corridors(dev, profile))
     return launches_by
 
@@ -2454,6 +2578,7 @@ def main(argv) -> int:
     phase_rtgs_eager(dev, ds_rtgs, rtgs)
     launches_rs = phase_rtgs_sched(dev, ds_rtgs, rtgs_res, rtgs_kfs)
     launches_a = phase_algos(dev, ds_rtgs)
+    launches_kd = phase_kf_device(dev, ds)
     launches_sp, busy = phase_sparse(dev, profile=argv == ["profile"])
     # S=1's ms in [serve]'s table: the fused turn that captured nothing.
     launches_sv, solo, serve_data, serve_host = phase_serve(
@@ -2474,6 +2599,7 @@ def main(argv) -> int:
              "norb": launches_n,
              "rtgs": launches_r, "rtgs_sched": launches_rs,
              **{f"algos_{a}": v for a, v in launches_a.items()},
+             **{f"kf_device_{a}": v for a, v in launches_kd.items()},
              "scenes": launches_sc, **launches_sp}
     meta = {
         "K1": ("tile_render_fwd", "src/repro_torch/csrc/tile_render.cu",

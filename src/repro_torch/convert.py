@@ -22,7 +22,7 @@ from repro_torch.slam import datasets as D
 from repro_torch.slam.engine import _Stage
 from repro_torch.slam.map.paged import PageTable
 from repro_torch.slam.metrics import DeviceWork
-from repro_torch.slam.session import SLAMConfig, SlamSession
+from repro_torch.slam.session import SLAMConfig, SlamSession, densify_picks
 from repro_torch.train.optimizer import AdamState
 
 
@@ -104,8 +104,8 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
     pruning state, parked churn baselines and page table included.
 
     The reference's densify PRNG key has no torch counterpart; the new
-    session draws from a generator seeded with ``seed`` (tests inject the
-    reference's permutation instead)."""
+    session's pick table is drawn on a generator seeded with ``seed``
+    (tests inject the reference's permutation instead)."""
     dev = resolve_device(device)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
@@ -125,8 +125,9 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
         kf_rgb=_t(src.kf_rgb, dev, torch.float32),
         kf_depth=_t(src.kf_depth, dev, torch.float32),
         kf_w2c=_t(src.kf_w2c, dev, torch.float32),
-        kf_count=int(src.kf_count), kf_total=int(src.kf_total),
-        last_kf_idx=int(src.last_kf_idx),
+        kf_count=_t(src.kf_count, dev, torch.int64),
+        kf_total=_t(src.kf_total, dev, torch.int64),
+        last_kf_idx=_t(src.last_kf_idx, dev, torch.int64),
         last_kf_rgb=_t(src.last_kf_rgb, dev, torch.float32),
         prev_rgb=_t(src.prev_rgb, dev, torch.float32),
         prev_depth=_t(src.prev_depth, dev, torch.float32),
@@ -135,9 +136,10 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
         work=DeviceWork(*(torch.tensor(v, dtype=torch.int64, device=dev)
                           for v in _work_totals(src.work))),
         frags=FragmentLists(*(_t(x, dev, torch.int32) for x in f)),
-        rng=rng,
+        kf_picks=densify_picks(rng, intr, cfg, int(np.shape(src.traj)[0])), rng=rng,
         tile_baselines={int(k): _t(v, dev, torch.int32)
                         for k, v in src.tile_baselines.items()},
         page=(page_table_from_numpy(src.page, dev)
               if getattr(src, "page", None) is not None else None),
+        last_kf_host=int(src.last_kf_idx) if cfg.keyframe.on_host else None,
     )

@@ -7,8 +7,13 @@ Each base algorithm keeps its own policy (§6.1):
   * Photo-SLAM  — photometric change against the last keyframe;
   * SplaTAM     — every frame.
 
-The decisions are host ``bool``s.  GS-SLAM's and Photo-SLAM's read device
-values (a pose, an image difference), which costs one sync each.
+MonoGS's and SplaTAM's decisions are host ``bool``s of the frame counts
+(:meth:`KeyframePolicy.host_decision`).  GS-SLAM's and Photo-SLAM's compare
+device values (a pose, an image difference): :meth:`KeyframePolicy.device_decision`
+is a () bool tensor, which the session computes inside its keyframe graph,
+ahead of the conditional node it gates, so nothing is read back
+(``slam/session.py``).  :meth:`KeyframePolicy.is_keyframe` reads it for a
+host caller (the §4.2 factor choice on host frames).
 """
 
 from __future__ import annotations
@@ -35,40 +40,40 @@ class KeyframePolicy:
             raise ValueError(f"unknown keyframe policy {self.kind!r}; "
                              f"known: {', '.join(KINDS)}")
 
+    @property
+    def on_host(self) -> bool:
+        """Whether the frame counts alone decide (MonoGS, SplaTAM)."""
+        return self.kind in ("monogs", "splatam")
+
     def is_keyframe(self, frame_idx: int, frames_since_kf: int,
                     cur_pose=None, last_kf_pose=None, cur_rgb=None,
                     last_kf_rgb=None) -> bool:
         """GS-SLAM needs both poses ((4, 4) w2c) and Photo-SLAM both images;
         the other policies read only the frame counts."""
-        return bool(self.keyframe_test(frame_idx, frames_since_kf, cur_pose,
-                                       last_kf_pose, cur_rgb, last_kf_rgb))
+        decision = self.host_decision(frame_idx, frames_since_kf)
+        if decision is None and (self.kind == "gsslam" or last_kf_rgb is not None):
+            decision = self.device_decision(cur_pose, last_kf_pose, cur_rgb, last_kf_rgb)
+        return decision is None or bool(decision)
 
-    def keyframe_test(self, frame_idx: int, frames_since_kf: int,
-                      cur_pose=None, last_kf_pose=None, cur_rgb=None,
-                      last_kf_rgb=None):
-        """:meth:`is_keyframe`'s decision before it is read: a host
-        ``bool``, or for GS-SLAM and Photo-SLAM a () bool tensor on the
-        device, so that a caller can read the decisions of many sessions
-        at once."""
+    def host_decision(self, frame_idx: int, frames_since_kf) -> bool | None:
+        """The decision where the frame counts make it (frame 0, MonoGS,
+        SplaTAM); ``None`` where the device decides (GS-SLAM, Photo-SLAM),
+        which needs no ``frames_since_kf``."""
         if frame_idx == 0 or self.kind == "splatam":
             return True
         if self.kind == "monogs":
             return frames_since_kf >= self.interval
+        return None
+
+    def device_decision(self, cur_pose=None, last_kf_pose=None, cur_rgb=None,
+                        last_kf_rgb=None) -> torch.Tensor:
+        """GS-SLAM's or Photo-SLAM's decision as a () bool tensor on the
+        inputs' device, read by nothing: GS-SLAM's from the pose distance,
+        Photo-SLAM's from the RMSE against the last keyframe's image."""
         if self.kind == "gsslam":
             rel = lie.se3_log(torch.as_tensor(cur_pose)
                               @ lie.se3_inverse(torch.as_tensor(last_kf_pose)))
             return ((torch.linalg.vector_norm(rel[:3]) > self.trans_thresh)
                     | (torch.linalg.vector_norm(rel[3:]) > self.rot_thresh))
-        if last_kf_rgb is None:
-            return True
         diff = torch.as_tensor(cur_rgb) - torch.as_tensor(last_kf_rgb)
         return torch.sqrt(torch.mean(diff * diff)) > self.pho_thresh
-
-
-def read_decisions(tests) -> list:
-    """Host bools of :meth:`KeyframePolicy.keyframe_test` results, with
-    every device decision among them read in one transfer."""
-    on_dev = [t for t in tests if isinstance(t, torch.Tensor)]
-    read = iter(torch.stack(on_dev).tolist() if on_dev else [])
-    return [bool(next(read)) if isinstance(t, torch.Tensor) else bool(t)
-            for t in tests]

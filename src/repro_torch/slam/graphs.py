@@ -19,6 +19,19 @@ or more iterations of a phase and returns a dict of tensors.  The
 * not ``fused`` (``SLAMConfig(fused=False)``, the oracle): the function runs
   eagerly on the caller's tensors.
 
+Conditional segments (:meth:`PhaseRunner.run_when`), the counterpart of
+the reference's ``lax.cond``: S one-row bodies, row ``s``'s under its own
+flag, a host ``bool`` or a () bool tensor that the segment computes on the
+device.  Fused on the card, each body is captured under a CUDA graph
+conditional IF node (``csrc/graph_cond.cu``: PyTorch 2.11 has no binding
+for them) on a stream of the bodies' own, with its allocations routed
+into a pool of the bodies' own, so one replay runs or skips each body
+without a read;
+on the CPU, the same function runs under ``if bool(flag)``; eager, the
+flags are read.  A body writes its ``carry`` outputs into the inputs of
+the same name, so a skipped body leaves the state as it was, and its
+per-step outputs over defaults written before its node.
+
 Static buffers and aliasing.  The runner owns each segment's input buffers:
 :meth:`PhaseRunner.run` copies the caller's tensors in with ``copy_``.
 Outputs named in ``carry`` are written back into the input of the same
@@ -32,7 +45,11 @@ Launch counters.  The kernel wrappers' ``launches`` counters are Python
 integers that only run when a kernel is launched from Python, which under
 a graph happens once, at capture.  The runner takes each counter's delta
 over the capture and adds it again on every replay (the warm-up's launches
-are taken back), so the counters stay exact through replays.
+are taken back), so the counters stay exact through replays.  A
+conditional body's delta is added at a replay where the host knows its
+flag; where the device decides, the body counts its runs in a device
+tensor, which :meth:`PhaseRunner.fold_launches` (one read) or
+``session_finalize``'s integer read folds into the counters.
 
 Units of :class:`EngineStats` (the reference's ``engine.py:96-110``):
 
@@ -44,25 +61,32 @@ Units of :class:`EngineStats` (the reference's ``engine.py:96-110``):
   pruning's fragment-list build (``_build_core``) and schedule
   (``_sched_core``), and a fired boundary's rebuild, schedule and
   ``interval_update``;
-* **sync** — one device-to-host read: GS-SLAM's and Photo-SLAM's keyframe
-  reads (``core/keyframes.py``), a fired boundary's churn read
-  (``core/pruning.py``), Photo-SLAM's host factor choice under §4.2, the
-  seed map's two frame reads and finalize's reads.  Neither a
-  fragment-list build (``core/sorting.py``) nor densification reads
-  anything back;
+* **sync** — one device-to-host read: a fired boundary's churn read
+  (``core/pruning.py``), under §4.2 Photo-SLAM's host factor choice and
+  the read of a device keyframe flag (``session.run_sequence``), an eager
+  (not fused) run's read of GS-SLAM's and Photo-SLAM's flags, the seed
+  map's two frame reads and finalize's reads.  Neither a fragment-list
+  build (``core/sorting.py``), densification nor a keyframe decision
+  reads anything back;
 * **replay** — one CUDA graph replay (0 on the CPU);
 * **capture** — one segment captured as a CUDA graph (its warm-up run and
   its capture: a session's first use of a phase at a factor and shape).
 
 The reference counts 1 dispatch and no sync per frame, because its whole
 step is one XLA program, its keyframe mapping under ``lax.cond``.  Here a
-MonoGS tracking-only frame counts 1 dispatch (the tracking replay, the
-frame's fragment-list build inside it) and no sync, and a keyframe 2
-dispatches, no sync and 2 replays: tracking, then the keyframe segment
-(the eval render, densification, the ring pushes, the window builds, the
-iterations with their stride rebuilds, the PSNR and the serving-cache
-build; ``session._map_branch``).  ``session_init``'s bootstrap mapping is
-one replay too.  When not fused a keyframe's mapping counts ``2 +
+MonoGS or SplaTAM tracking-only frame counts 1 dispatch (the tracking
+replay, the frame's fragment-list build inside it) and no sync, and a
+keyframe 2 dispatches, no sync and 2 replays: tracking, then the keyframe
+segment (the eval render, densification, the ring pushes, the window
+builds, the iterations with their stride rebuilds, the PSNR and the
+serving-cache build; ``session._keyframe_segment``).  GS-SLAM and
+Photo-SLAM count 2 / 0 / 2 on every frame: their decision is computed
+inside the keyframe graph, ahead of the conditional node it gates, so a
+tracking-only frame replays the keyframe graph with its body skipped.
+(The pose inverse and velocity between the two replays are launches, not
+syncs; folding both replays into one would need that inverse inside a
+graph with the same bits.)  ``session_init``'s bootstrap mapping is one
+replay too.  When not fused a keyframe's mapping counts ``2 +
 (W + iters_map // stride) * (1 + scheduled) + iters_map + 2`` (``W`` the
 window; ``W + scheduled + 1`` more under sparse mapping), the same kernels
 in the same order.  A fired §4.1 boundary adds
@@ -73,15 +97,15 @@ S rows (``session.step_many``).  S stacked sessions share one runner, and
 each tracking segment has an S-row form (:func:`rows_segment`): row ``s``'s
 tensors are named ``"{s}/name"`` and each row runs the solo segment's ops
 on its own tensors, so every row equals its solo run bit for bit.  The
-S-row segment is keyed by S; the keyframe segment is keyed by its shapes
-only and every keyframe row replays it in turn.  A frame-step of S rows
-counts:
+keyframe segment is S one-row conditional bodies in one graph
+(:meth:`PhaseRunner.run_when`), each under its row's flag.  Both are keyed
+by S; solo is S = 1.  A frame-step of S rows counts:
 
-* no row takes a keyframe: 1 dispatch, 0 syncs and 1 replay, for any S
-  (the S rows' fragment-list builds ride inside the one replay);
-* each keyframe row adds 1 dispatch and 1 replay (its keyframe segment)
-  and no sync;
-* GS-SLAM and Photo-SLAM read all S rows' keyframe decisions in 1 sync;
+* no row takes a keyframe, as the host knows (MonoGS, SplaTAM): 1
+  dispatch, 0 syncs and 1 replay, for any S (the S rows' fragment-list
+  builds ride inside the one replay);
+* any row may take one: 2 dispatches, 0 syncs and 2 replays, however many
+  rows map (GS-SLAM and Photo-SLAM: every frame-step);
 * with §4.1 pruning, tracking is S eager builds (and schedules) and K
   replays of a one-iteration S-row segment, plus each row's fired
   boundaries (2 dispatches and 1 sync each, 3 and 1 on ``schedule``);
@@ -92,12 +116,14 @@ counts:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels import gmu, tile_render, tile_render_bp
+from repro_torch._device import constant
+from repro_torch.kernels import _build, gmu, tile_render, tile_render_bp
 
 
 @dataclasses.dataclass
@@ -180,12 +206,69 @@ def rows_segment(fns) -> Callable[[dict], dict]:
     return fn
 
 
+_P = ctypes.c_void_p
+
+
+def _cond_lib():
+    """``csrc/graph_cond.cu``: a conditional IF node in the graph a stream
+    is capturing, and the capture of its body on a second stream."""
+    lib = _build.load("graph_cond")
+    lib.cond_begin.argtypes = [_P, _P, _P, ctypes.POINTER(_P)]
+    lib.cond_end.argtypes = [_P, _P]
+    lib.cond_stream_create.argtypes = [ctypes.POINTER(_P)]
+    for fn in (lib.cond_begin, lib.cond_end, lib.cond_stream_create):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# Per device index: the stream every conditional body is captured on and the
+# memory pool its allocations go to, shared by all runners.  Bodies replay
+# one at a time on the replaying stream, and each writes its temporaries
+# before it reads them, so they may share memory as the graphs of one pool
+# do; a body that a replay skips leaves nothing another body reads.
+_BODY: dict = {}
+
+
+def _body_stream_and_pool(device: torch.device):
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _BODY:
+        raw = _P()
+        with torch.cuda.device(index):
+            _cuda_check("creating the conditional bodies' stream",
+                        _cond_lib().cond_stream_create(ctypes.byref(raw)))
+        _BODY[index] = (torch.cuda.ExternalStream(raw.value, device=index),
+                        torch.cuda.graph_pool_handle())
+    return _BODY[index]
+
+
+def _cuda_check(what: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+def _check_like(name: str, got: torch.Tensor, buf: torch.Tensor) -> None:
+    """A body's output must fit the buffer it is written into."""
+    if got.shape != buf.shape or got.dtype != buf.dtype:
+        raise ValueError(f"segment output {name!r} is {got.dtype} {tuple(got.shape)}, "
+                         f"its buffer {buf.dtype} {tuple(buf.shape)}")
+
+
 class _Segment:
     def __init__(self, inputs: dict):
         self.inputs = {k: v.clone() for k, v in inputs.items()}
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: dict = {}
         self.deltas: tuple = ()
+        # Conditional segments (PhaseRunner.run_when): each row's flag, its
+        # per-step defaults, its body's launch deltas at capture, and the
+        # body runs of the rows the device decides, counted on the device
+        # (``runs``) and folded into the launch counters on a read.
+        self.flags: list = []
+        self.defaults: dict = {}
+        self.host_rows: tuple = ()
+        self.body_deltas: list = []
+        self.runs: Optional[torch.Tensor] = None
+        self.folded: list = []
 
 
 class PhaseRunner:
@@ -233,15 +316,156 @@ class PhaseRunner:
                 for k in carry:
                     seg.inputs[k].copy_(out[k])
             else:
-                seg.graph.replay()
+                self._replay(seg)
                 out = seg.outputs
-                for counter, d in zip(launch_counters(), seg.deltas):
-                    counter.launches += d
-                    self.replayed_launches[counter.__name__] += d
-                self.stats.replays += 1
             runs.append({k: v.clone() for k, v in out.items() if k not in carry})
             self.stats.dispatches += 1
         return {k: seg.inputs[k].clone() for k in carry}, runs
+
+    def run_when(self, key, decide: Callable[[dict], torch.Tensor],
+                 body: Callable[[dict], dict], inputs: dict, flags, carry,
+                 defaults: dict, iters: int = 1) -> list:
+        """Run one-row segment ``body`` on each row ``s`` of the S-row
+        ``inputs`` (named ``"{s}/name"``, :func:`row_names`) whose flag
+        holds: ``flags[s]`` where it is a host ``bool``, else the () bool
+        tensor ``decide`` computes from the row's inputs on the device.
+        Each row's ``carry`` outputs are written into its inputs of the
+        same name, so a skipped row keeps them; its per-step outputs (the
+        names of ``defaults``) are the body's, or ``defaults`` when it is
+        skipped.  Returns one dict per row: those values and ``"when"``,
+        the row's flag (the host ``bool``, or the device tensor).
+
+        Fused on the card, the rows are one graph: each row's decision,
+        then its defaults, then its body under a conditional IF node
+        (``csrc/graph_cond.cu``), so a run is one replay whether or not a
+        body runs and reads nothing back.  Fused on the CPU, the same
+        function runs through the same buffers under ``if bool(flag)``.
+        Not fused, the flags are read on the host (one sync for all the
+        rows the device decides) and each body that runs counts ``iters``
+        dispatches."""
+        n = len(flags)
+        if not self.fused:
+            return self._run_when_eager(decide, body, inputs, flags, carry,
+                                        defaults, iters)
+        inputs = dict(inputs)
+        for s, f in enumerate(flags):
+            if f is not None:
+                inputs[f"{s}/when"] = constant(bool(f), torch.bool, self.device)
+        full_key = ("when", key, tuple(carry), tuple(defaults), tuple(
+            (k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())))
+        seg = self._segments.get(full_key)
+        if seg is None:
+            seg = _Segment(inputs)
+            seg.defaults = {k: v.clone() for k, v in defaults.items()}
+            seg.outputs = {f"{s}/{k}": v.clone() for s in range(n)
+                           for k, v in defaults.items()}
+            seg.host_rows = tuple(f is not None for f in flags)
+            seg.flags = [None] * n
+            if self.capture:
+                self._capture_when(seg, self._when_plan(seg, decide, body, n, carry),
+                                   decide, body, n)
+            self._segments[full_key] = seg
+        for k, v in inputs.items():
+            seg.inputs[k].copy_(v)
+        if seg.graph is None:
+            self._when_plan(seg, decide, body, n, carry)(
+                lambda s, flag, fn: fn() if bool(flag) else None)
+        else:
+            self._replay(seg)
+            for s, f in enumerate(flags):
+                if f:       # a host flag: its body's launches are known now
+                    self._add_launches(seg.body_deltas[s])
+        self.stats.dispatches += 1
+        return [{**{k: seg.inputs[f"{s}/{k}"].clone() for k in carry},
+                 **{k: seg.outputs[f"{s}/{k}"].clone() for k in defaults},
+                 "when": flags[s] if flags[s] is not None else seg.flags[s].clone()}
+                for s in range(n)]
+
+    def _run_when_eager(self, decide, body, inputs, flags, carry, defaults, iters):
+        rows = [row_view(s, inputs) for s in range(len(flags))]
+        tests = {s: decide(t) for s, t in enumerate(rows) if flags[s] is None}
+        read = {}
+        if tests:
+            read = dict(zip(tests, torch.stack(list(tests.values())).tolist()))
+            self.stats.syncs += 1
+        out = []
+        for s, t in enumerate(rows):
+            if flags[s] if flags[s] is not None else read[s]:
+                res = body(t)
+                row = {k: res[k] for k in (*carry, *defaults)}
+                self.stats.dispatches += iters
+            else:
+                row = {**{k: t[k] for k in carry},
+                       **{k: v.clone() for k, v in defaults.items()}}
+            row["when"] = flags[s] if flags[s] is not None else tests[s]
+            out.append(row)
+        return out
+
+    def _when_plan(self, seg: _Segment, decide, body, n: int, carry):
+        """The rows of a conditional segment over its buffers, given
+        ``cond(s, flag, fn)``, which runs ``fn`` under ``flag``: each row's
+        decision, then its per-step defaults, then its body."""
+        def plan(cond):
+            for s in range(n):
+                t = row_view(s, seg.inputs)
+                flag = t["when"] if seg.host_rows[s] else decide(t)
+                seg.flags[s] = flag
+                for k, d in seg.defaults.items():
+                    seg.outputs[f"{s}/{k}"].copy_(d)
+
+                def run_body(s=s, t=t):
+                    out = body(t)
+                    for k in carry:
+                        _check_like(k, out[k], t[k])
+                        t[k].copy_(out[k])
+                    for k in seg.defaults:
+                        buf = seg.outputs[f"{s}/{k}"]
+                        _check_like(k, out[k], buf)
+                        buf.copy_(out[k])
+                    if seg.runs is not None and not seg.host_rows[s]:
+                        seg.runs[s:s + 1].add_(1)
+
+                cond(s, flag, run_body)
+        return plan
+
+    def _replay(self, seg: _Segment) -> None:
+        seg.graph.replay()
+        self._add_launches(seg.deltas)
+        self.stats.replays += 1
+
+    def _add_launches(self, deltas) -> None:
+        for counter, d in zip(launch_counters(), deltas):
+            counter.launches += d
+            self.replayed_launches[counter.__name__] += d
+
+    def run_counts(self) -> Optional[torch.Tensor]:
+        """The device-decided body runs of every captured conditional
+        segment, as one int64 tensor for a caller's read (``None`` if
+        there are none); :meth:`fold_run_counts` takes the values read."""
+        runs = [seg.runs for seg in self._segments.values() if seg.runs is not None]
+        return torch.cat(runs) if runs else None
+
+    def fold_run_counts(self, counts) -> None:
+        """Add the launches of the body runs counted since the last fold
+        (``counts`` read from :meth:`run_counts`) to the launch counters."""
+        counts = iter(counts)
+        for seg in self._segments.values():
+            if seg.runs is None:
+                continue
+            for s, deltas in enumerate(seg.body_deltas):
+                runs = int(next(counts))
+                for counter, d in zip(launch_counters(), deltas):
+                    counter.launches += (runs - seg.folded[s]) * d
+                    self.replayed_launches[counter.__name__] += (runs - seg.folded[s]) * d
+                seg.folded[s] = runs
+
+    def fold_launches(self) -> None:
+        """Read the device-decided body runs (one sync, if any) and fold
+        their launches into the launch counters."""
+        counts = self.run_counts()
+        if counts is not None:
+            self.fold_run_counts(counts.tolist())
+            self.stats.syncs += 1
 
     def _segment(self, key, fn, inputs: dict, carry) -> _Segment:
         full_key = (key, tuple(carry), tuple(
@@ -268,10 +492,8 @@ class PhaseRunner:
                 torch.cuda.current_stream().wait_stream(side)
                 for c, b in zip(counters, before):
                     c.launches = b
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool):
+                with torch.cuda.graph(graph, pool=self._graph_pool()):
                     out = fn(seg.inputs)
                     for k in carry:
                         seg.inputs[k].copy_(out[k])
@@ -280,4 +502,70 @@ class PhaseRunner:
             for c, b in zip(counters, before):
                 c.launches = b
         seg.graph, seg.outputs = graph, out
+        self.stats.captures += 1
+
+    def _graph_pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _capture_when(self, seg: _Segment, plan, decide, body, n: int) -> None:
+        """Capture a conditional segment: one warm-up run of every row's
+        decision and body on the body stream (which makes the lazily built
+        buffers, the body stream's cuBLAS workspace among them), then the
+        graph.  Each body is captured on the body stream into its IF node's
+        body graph, its allocations routed into the bodies' pool
+        (:data:`_BODY`): only bodies allocate there, so nothing outside a
+        body shares their memory."""
+        counters = launch_counters()
+        before = [c.launches for c in counters]
+        lib = _cond_lib()
+        bs, body_pool = _body_stream_and_pool(self.device)
+
+        def cond(s, flag, fn):
+            mid = [c.launches for c in counters]
+            cs, dev_index = torch.cuda.current_stream(), torch.cuda.current_device()
+            body_graph = _P()
+            _cuda_check("opening a conditional node", lib.cond_begin(
+                cs.cuda_stream, flag.data_ptr(), bs.cuda_stream, ctypes.byref(body_graph)))
+            try:
+                with torch.cuda.stream(bs):
+                    torch._C._cuda_beginAllocateCurrentStreamToPool(dev_index, body_pool)
+                    try:
+                        fn()
+                    finally:
+                        torch._C._cuda_endAllocateToPool(dev_index, body_pool)
+            except BaseException:
+                # The body's error is the one raised; its node stays empty.
+                lib.cond_end(bs.cuda_stream, body_graph)
+                raise
+            _cuda_check("closing a conditional node",
+                        lib.cond_end(bs.cuda_stream, body_graph))
+            seg.body_deltas.append(tuple(c.launches - m for c, m in zip(counters, mid)))
+            for c, m in zip(counters, mid):
+                c.launches = m
+
+        try:
+            with torch.cuda.device(self.device):
+                bs.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(bs):
+                    for s in range(n):
+                        t = row_view(s, seg.inputs)
+                        if not seg.host_rows[s]:
+                            decide(t)
+                        body(t)
+                torch.cuda.current_stream().wait_stream(bs)
+                for c, b in zip(counters, before):
+                    c.launches = b
+                if not all(seg.host_rows):
+                    seg.runs = torch.zeros((n,), dtype=torch.int64, device=self.device)
+                    seg.folded = [0] * n
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._graph_pool()):
+                    plan(cond)
+            seg.deltas = tuple(c.launches - b for c, b in zip(counters, before))
+        finally:
+            for c, b in zip(counters, before):
+                c.launches = b
+        seg.graph = graph
         self.stats.captures += 1

@@ -110,13 +110,13 @@ class PoolLadder:
     def warmup(self) -> dict:
         """Capture every segment a serving step can reach: each rung's
         S-row tracking graph (one blank-frame step; with pruning, the
-        one-iteration graph) and one template swap, then the mapping
-        graphs of a keyframe (a scratch keyframe on a copy of the
-        template: the dense graphs, or the sparse ones under
-        ``cfg.sparse_opt``; the window fill is a device tensor, so they
-        serve every fill).  Waits for the card, then resets the dispatch
-        counters so warmup never pollutes the measured dispatches per
-        frame-step.  Returns the post-warmup
+        one-iteration graph) and one template swap, then each rung's S-row
+        keyframe graph (``warm_keyframe`` on S copies of the template: the
+        dense graph, or the sparse one under ``cfg.sparse_opt``; the window
+        fill and the rows' flags are device values, so it serves every fill
+        and every mix of keyframe rows).  Waits for the card, then resets
+        the dispatch counters so warmup never pollutes the measured
+        dispatches per frame-step.  Returns the post-warmup
         :func:`~repro_torch.slam.server.compile_cache_stats` census — the
         baseline the zero-capture gate compares against."""
         from repro_torch.slam.server import compile_cache_stats
@@ -129,8 +129,9 @@ class PoolLadder:
             rung.pool.stats = EngineStats()
             rung.pool.admin_dispatches = 0
             rung.server.stats = ServeStats()
-        with self.tele.span("warmup", group="keyframe"):
-            warm_keyframe(self.template)
+        for rung in self.rungs:
+            with self.tele.span("warmup", group=rung.name):
+                warm_keyframe(self.template, rung.width)
         dev = self.template.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

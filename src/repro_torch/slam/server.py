@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch._device import constant
 from repro_torch.obs import Stopwatch, Telemetry, now_s, telemetry_or_off
 from repro_torch.slam import session as S
 from repro_torch.slam.session import (
@@ -345,7 +346,8 @@ class ServeStats:
     queue_wait_s: float = 0.0      # total enqueue->dispatch latency
     stage_s: float = 0.0           # host time staging batches
     blank_row_steps: int = 0       # free slots stepped on blank frames
-    blank_keyframes: int = 0       # ... and the keyframes they took
+    blank_keyframes: int = 0       # ... and the keyframes they took (the
+                                   # device-decided ones as of the last drain)
 
     @property
     def queue_wait_ms_per_frame(self) -> float:
@@ -404,6 +406,9 @@ class SlamServer:
                             for shape in ((intr.height, intr.width, 3),
                                           (intr.height, intr.width)))
         self.last_result: Optional[StepResult] = None
+        # Keyframes of free slots that the device decided, summed on the
+        # device and folded into ``stats`` at the next drain's read.
+        self._blank_keyframes_dev: Optional[torch.Tensor] = None
 
     # -- introspection -----------------------------------------------------
 
@@ -499,7 +504,7 @@ class SlamServer:
                 self.last_result = self.pool.step(obs)
             free = self.free_slots()
             self.stats.blank_row_steps += len(free)
-            self.stats.blank_keyframes += sum(self.last_result.is_kf[s] for s in free)
+            self._count_blank_keyframes(free)
             self.tele.count("dispatches", kind="step", **self._glab)
             t1 = now_s()
             for s, t_enq, _ in popped:
@@ -510,13 +515,30 @@ class SlamServer:
             steps += 1
         return steps
 
+    def _count_blank_keyframes(self, free: List[int]) -> None:
+        """Add the free slots' keyframes of the last step: host flags now,
+        device flags (GS-SLAM, Photo-SLAM) on the device, without a read."""
+        is_kf = self.last_result.is_kf
+        if not isinstance(is_kf, torch.Tensor):
+            self.stats.blank_keyframes += sum(is_kf[s] for s in free)
+            return
+        mask = constant([s in free for s in range(self.pool.size)], torch.bool,
+                        is_kf.device)
+        taken = (is_kf & mask).sum()
+        self._blank_keyframes_dev = (taken if self._blank_keyframes_dev is None
+                                     else self._blank_keyframes_dev + taken)
+
     def drain(self) -> None:
         """Pump the remaining ready batches, then block until the card has
-        finished every step in flight."""
+        finished every step in flight; the same read folds the free slots'
+        device-decided keyframes into ``stats.blank_keyframes``."""
         self.pump()
         with self.tele.span("drain"):
             if self.pool.device.type == "cuda":
                 torch.cuda.synchronize(self.pool.device)
+            if self._blank_keyframes_dev is not None:
+                self.stats.blank_keyframes += int(self._blank_keyframes_dev)
+                self._blank_keyframes_dev = None
         self.pool.stats.syncs += 1
         self.tele.count("syncs")
 

@@ -14,8 +14,9 @@
 
 Scaling up, :func:`step_many` steps S stacked sessions
 (:func:`stack_sessions`) in lockstep through the phase runner they share:
-a frame-step in which no row takes a keyframe is one CUDA graph replay
-for all S rows, and each row equals its solo run bit for bit.
+the S rows' tracking is one CUDA graph replay, their keyframe branches a
+second one (skipped when the host knows no row maps), and each row equals
+its solo run bit for bit.
 :class:`SessionPool` is the host wrapper that admits and retires sessions
 by swapping rows.
 
@@ -32,16 +33,23 @@ captures nothing), and
 ``fused=False`` runs them eagerly, one iteration after another, as the
 oracle.  Both run the same kernels on the same inputs in the same order,
 so they agree bit for bit.  A keyframe's whole mapping work (densify,
-the ring pushes, the mapping phase, the PSNR and the serving-cache build)
-is one segment, as the reference's ``lax.cond`` branch is one part of its
-step, so a MonoGS keyframe is two replays and no sync.  The other
+the ring pushes, the mapping phase, the PSNR and its log, the
+serving-cache build and the keyframe counters) is one conditional body,
+as the reference's ``lax.cond`` branch is one part of its step: a graph
+replay runs it or skips it on a device flag.  MonoGS and SplaTAM decide
+on host integers (the frame index against a host mirror of the last
+keyframe's), so their tracking-only frame skips that replay; GS-SLAM and
+Photo-SLAM decide inside the keyframe graph, on the device, so each of
+their frames is two replays and reads nothing back.  The keyframe
+counters, the last keyframe's index and image and the PSNR log are
+device tensors, and the densify picks are drawn ahead at init into a
+table the body indexes (nothing inside a graph may draw).  The other
 ``lax.cond`` branches are host ``if``s on host integers (frame index,
-keyframe ring fill, the pruning interval clock), which costs no device
-sync.  GS-SLAM's and Photo-SLAM's keyframe decisions read one device
-value each per frame and a fired pruning boundary reads one.  ``stats=`` (an
+the pruning interval clock); a fired pruning boundary reads one device
+value.  ``stats=`` (an
 :class:`~repro_torch.slam.graphs.EngineStats`) counts dispatches, syncs
 and graph replays, as the reference counts its dispatches and syncs.  A
-step writes the session's trajectory, PSNR and alive logs in place and
+step writes the session's trajectory and alive logs in place and
 returns the advanced session: the session passed in is consumed, as the
 reference's donated buffers are.
 
@@ -65,7 +73,7 @@ from repro_torch.core.camera import Intrinsics
 from repro_torch.core.downsample import (
     DownsampleConfig, downsample_depth, downsample_image, side_factor,
 )
-from repro_torch.core.keyframes import KeyframePolicy, read_decisions
+from repro_torch.core.keyframes import KeyframePolicy
 from repro_torch.core.losses import psnr as psnr_dev
 from repro_torch.core.pruning import PruneConfig, PruneState
 from repro_torch.core.sorting import FragmentLists, remap_fragment_rows
@@ -147,10 +155,11 @@ class SLAMResult:
 
 class StepResult(NamedTuple):
     """One step's results; :func:`step_many` stacks them along a leading
-    S axis, with ``is_kf`` a tuple of S bools."""
+    S axis, with ``is_kf`` a tuple of S bools or an (S,) bool tensor."""
 
     pose: torch.Tensor          # (4, 4) estimated w2c after tracking
-    is_kf: bool
+    is_kf: object               # a host bool (MonoGS, SplaTAM) or a () bool
+                                # tensor on the device (GS-SLAM, Photo-SLAM)
     psnr: torch.Tensor          # () post-mapping PSNR (NaN if not a keyframe)
     alive: torch.Tensor         # () alive Gaussians after the frame
     work: DeviceWork            # this frame's work
@@ -175,9 +184,9 @@ class SlamSession:
     kf_rgb: torch.Tensor        # (W, H, Wd, 3) keyframe ring, oldest first
     kf_depth: torch.Tensor      # (W, H, Wd)
     kf_w2c: torch.Tensor        # (W, 4, 4)
-    kf_count: int               # populated ring slots (<= W)
-    kf_total: int               # keyframes so far
-    last_kf_idx: int
+    kf_count: torch.Tensor      # () int64 populated ring slots (<= W)
+    kf_total: torch.Tensor      # () int64 keyframes so far
+    last_kf_idx: torch.Tensor   # () int64
     last_kf_rgb: torch.Tensor   # (H, Wd, 3) for the photoslam policy
     prev_rgb: torch.Tensor      # (H, Wd, 3) previous frame (photoslam
     prev_depth: torch.Tensor    # (H, Wd)     geometric tracking)
@@ -185,12 +194,18 @@ class SlamSession:
     alive_log: torch.Tensor     # (F,) int64
     work: DeviceWork            # run-cumulative counters (int64)
     frags: FragmentLists        # lists of the map at the last keyframe pose
-    rng: torch.Generator        # densify draws
+    kf_picks: torch.Tensor      # (F, 2P) int64 densify picks drawn ahead:
+                                # row k is the pick of the (k+1)-th keyframe
+                                # after init (densify_picks)
+    rng: torch.Generator        # drew kf_picks
     tile_baselines: dict        # {num_tiles: (T,) i32} §4.1 churn baselines
                                 # parked across §4.2 factor switches
     page: Optional[PageTable] = None    # PagedMap's table (None unless
                                 # cfg.paged); map_opt's rows are then the
                                 # view's
+    last_kf_host: Optional[int] = None  # last_kf_idx on the host where the
+                                # policy decides from frame counts (MonoGS,
+                                # SplaTAM); None where the device decides
 
     batch = None                # a solo session (SessionStack.batch is S)
 
@@ -314,6 +329,15 @@ def _densify_perm(rng: torch.Generator, intr: Intrinsics, cfg: SLAMConfig):
     (fewer on a frame of fewer pixels), drawn on the session's generator."""
     n = min(2 * cfg.densify_per_kf, intr.height * intr.width)
     return torch.randperm(n, generator=rng, device=rng.device)
+
+
+def densify_picks(rng: torch.Generator, intr: Intrinsics, cfg: SLAMConfig,
+                  rows: int) -> torch.Tensor:
+    """The densify picks of a session's first ``rows`` keyframes after
+    init, drawn ahead on its generator in the order the keyframes take
+    them: nothing inside a graph may draw, and which keyframe a frame is
+    may be known only on the device.  (rows, 2P) int64."""
+    return torch.stack([_densify_perm(rng, intr, cfg) for _ in range(rows)])
 
 
 def _densify_core(g: G.GaussianField, rgb, depth, rendered, w2c,
@@ -444,16 +468,22 @@ def session_init(dataset, cfg: SLAMConfig, *, max_frames: Optional[int] = None,
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
     _charge(stats, runner, before)
+
+    def count(v):
+        return torch.full((), v, dtype=torch.int64, device=dev)
+
     return SlamSession(
         cfg=cfg, intr=intr, stages=stages, g=g, map_opt=map_opt,
         pstate=pstate, masked=masked,
         pose=pose0, velocity=torch.eye(4, dtype=torch.float32, device=dev),
         traj=traj, frame_idx=1, kf_rgb=kf_rgb, kf_depth=kf_depth,
-        kf_w2c=kf_w2c, kf_count=1, kf_total=1, last_kf_idx=0,
+        kf_w2c=kf_w2c, kf_count=count(1), kf_total=count(1), last_kf_idx=count(0),
         last_kf_rgb=rgb0, prev_rgb=rgb0, prev_depth=depth0,
         kf_psnr=kf_psnr, alive_log=alive_log, work=unflat(boot, "work", DeviceWork),
-        frags=unflat(boot, "frags", FragmentLists), rng=rng,
-        tile_baselines=tile_baselines, page=page)
+        frags=unflat(boot, "frags", FragmentLists),
+        kf_picks=densify_picks(rng, intr, cfg, num_f), rng=rng,
+        tile_baselines=tile_baselines, page=page,
+        last_kf_host=0 if cfg.keyframe.on_host else None)
 
 
 def _adam_of(t: dict) -> AdamState:
@@ -487,13 +517,17 @@ def _boot_segment(st: _Stage):
 
 
 def _keyframe_segment(st: _Stage, sparse: bool):
-    """A keyframe's mapping work over the tensors :func:`_map_branch`
+    """A keyframe's mapping work over the tensors :func:`_keyframe_inputs`
     names, in the order of the reference's ``map_branch``
     (``repro/slam/session.py:552-611``): the eval render at the tracked
-    pose, densification, under ``sparse`` the newcomers' stability reset,
-    a fresh map Adam state, the three ring pushes at the device fill
-    ``kf_count``, the mapping phase, its PSNR and the serving-cache build
-    (dense: renders from outside see the whole map).
+    pose, densification (the pick of the caller's ``perm``, else row
+    ``kf_total - 1`` of the session's ``picks``), under ``sparse`` the
+    newcomers' stability reset, a fresh map Adam state, the three ring
+    pushes at the device fill ``kf_count``, the mapping phase, its PSNR
+    (written to the log at ``kf_total``; past the log the write is dropped,
+    as the reference's out-of-range update is) and the serving-cache build
+    (dense: renders from outside see the whole map); then the keyframe
+    counters, ``last_kf_idx`` and ``last_kf_rgb``.
 
     In paged mode (``cfg.paged``) all of it runs on the frame's working set
     (the input ``view_idx`` from tracking), as the reference's step does
@@ -507,15 +541,22 @@ def _keyframe_segment(st: _Stage, sparse: bool):
 
     def fn(t):
         g, masked, pose = unflat(t, "g", G.GaussianField), t["masked"], t["pose"]
+        count, total = t["kf_count"], t["kf_total"]
         leaves = {k: t[k] for k in leaf_names}
         if paged:
             view_idx = t["view_idx"]
             g = pagedmap.gather_field(g, view_idx)
             masked = masked.index_select(0, view_idx)
             leaves = {k: v.index_select(0, view_idx) for k, v in leaves.items()}
+        if "perm" in t:
+            perm = t["perm"]
+        else:
+            picks = t["picks"]
+            perm = picks.index_select(
+                0, (total - 1).clamp(0, picks.shape[0] - 1).reshape(1))[0]
         rendered = st._render_eval_core(g, masked, pose)
         g2, dropped = _densify_core(g, t["rgb"], t["depth"], rendered, pose, intr,
-                                    cfg, None, t["perm"], c2w=t["c2w"])
+                                    cfg, None, perm, c2w=t["c2w"])
         stable = None
         if sparse:
             ema, age, stable = pruning.reset_born(
@@ -524,15 +565,14 @@ def _keyframe_segment(st: _Stage, sparse: bool):
             leaves = {"p.grad_ema": ema, "p.age": age, "p.stable": stable}
         g = g2
         opt0 = Adam(lr=cfg.lr_map).init(G.params_of(g))
-        count = t["kf_count"]
         ring = {k: _push_ring(t[k], row, count)
                 for k, row in (("kf_rgb", t["rgb"]), ("kf_depth", t["depth"]),
                                ("kf_w2c", pose))}
+        filled = torch.clamp(count + 1, max=cfg.map_window)
         with torch.enable_grad():
             g, opt, work, losses, image = st._map_scan_masked(
                 g, masked, opt0, ring["kf_w2c"], ring["kf_rgb"], ring["kf_depth"],
-                torch.clamp(count + 1, max=cfg.map_window),
-                device_work_zero(st.device), stable)
+                filled, device_work_zero(st.device), stable)
         # The densify-eval render above and the serving-cache build below
         # each build one fragment list over g's rows.
         work = work._replace(densify_dropped=work.densify_dropped + dropped,
@@ -547,58 +587,93 @@ def _keyframe_segment(st: _Stage, sparse: bool):
             # from nursery pages to their Morton page.  Between keyframes the
             # table only over-covers (pruning shrinks pages, never grows them).
             out = flat("page", pagedmap.build_page_table(g, cfg.paged))
+        psnr = psnr_dev(image, t["rgb"])
+        log = t["kf_psnr"]
+        at = total.clamp(max=log.shape[0] - 1).reshape(1)
+        log = log.index_copy(0, at, torch.where(total < log.shape[0], psnr.reshape(1),
+                                                log.index_select(0, at)))
         return {**out, **leaves, **ring, **flat("g", g), **flat("opt", opt),
-                **flat("work", work), "losses": losses,
-                "psnr": psnr_dev(image, t["rgb"]), **flat("frags", frags)}
+                **flat("work", work), "losses": losses, "psnr": psnr,
+                **flat("frags", frags), "kf_count": filled, "kf_total": total + 1,
+                "kf_psnr": log, "last_kf_idx": t["idx"], "last_kf_rgb": t["rgb"]}
 
     return fn
 
 
-@torch.no_grad()
-def _map_branch(sess: SlamSession, g, masked, rgb, depth, new_pose, perm,
-                view_idx=None):
-    """A keyframe's mapping work as one run of the keyframe segment: one
-    graph replay when fused on the card.  The host passes in what it knows
-    without a read (the ring fill, as a () device tensor) and what must not
-    run inside a graph: the densify pick, drawn on the session's generator
-    (so a capture's warm-up run draws nothing and the generator ends where
-    an eager run leaves it), and the tracked pose's inverse.  In paged
-    mode ``view_idx`` is the frame's working set (tracking's).  Returns
-    ``(session, work, map losses, PSNR)``."""
-    cfg, st, dev = sess.cfg, sess.stage, sess.device
-    sparse = cfg.sparse_opt
-    if perm is None:
-        perm = _densify_perm(sess.rng, sess.intr, cfg)
-    inputs = {**flat("g", g), "masked": masked, "rgb": rgb, "depth": depth,
-              "pose": new_pose, "c2w": torch.linalg.inv_ex(new_pose).inverse,
-              "perm": perm.to(dev), "kf_rgb": sess.kf_rgb, "kf_depth": sess.kf_depth,
-              "kf_w2c": sess.kf_w2c,
-              "kf_count": torch.full((), sess.kf_count, dtype=torch.int64, device=dev)}
+# The session state a keyframe writes (the keyframe segment's carry): its
+# map and Adam state, serving cache, page table and stability leaves (the
+# names under these prefixes), and these.
+_KF_STATE = ("kf_rgb", "kf_depth", "kf_w2c", "kf_count", "kf_total", "kf_psnr",
+             "last_kf_idx", "last_kf_rgb")
+_KF_STATE_PREFIXES = ("g.", "opt.", "frags.", "page.", "p.")
+
+
+def _keyframe_inputs(sess: SlamSession, g, masked, pstate, rgb, depth, pose,
+                     view_idx, perm) -> dict:
+    """One row's inputs of the keyframe segment: the tracked map, the
+    frame, the tracked pose and what must not run inside a graph, its
+    inverse; the session's keyframe state; the densify pick (the caller's
+    ``perm``, else the session's pick table) and the frame index."""
+    cfg, dev = sess.cfg, sess.device
+    t = {**flat("g", g), **flat("opt", sess.map_opt), **flat("frags", sess.frags),
+         "masked": masked, "rgb": rgb, "depth": depth, "pose": pose,
+         "c2w": torch.linalg.inv_ex(pose).inverse, "kf_rgb": sess.kf_rgb,
+         "kf_depth": sess.kf_depth, "kf_w2c": sess.kf_w2c, "kf_count": sess.kf_count,
+         "kf_total": sess.kf_total, "kf_psnr": sess.kf_psnr,
+         "last_kf_idx": sess.last_kf_idx, "last_kf_rgb": sess.last_kf_rgb,
+         "idx": torch.full((), sess.frame_idx, dtype=torch.int64, device=dev)}
+    if perm is not None:
+        t["perm"] = perm.to(dev)
+    else:
+        t["picks"] = sess.kf_picks
     if cfg.paged is not None:
-        inputs["view_idx"] = view_idx
-    pstate = sess.pstate
-    if sparse:
-        inputs.update({"p.grad_ema": pstate.grad_ema, "p.age": pstate.age,
-                       "p.stable": pstate.stable})
+        t.update(view_idx=view_idx, **flat("page", sess.page))
+    if cfg.sparse_opt:
+        t.update({"p.grad_ema": pstate.grad_ema, "p.age": pstate.age,
+                  "p.stable": pstate.stable})
+    return t
+
+
+def _kf_decision(kp: KeyframePolicy):
+    """GS-SLAM's and Photo-SLAM's decision on one row's keyframe inputs:
+    the pose distance to the newest ring pose, or the RMSE against the
+    last keyframe's image (``repro/slam/session.py:461-470, 538-545``)."""
+    def decide(t):
+        if kp.kind == "gsslam":
+            last = t["kf_w2c"].index_select(0, (t["kf_count"] - 1).reshape(1))[0]
+            return kp.device_decision(cur_pose=t["pose"], last_kf_pose=last)
+        return kp.device_decision(cur_rgb=t["rgb"], last_kf_rgb=t["last_kf_rgb"])
+    return decide
+
+
+@torch.no_grad()
+def _keyframe_rows(rows: List[SlamSession], gs, masks, pstates, obs, poses,
+                   view_idxs, perms, flags) -> List[dict]:
+    """The keyframe branch of S rows (one device, config and runner) as one
+    run of the S-row keyframe segment: one graph replay when fused on the
+    card, in which row ``s``'s mapping work runs under its flag
+    (``flags[s]``, the host's decision, or ``None``: the device's,
+    :func:`_kf_decision`), as the reference's ``lax.cond`` runs its
+    ``map_branch``.  Returns each row's keyframe state (carried through
+    when its flag is False), work, map losses, PSNR and flag."""
+    cfg, st, dev = rows[0].cfg, rows[0].stage, rows[0].device
+    sparse = cfg.sparse_opt
+    inputs = {}
+    for s, (sess, g, masked, pstate, (rgb, depth), pose, view_idx, perm) in enumerate(
+            zip(rows, gs, masks, pstates, obs, poses, view_idxs, perms)):
+        inputs.update(row_names(s, _keyframe_inputs(sess, g, masked, pstate, rgb, depth,
+                                                    pose, view_idx, perm)))
+    carry = [k for k in row_view(0, inputs)
+             if k in _KF_STATE or k.startswith(_KF_STATE_PREFIXES)]
+    defaults = {**flat("work", device_work_zero(dev)),
+                "losses": torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev),
+                "psnr": torch.full((), float("nan"), dtype=torch.float32, device=dev)}
     # Eager, a keyframe counts densify's eval render, densify, the mapping
     # phase's calls and the serving-cache build.
-    _, (out,) = sess.runner.run(
-        ("keyframe", cfg.backend, sparse), _keyframe_segment(st, sparse), inputs,
+    return rows[0].runner.run_when(
+        ("keyframe", cfg.backend, sparse, len(rows)), _kf_decision(cfg.keyframe),
+        _keyframe_segment(st, sparse), inputs, flags, carry, defaults,
         iters=2 + st._map_dispatches(sparse) + 1)
-    if sparse:
-        pstate = pstate._replace(grad_ema=out["p.grad_ema"], age=out["p.age"],
-                                 stable=out["p.stable"])
-    # Past the log (a free serving slot) the write is dropped, as the
-    # reference's out-of-range updates are.
-    if sess.kf_total < sess.kf_psnr.shape[0]:
-        sess.kf_psnr[sess.kf_total] = out["psnr"]
-    return sess.replace(
-        g=unflat(out, "g", G.GaussianField), map_opt=_adam_of(out), pstate=pstate,
-        kf_rgb=out["kf_rgb"], kf_depth=out["kf_depth"], kf_w2c=out["kf_w2c"],
-        kf_count=min(sess.kf_count + 1, cfg.map_window), kf_total=sess.kf_total + 1,
-        frags=unflat(out, "frags", FragmentLists),
-        page=(unflat(out, "page", PageTable) if cfg.paged is not None else None)), \
-        unflat(out, "work", DeviceWork), out["losses"], out["psnr"]
 
 
 def _maybe_retile(sess: SlamSession, factor: int) -> SlamSession:
@@ -662,25 +737,21 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
     """One step of each session of ``rows`` (one device, config and
     runner), each on its own ``(rgb, depth)`` of ``obs``: the solo step's
     work for every row, with the S rows' tracking as one run of an S-row
-    segment and every device keyframe decision read in one transfer.
-    Returns the advanced sessions and their step results."""
+    segment and their keyframe branches as one run of the S-row keyframe
+    segment, each row's under its own flag.  MonoGS and SplaTAM decide on
+    the host from the frame counts (a step the host knows has no keyframe
+    row skips the keyframe segment); GS-SLAM and Photo-SLAM inside the
+    keyframe segment, on the device.  Returns the advanced sessions and
+    their step results."""
     runner = rows[0].runner
     before = dataclasses.replace(runner.stats)
     rows = [_maybe_retile(sess, factor) for sess in rows]
     cfg, dev, kp = rows[0].cfg, rows[0].device, rows[0].cfg.keyframe
     perms = perms if perms is not None else [None] * len(rows)
     idxs = [sess.frame_idx for sess in rows]
-    since = [sess.frame_idx - sess.last_kf_idx for sess in rows]
-
-    # GS-SLAM decides after tracking; the others before it.
-    pre_kf = [kp.kind != "gsslam" and kp.keyframe_test(
-        i, d, cur_rgb=rgb, last_kf_rgb=sess.last_kf_rgb)
-        for sess, i, d, (rgb, _) in zip(rows, idxs, since, obs)]
-    if kp.kind in ("gsslam", "photoslam"):
-        pre_kf = read_decisions(pre_kf)
-        runner.count(dispatches=0, syncs=1)     # the policy's device reads
-    else:
-        pre_kf = [bool(x) for x in pre_kf]
+    flags = [kp.host_decision(i, None if sess.last_kf_host is None
+                              else i - sess.last_kf_host)
+             for sess, i in zip(rows, idxs)]
 
     # Each row's (xi, work, losses, fired, view_idx); pruning also changes
     # g and pstate.  In paged mode ``view_idx`` is the frame's working set,
@@ -723,29 +794,37 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
         if i < sess.max_frames:
             sess.traj[i] = p
 
-    if kp.kind == "gsslam":
-        is_kfs = read_decisions([
-            kp.keyframe_test(i, d, cur_pose=p, last_kf_pose=sess.kf_w2c[sess.kf_count - 1])
-            for sess, i, d, p in zip(rows, idxs, since, new_poses)])
+    masks = [pstate.masked if pstate is not None else sess.masked
+             for sess, pstate in zip(rows, pstates)]
+    if any(f is not False for f in flags):
+        kf_out = _keyframe_rows(rows, gs, masks, pstates, obs, new_poses,
+                                [t[4] for t in tracked], perms, flags)
     else:
-        is_kfs = pre_kf
+        kf_out = [None] * len(rows)
 
     out_rows, results = [], []
-    for sess, i, (rgb, depth), g, pstate, (_, work_t, track_losses, fired, view_idx), \
-            new_pose, velocity, is_kf, perm in zip(
-                rows, idxs, obs, gs, pstates, tracked, new_poses, velocities,
-                is_kfs, perms):
-        masked = pstate.masked if pstate is not None else sess.masked
+    for sess, i, (rgb, depth), g, pstate, (_, work_t, track_losses, fired, _), \
+            new_pose, velocity, kf in zip(rows, idxs, obs, gs, pstates, tracked,
+                                          new_poses, velocities, kf_out):
         sess = sess.replace(pstate=pstate)
-        if is_kf:
-            sess, work_m, map_losses, psnr_v = _map_branch(
-                sess, g, masked, rgb, depth, new_pose, perm, view_idx)
-            sess = sess.replace(last_kf_idx=i, last_kf_rgb=rgb)
-        else:
+        if kf is None:
             sess = sess.replace(g=g)
-            work_m = device_work_zero(dev)
+            is_kf, work_m = False, device_work_zero(dev)
             map_losses = torch.zeros((cfg.iters_map,), dtype=torch.float32, device=dev)
             psnr_v = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+        else:
+            if cfg.sparse_opt:
+                sess = sess.replace(pstate=pstate._replace(
+                    grad_ema=kf["p.grad_ema"], age=kf["p.age"], stable=kf["p.stable"]))
+            is_kf, work_m = kf["when"], unflat(kf, "work", DeviceWork)
+            map_losses, psnr_v = kf["losses"], kf["psnr"]
+            sess = sess.replace(
+                g=unflat(kf, "g", G.GaussianField), map_opt=_adam_of(kf),
+                frags=unflat(kf, "frags", FragmentLists),
+                page=unflat(kf, "page", PageTable) if paged else None,
+                **{k: kf[k] for k in _KF_STATE})
+        if sess.last_kf_host is not None and is_kf:
+            sess = sess.replace(last_kf_host=i)
 
         alive_now = sess.g.alive.sum()
         if i < sess.max_frames:
@@ -781,23 +860,32 @@ def session_finalize(sess: SlamSession, gt_w2c=None, *,
                      wall_time_s: float = 0.0,
                      stats: Optional[EngineStats] = None) -> SLAMResult:
     """Fetch the session's logs (two reads: the float logs, the integer
-    ones) and assemble a :class:`SLAMResult`.  On the card's WSU path it
-    also reads the scheduled kernels' fault word."""
+    ones with the keyframe count) and assemble a :class:`SLAMResult`.  The
+    integer read also takes the runner's device counts of keyframe bodies
+    run, which it folds into the kernel launch counters.  On the card's WSU
+    path it also reads the scheduled kernels' fault word."""
     if sess.batch is not None:
         raise ValueError("session_finalize takes a solo session; copy a row "
                          "out of a stack with session_row first")
     runner = sess.runner
     before = dataclasses.replace(runner.stats)
-    n, n_kf = sess.frame_idx, sess.kf_total
+    n = sess.frame_idx
     if sess.stage.scheduled and sess.device.type == "cuda":
         raise_on_sched_fault(sess.device)
         runner.count(dispatches=0, syncs=1)
     removed = (sess.pstate.removed if sess.pstate is not None
                else torch.zeros((), dtype=torch.int64, device=sess.device))
-    floats = torch.cat([sess.traj[:n].reshape(-1), sess.kf_psnr[:n_kf]]).cpu()
+    runs = runner.run_counts()
+    runs = runs if runs is not None else torch.zeros((0,), dtype=torch.int64,
+                                                     device=sess.device)
+    floats = torch.cat([sess.traj[:n].reshape(-1), sess.kf_psnr]).cpu()
     ints = torch.cat([sess.alive_log[:n], torch.stack(list(sess.work)),
-                      removed.reshape(1).to(torch.int64)]).cpu().tolist()
+                      removed.reshape(1).to(torch.int64), sess.kf_total.reshape(1),
+                      runs]).cpu().tolist()
     runner.count(dispatches=0, syncs=2)
+    if runs.numel():
+        runner.fold_run_counts(ints[-runs.numel():])
+    n_kf = ints[n + len(DeviceWork._fields) + 1]
     traj = floats[:16 * n].reshape(n, 4, 4).numpy()
     est = [traj[i] for i in range(n)]
     gt = [np.asarray(p) for p in gt_w2c] if gt_w2c is not None else []
@@ -806,13 +894,13 @@ def session_finalize(sess: SlamSession, gt_w2c=None, *,
     _charge(stats, runner, before)
     return SLAMResult(
         est_w2c=est, gt_w2c=gt,
-        keyframe_psnr=[float(x) for x in floats[16 * n:]],
+        keyframe_psnr=[float(x) for x in floats[16 * n:16 * n + n_kf]],
         ate=ate,
         work=WorkCounters(frames=n, **dict(zip(DeviceWork._fields,
                                                ints[n:n + n_work]))),
         alive_per_frame=ints[:n],
         wall_time_s=wall_time_s,
-        prune_removed=ints[-1],
+        prune_removed=ints[n + n_work],
         dispatches=stats.dispatches if stats is not None else 0,
         syncs=stats.syncs if stats is not None else 0)
 
@@ -851,8 +939,8 @@ def _copy(x):
 
 def copy_session(sess: SlamSession) -> SlamSession:
     """A copy of ``sess`` that shares no tensor or generator with it (a
-    step writes its logs in place and draws from its generator), and the
-    same config, stages and runner."""
+    step writes its logs in place), its pick table and keyframe counters
+    included, and the same config, stages and runner."""
     return dataclasses.replace(sess, stages=dict(sess.stages), **{
         f.name: _copy(getattr(sess, f.name)) for f in dataclasses.fields(sess)
         if f.name not in ("cfg", "intr", "stages")})
@@ -955,11 +1043,13 @@ def step_many(stacked: SessionStack, frames, *,
     sequence of S per-session frames or an :class:`Observation`; ``perms``
     fixes each row's densify pick (tests only).  Each row does its solo
     step's work, bit for bit: the S rows' tracking is one run of an S-row
-    segment (one graph replay when no row prunes), each keyframe row then
-    maps in slot order through the shared runner, and GS-SLAM's and
-    Photo-SLAM's decisions of all rows are read in one transfer.  Returns
-    the advanced stack and the stacked :class:`StepResult` (``is_kf`` a
-    tuple of S bools).
+    segment (one graph replay when no row prunes), and their keyframe
+    branches one run of the S-row keyframe segment (one replay, each row's
+    mapping under its own flag), which a frame-step the host knows has no
+    keyframe row skips.  Nothing is read back.  Returns the advanced stack
+    and the stacked :class:`StepResult` (``is_kf`` a tuple of S bools for
+    MonoGS and SplaTAM, an (S,) bool tensor on the device for GS-SLAM and
+    Photo-SLAM).
 
     Serving constraints (:func:`require_servable`): ``cfg.fused=True`` and
     downsampling disabled."""
@@ -975,9 +1065,12 @@ def step_many(stacked: SessionStack, frames, *,
     def stack(*xs):
         return torch.stack(xs)
 
+    flags = [r.is_kf for r in results]
+    if any(isinstance(f, torch.Tensor) for f in flags):
+        flags = stack(*(torch.as_tensor(f, device=stacked.device) for f in flags))
     res = StepResult(
         pose=stack(*(r.pose for r in results)),
-        is_kf=tuple(r.is_kf for r in results),
+        is_kf=tuple(flags) if isinstance(flags, list) else flags,
         psnr=stack(*(r.psnr for r in results)),
         alive=stack(*(r.alive for r in results)),
         work=DeviceWork(*(stack(*xs) for xs in zip(*(r.work for r in results)))),
@@ -1005,8 +1098,8 @@ def validate_admission(new_session: SlamSession, stacked: SessionStack) -> None:
 
 class SessionPool:
     """Host wrapper serving S concurrent SLAM streams through one stack:
-    every :meth:`step` steps all rows (one graph replay when no row takes a
-    keyframe); :meth:`swap` admits or retires a sequence by replacing a
+    every :meth:`step` steps all rows (one graph replay, or two when a row
+    may take a keyframe); :meth:`swap` admits or retires a sequence by replacing a
     row (the other rows' work is untouched: rows are independent)."""
 
     def __init__(self, sessions: Sequence[SlamSession]):
@@ -1042,16 +1135,23 @@ class SessionPool:
                                 stats=self.stats, **kw)
 
 
-def warm_keyframe(template: SlamSession) -> None:
-    """Capture the keyframe graph of ``template``'s config (its sparse form
-    under ``cfg.sparse_opt``; the window fill is a device tensor, so it
-    serves every fill) by one scratch keyframe on a copy of it, on its own
-    previous frame."""
-    sess = copy_session(template)
-    view_idx = (sess.stage._working_set(sess.page, sess.pose, sess.kf_w2c)
-                if sess.cfg.paged is not None else None)
-    _map_branch(sess, sess.g, sess.cur_masked, sess.prev_rgb, sess.prev_depth,
-                sess.pose, None, view_idx)
+def warm_keyframe(template: SlamSession, batch: int = 1) -> None:
+    """Capture the ``batch``-row keyframe graph of ``template``'s config
+    (its sparse form under ``cfg.sparse_opt``; the window fill and the
+    flags are device values, so it serves every fill and every mix of
+    keyframe rows) by one scratch run on ``batch`` copies of it, each on
+    its own previous frame.  The capture runs every body once; the run
+    itself maps nothing where the host decides (its flags are False), and
+    where the device decides, what the copies' decisions say."""
+    rows = [copy_session(template) for _ in range(batch)]
+    view_idx = [sess.stage._working_set(sess.page, sess.pose, sess.kf_w2c)
+                if sess.cfg.paged is not None else None for sess in rows]
+    on_host = template.cfg.keyframe.on_host
+    _keyframe_rows(rows, [sess.g for sess in rows], [sess.cur_masked for sess in rows],
+                   [sess.pstate for sess in rows],
+                   [(sess.prev_rgb, sess.prev_depth) for sess in rows],
+                   [sess.pose for sess in rows], view_idx, [None] * batch,
+                   [False if on_host else None] * batch)
 
 
 def frame_factor(dataset, idx: int, last_kf_idx: int, cfg: SLAMConfig) -> int:
@@ -1073,7 +1173,9 @@ def run_sequence(dataset, cfg: SLAMConfig, *, device=None, seed: int = 0,
     """Init, one :func:`session_step` per frame at the factor
     :func:`frame_factor` chooses, finalize, counting dispatches and syncs
     in one :class:`EngineStats`.  ``perms`` maps a frame index to a fixed
-    densify pick (tests only)."""
+    densify pick (tests only).  A device keyframe flag (GS-SLAM,
+    Photo-SLAM) is read only where the §4.2 schedule needs it, as the
+    reference's ``run_sequence`` reads it (one sync per frame)."""
     t0 = time.perf_counter()
     stats = EngineStats()
     sess = session_init(dataset, cfg, seed=seed, device=device, stats=stats)
@@ -1085,8 +1187,11 @@ def run_sequence(dataset, cfg: SLAMConfig, *, device=None, seed: int = 0,
         sess, res = session_step(
             sess, dataset.frames[idx], factor=factor,
             perm=None if perms is None else perms.get(idx), stats=stats)
-        if res.is_kf:
-            last_kf_idx = idx
+        if cfg.downsample.enabled:
+            if isinstance(res.is_kf, torch.Tensor):
+                stats.syncs += 1    # the keyframe flag's read
+            if res.is_kf:
+                last_kf_idx = idx
     if sess.device.type == "cuda":
         torch.cuda.synchronize(sess.device)
     return session_finalize(sess, gt_w2c=[f.w2c_gt for f in dataset.frames],

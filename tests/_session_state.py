@@ -36,7 +36,7 @@ def tree_tensors(tree) -> list:
 def same_session(a, b) -> bool:
     """Two port sessions hold the same state bit for bit: every tensor,
     the host clocks and counts, and the densify generator's state."""
-    host = ("frame_idx", "kf_count", "kf_total", "last_kf_idx")
+    host = ("frame_idx", "last_kf_host")
     if any(getattr(a, f) != getattr(b, f) for f in host):
         return False
     if (a.pstate is None) != (b.pstate is None):

@@ -937,9 +937,10 @@ def test_cuda_keyframe_replay_makes_no_sync(dev):
 
 
 def test_cuda_pool_keyframes_after_warmup_capture_nothing(dev):
-    """``PoolLadder.warmup`` captures the keyframe graph: an S=2 pool
+    """``PoolLadder.warmup`` captures the S-row keyframe graph: an S=2 pool
     stepped through keyframe frame-steps afterwards adds no segment and no
-    capture, and each keyframe row adds one dispatch and one replay."""
+    capture, and a frame-step with keyframe rows adds one dispatch and one
+    replay, however many rows map."""
     import dataclasses
 
     from repro_torch.core.keyframes import KeyframePolicy
@@ -963,8 +964,274 @@ def test_cuda_pool_keyframes_after_warmup_capture_nothing(dev):
         counts = pool.stats.since(before)
         kf_rows += sum(res.is_kf)
         assert (counts.dispatches, counts.syncs, counts.replays) == (
-            1 + sum(res.is_kf), 0, 1 + sum(res.is_kf)), t
+            1 + any(res.is_kf), 0, 1 + any(res.is_kf)), t
     assert kf_rows > 0 and compile_cache_stats() == census
+
+
+# ---------------------------------------------------------------------------
+# the keyframe branch on the device: conditional nodes
+# ---------------------------------------------------------------------------
+
+
+def _cond_body(t):
+    y = t["x"] @ t["w"]                          # cuBLAS
+    spare = torch.zeros_like(y)                  # a memset, freed in the body
+    order = torch.sort(y.reshape(-1)).values     # CUB's scratch
+    return {"x": torch.tanh(y + spare), "n": t["n"] + 1,
+            "loss": y.sum() + 0 * order[0]}
+
+
+def _cond_decide(t):
+    return t["x"].sum() > 0
+
+
+def _cond_rows(dev, seed, n):
+    r = np.random.default_rng(seed)
+    return [{"x": torch.as_tensor(r.standard_normal((64, 64)), dtype=torch.float32,
+                                  device=dev),
+             "w": torch.as_tensor(r.standard_normal((64, 64)) * 0.1,
+                                  dtype=torch.float32, device=dev),
+             "n": torch.zeros((), dtype=torch.int64, device=dev)} for _ in range(n)]
+
+
+def _cond_run(runner, rows, flags):
+    from repro_torch.slam.graphs import row_names
+
+    inputs = {}
+    for s, row in enumerate(rows):
+        inputs.update(row_names(s, row))
+    defaults = {"loss": torch.full((), float("nan"), device=rows[0]["x"].device)}
+    return runner.run_when("cond", _cond_decide, _cond_body, inputs, flags, ("x", "n"),
+                           defaults)
+
+
+@pytest.mark.parametrize("flags", [[False], [True], [True, False, True],
+                                   [None, False, None]])
+def test_cuda_conditional_replay_runs_and_skips(dev, flags):
+    """One graph of S conditional nodes: on replays with other inputs (and,
+    where the device decides, other flags), a row whose flag is false keeps
+    every carried buffer bit for bit and takes the defaults, and a row whose
+    flag is true equals its eager body.  Each run is one dispatch and one
+    replay, with no synchronizing call; the bodies' allocations stay in the
+    runner's pools (an eager tensor made between replays is untouched)."""
+    from _session_state import same_bits
+    from repro_torch.slam.graphs import PhaseRunner
+
+    runner = PhaseRunner(dev)
+    _cond_run(runner, _cond_rows(dev, 0, len(flags)), flags)      # capture
+    assert runner.stats.captures == 1
+    for seed in (1, 2, 3):
+        rows = _cond_rows(dev, seed, len(flags))
+        # Flip the device's decisions from run to run.
+        for row in rows[seed % 2::2]:
+            row["x"].neg_()
+        junk = torch.full((1 << 20,), 7.0, device=dev)
+        before = runner.stats.replays
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = _cond_run(runner, rows, flags)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert runner.stats.replays == before + 1 and runner.stats.syncs == 0
+        for row, f, o in zip(rows, flags, out):
+            want = bool(_cond_decide(row)) if f is None else f
+            assert bool(o["when"]) == want
+            ref = _cond_body(row) if want else dict(
+                row, loss=torch.tensor(float("nan"), device=dev))
+            for k in ("x", "n", "loss"):
+                assert same_bits(o[k], ref[k]), (seed, k)
+        assert bool((junk == 7.0).all())
+    assert runner.stats.captures == 1 and len(runner._segments) == 1
+
+
+def test_cuda_conditional_run_counts_fold_into_launches(dev):
+    """A device-decided body's launches are counted on the device and
+    folded into the wrappers' counters by ``fold_launches`` (one read); a
+    host-decided body's are added at its replay."""
+    from repro_torch.slam.graphs import PhaseRunner
+
+    def body(t):
+        return {"y": gmu.block_cumsum(t["y"]), "loss": t["y"].sum()}
+
+    def decide(t):
+        return t["y"].sum() > 0
+
+    def rows(sign):
+        return {f"{s}/y": sign * torch.ones((256, 4), device=dev) for s in range(2)}
+
+    runner = PhaseRunner(dev)
+    defaults = {"loss": torch.zeros((), device=dev)}
+    runner.run_when("fold", decide, body, rows(1), [None, True], ("y",), defaults)
+    runner.fold_launches()
+    before = gmu.block_cumsum.launches
+    for sign in (1, -1, 1):     # the device row runs, skips, runs; the host row runs
+        runner.run_when("fold", decide, body, rows(sign), [None, True], ("y",), defaults)
+    assert gmu.block_cumsum.launches == before + 3
+    syncs = runner.stats.syncs
+    runner.fold_launches()
+    assert gmu.block_cumsum.launches == before + 3 + 2
+    assert runner.stats.syncs == syncs + 1
+
+
+def _device_kf_run(algo, fused, frames=5):
+    """A 48x64 room0 session of ``algo`` (GS-SLAM or Photo-SLAM, decisions
+    on the device): the session, each step's result and counts, the result
+    and the kernel launches (finalize folds the device-counted ones)."""
+    import dataclasses
+
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import (
+        SLAMConfig, session_finalize, session_init, session_step)
+
+    ds = make_dataset("room0", num_frames=frames, height=48, width=64,
+                      num_gaussians=400, frag_capacity=48)
+    policy = {"gsslam": KeyframePolicy(kind="gsslam", trans_thresh=0.02, rot_thresh=0.02),
+              "photoslam": KeyframePolicy(kind="photoslam", pho_thresh=0.14)}[algo]
+    cfg = SLAMConfig(base_algo=algo, keyframe=policy, iters_track=3, iters_map=4,
+                     capacity=1024, frag_capacity=48, map_window=2,
+                     map_rebuild_stride=2, fused=fused)
+    before = _launches()
+    stats = EngineStats()
+    sess = session_init(ds, cfg, stats=stats)
+    steps = []
+    for t in range(1, frames):
+        b = dataclasses.replace(stats)
+        sess, r = session_step(sess, ds.frames[t], stats=stats)
+        steps.append((r, stats.since(b)))
+    res = session_finalize(sess)
+    return sess, steps, res, [a - b for a, b in zip(_launches(), before)]
+
+
+@pytest.mark.parametrize("algo", ["gsslam", "photoslam"])
+def test_cuda_device_keyframes_fused_equals_eager(dev, algo):
+    """GS-SLAM and Photo-SLAM fused on the card: every step after the first
+    (which captures) is 2 dispatches, no sync and 2 replays, keyframe or
+    not, and the run (a mix of both) equals the eager run (which reads each
+    flag) bit for bit, with the same kernel launches once finalize has
+    folded the device-counted ones."""
+    from _session_state import same_bits, same_session
+
+    s_f, st_f, res_f, l_f = _device_kf_run(algo, True)
+    s_e, st_e, res_e, l_e = _device_kf_run(algo, False)
+    flags = [bool(r.is_kf) for r, _ in st_f]
+    assert any(flags) and not all(flags), flags
+    assert [bool(r.is_kf) for r, _ in st_e] == flags
+    for (r_f, c_f), (r_e, c_e) in zip(st_f, st_e):
+        assert isinstance(r_f.is_kf, torch.Tensor)
+        for name in ("pose", "alive", "psnr", "map_losses"):
+            assert same_bits(getattr(r_f, name), getattr(r_e, name)), name
+        assert (c_f.dispatches, c_f.syncs, c_f.replays) == (2, 0, 2)
+        assert c_e.syncs == 1
+    assert same_session(s_f, s_e)
+    assert res_f.keyframe_psnr == res_e.keyframe_psnr
+    assert l_f == l_e and l_f[4] == l_f[1] > 0
+
+
+def test_cuda_device_keyframe_step_makes_no_sync(dev):
+    """Once both graphs are captured, a Photo-SLAM step (its tracking
+    replay, the eager inverse and velocity, the keyframe replay) makes no
+    synchronizing CUDA call, keyframe or not."""
+    import dataclasses
+
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.graphs import EngineStats
+    from repro_torch.slam.session import SLAMConfig, session_init, session_step
+
+    ds = make_dataset("room0", num_frames=5, height=48, width=64, num_gaussians=400,
+                      frag_capacity=48)
+    cfg = SLAMConfig(base_algo="photoslam", iters_track=3, iters_map=4, capacity=1024,
+                     frag_capacity=48, map_window=2,
+                     keyframe=KeyframePolicy(kind="photoslam", pho_thresh=0.14))
+    sess = session_init(ds, cfg)
+    sess, _ = session_step(sess, ds.frames[1])
+    stats = EngineStats()
+    flags = []
+    for t in range(2, 5):
+        b = dataclasses.replace(stats)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sess, r = session_step(sess, ds.frames[t], stats=stats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c = stats.since(b)
+        assert (c.dispatches, c.syncs, c.replays, c.captures) == (2, 0, 2, 0)
+        flags.append(bool(r.is_kf))
+    assert any(flags) and not all(flags), flags
+
+
+def test_cuda_pool_maps_device_keyframe_rows_in_one_replay(dev):
+    """An S=2 Photo-SLAM pool whose rows take keyframes on different
+    frame-steps: each frame-step after the first is 2 dispatches, no sync
+    and 2 replays, and each row equals its solo run bit for bit."""
+    import dataclasses
+
+    from _session_state import same_session
+    from repro_torch.core.keyframes import KeyframePolicy
+    from repro_torch.slam.datasets import make_dataset
+    from repro_torch.slam.session import SessionPool, SLAMConfig, session_init, session_step
+
+    cfg = SLAMConfig(base_algo="photoslam", iters_track=3, iters_map=4, capacity=1024,
+                     frag_capacity=48, map_window=2,
+                     keyframe=KeyframePolicy(kind="photoslam", pho_thresh=0.14))
+    scenes = [make_dataset(n, num_frames=5, height=48, width=64, num_gaussians=400,
+                           frag_capacity=48, seed=seed)
+              for n, seed in (("room0", 0), ("hall0", 2))]
+    pool = SessionPool([session_init(ds, cfg) for ds in scenes])
+    mixed = False
+    for t in range(1, 5):
+        b = dataclasses.replace(pool.stats)
+        res = pool.step([ds.frames[t] for ds in scenes])
+        c = pool.stats.since(b)
+        if t > 1:
+            assert (c.dispatches, c.syncs, c.replays) == (2, 0, 2), t
+        flags = res.is_kf.tolist()
+        mixed |= any(flags) and not all(flags)
+    assert mixed
+    for s, ds in enumerate(scenes):
+        solo = session_init(ds, cfg)
+        for t in range(1, 5):
+            solo, _ = session_step(solo, ds.frames[t])
+        assert same_session(pool.session(s), solo), s
+
+
+def test_cuda_failed_conditional_capture_raises_and_keeps_nothing(dev):
+    """A conditional body that reads the card from the host cannot be
+    captured: ``run_when`` raises on every attempt and keeps no segment.
+    In a process of its own, as a failed capture may leave the CUDA
+    context unusable."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.slam.graphs import PhaseRunner
+        runner = PhaseRunner("cuda")
+        x = torch.ones(4, device="cuda")
+        def body(t):
+            return {"x": t["x"] * int(t["x"].sum())}   # a device read
+        for attempt in range(2):
+            try:
+                runner.run_when("bad", lambda t: t["x"].sum() > 0, body,
+                                {"0/x": x}, [None], ("x",), {})
+            except RuntimeError:
+                pass
+            else:
+                raise SystemExit(f"attempt {attempt} did not raise")
+        assert not runner._segments and runner.stats.captures == 0
+        assert runner.stats.dispatches == 0
+        print("raised")
+    """)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)}
+    out = subprocess.run([sys.executable, "-X", "faulthandler", "-c", code],
+                         capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0 and out.stdout.strip().endswith("raised"), out.stderr
 
 
 # ---------------------------------------------------------------------------
@@ -1073,9 +1340,9 @@ def test_cuda_paged_partial_view_runs_through_the_kernels(dev):
 @pytest.mark.parametrize("prune", [False, True])
 def test_cuda_paged_pool_after_warmup(dev, prune):
     """A paged S=2 pool after ``PoolLadder.warmup``: serving frame-steps add
-    no segment and no capture, count the flat formula (1 + keyframe rows
-    dispatches and replays, no sync, without pruning), and every row equals
-    its solo paged run bit for bit, its page table included."""
+    no segment and no capture, count the flat formula (1 dispatch and
+    replay, 2 with keyframe rows, no sync, without pruning), and every row
+    equals its solo paged run bit for bit, its page table included."""
     import dataclasses
 
     from _session_state import same_session
@@ -1101,7 +1368,7 @@ def test_cuda_paged_pool_after_warmup(dev, prune):
         counts = pool.stats.since(before)
         if not prune:
             assert (counts.dispatches, counts.syncs, counts.replays) == (
-                1 + sum(res.is_kf), 0, 1 + sum(res.is_kf)), t
+                1 + any(res.is_kf), 0, 1 + any(res.is_kf)), t
     assert compile_cache_stats() == census
     assert same_session(pool.session(0), solo) and same_session(pool.session(1), solo)
     assert solo.page is not None

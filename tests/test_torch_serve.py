@@ -316,13 +316,13 @@ def test_telemetry_on_and_off_are_bit_identical(duo):
     registry and the trace hold what the server saw.
 
     Every segment serving reaches exists before the census, as after
-    ``PoolLadder.warmup``: a solo step, a 2-row frame-step and a keyframe
-    (whether an earlier test in the same process made them does not
-    matter)."""
+    ``PoolLadder.warmup``: a solo step, a 2-row frame-step and a 2-row
+    keyframe segment (whether an earlier test in the same process made
+    them does not matter)."""
     cfg, scenes = duo
     S.session_step(_init(scenes[0], cfg), scenes[0].frames[1])
     ShardedPool([_init(ds, cfg) for ds in scenes]).step([ds.frames[1] for ds in scenes])
-    S.warm_keyframe(_init(scenes[0], cfg))
+    S.warm_keyframe(_init(scenes[0], cfg), 2)
     census = compile_cache_stats()
     runs = []
     for tele in (None, Telemetry.on(trace=True)):
