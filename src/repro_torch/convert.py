@@ -77,16 +77,13 @@ def _work_totals(src) -> list:
 
 def prune_state_from_numpy(src, device=None) -> PruneState:
     """A ``PruneState`` from an object with the reference's eleven leaves;
-    the clocks (``interval``, ``iters_left``, ``opt_steps``) become host
-    ints."""
+    the clocks (``interval``, ``iters_left``, ``opt_steps``) are () int32
+    tensors, as there."""
     dev = resolve_device(device)
     dtypes = {"score": torch.float32, "grad_ema": torch.float32,
-              "masked": torch.bool, "stable": torch.bool,
-              "prev_tile_count": torch.int32, "initial_alive": torch.int32,
-              "removed": torch.int32, "age": torch.int32}
-    leaves = {f: _t(getattr(src, f), dev, dtypes[f]) if f in dtypes
-              else int(getattr(src, f)) for f in PruneState._fields}
-    return PruneState(**leaves)
+              "masked": torch.bool, "stable": torch.bool}
+    return PruneState(**{f: _t(getattr(src, f), dev, dtypes.get(f, torch.int32))
+                         for f in PruneState._fields})
 
 
 def page_table_from_numpy(src, device=None) -> PageTable:

@@ -17,14 +17,14 @@ low-EMA age, ``stable``) that :func:`accumulate` maintains whenever it is
 given ``alive``; sparse mapping consumes it (:func:`optimizable_mask`,
 :func:`mark_born`).
 
-The reference keeps every leaf on the device and runs the boundary under
-``lax.cond``.  Here the interval clock (``interval``, ``iters_left``) and
-the accumulate clock (``opt_steps``) are host integers, so the boundary is
-a host ``if`` that costs no sync; the one device value the host needs,
-whether the churn crossed its threshold, is read once per fired boundary
-(``interval_update.host_reads`` counts those reads).  Every count the
-selection and the churn use is computed in float32 on the device, as the
-reference does.
+Every leaf lives on the device, the interval clock (``interval``,
+``iters_left``) and the accumulate clock (``opt_steps``) as () int32
+tensors, as in the reference, so nothing here reads the device: the next
+K is a ``torch.where`` on the churn, and :func:`cond_interval_update`
+runs the boundary under a ``when`` that the caller gives it (the
+counterpart of ``lax.cond``: in the fused engine a CUDA graph conditional
+node).  Every count the selection and the churn use is computed in
+float32 on the device, as the reference does.
 """
 
 from __future__ import annotations
@@ -56,15 +56,15 @@ class PruneConfig(NamedTuple):
 class PruneState(NamedTuple):
     score: torch.Tensor            # (N,) f32 accumulated importance this interval
     masked: torch.Tensor           # (N,) bool, mask-pruned, pending removal
-    interval: int                  # current K (host)
-    iters_left: int                # iterations until the interval ends (host)
+    interval: torch.Tensor         # () i32 current K
+    iters_left: torch.Tensor       # () i32 iterations until the interval ends
     prev_tile_count: torch.Tensor  # (T,) i32 fragment counts at the last boundary
     initial_alive: torch.Tensor    # () i32 alive count at init (for the cap)
     removed: torch.Tensor          # () i32 total permanently removed
     grad_ema: torch.Tensor         # (N,) f32 Eq. 7 gradient-magnitude EMA
     age: torch.Tensor              # (N,) i32 consecutive low-EMA iterations
     stable: torch.Tensor           # (N,) bool stability bit
-    opt_steps: int                 # accumulate() calls so far (host)
+    opt_steps: torch.Tensor        # () i32 accumulate() calls so far
 
 
 def init_state(g: GaussianField, num_tiles: int, cfg: PruneConfig) -> PruneState:
@@ -73,15 +73,15 @@ def init_state(g: GaussianField, num_tiles: int, cfg: PruneConfig) -> PruneState
     return PruneState(
         score=torch.zeros((n,), dtype=torch.float32, device=dev),
         masked=torch.zeros((n,), dtype=torch.bool, device=dev),
-        interval=int(cfg.k0),
-        iters_left=int(cfg.k0),
+        interval=torch.full((), cfg.k0, **i32),
+        iters_left=torch.full((), cfg.k0, **i32),
         prev_tile_count=torch.zeros((num_tiles,), **i32),
         initial_alive=g.num_alive().to(torch.int32),
         removed=torch.zeros((), **i32),
         grad_ema=torch.zeros((n,), dtype=torch.float32, device=dev),
         age=torch.zeros((n,), **i32),
         stable=torch.zeros((n,), dtype=torch.bool, device=dev),
-        opt_steps=0,
+        opt_steps=torch.zeros((), **i32),
     )
 
 
@@ -137,23 +137,18 @@ def accumulate(state: PruneState, param_grads: dict, cfg: PruneConfig,
 
 
 def stability_update(grad_ema: torch.Tensor, age: torch.Tensor, s: torch.Tensor,
-                     alive: torch.Tensor, cfg: PruneConfig, settle):
+                     alive: torch.Tensor, cfg: PruneConfig, settle: torch.Tensor):
     """One iteration of the stability leaves from the Eq. 7 scores ``s``:
     ``(grad_ema, age, stable)``, with ``stable`` all False unless
-    ``settle`` (``opt_steps`` has reached ``stable_warmup``): a host bool,
-    or a () bool tensor, which a CUDA graph reads at each replay.  Device
-    math only."""
+    ``settle``, a () bool tensor (``opt_steps`` has reached
+    ``stable_warmup``).  Device math only."""
     alive_f = alive.to(torch.float32)
     ema = cfg.stable_ema_beta * grad_ema + (1.0 - cfg.stable_ema_beta) * s
     mean_ema = (ema * alive_f).sum() / torch.clamp(alive_f.sum(), min=1.0)
     thresh = torch.clamp(cfg.stable_rel * mean_ema, min=cfg.stable_thresh)
     low = alive & (ema < thresh)
     age = torch.where(low, age + 1, torch.zeros_like(age))
-    stable = alive & (age >= cfg.stable_age)
-    if isinstance(settle, torch.Tensor):
-        stable = stable & settle
-    elif not settle:
-        stable = torch.zeros_like(stable)
+    stable = alive & (age >= cfg.stable_age) & settle
     return ema, age, stable
 
 
@@ -245,11 +240,9 @@ def interval_update(state: PruneState, g: GaussianField,
     denom = torch.clamp(prev.sum(), min=1)
     churn = torch.where((prev < 0).any(), _f32(0.0, prev),
                         (tile_count - prev).abs().sum() / denom)
-    interval_update.host_reads += 1
-    if bool(churn > _f32(cfg.churn_threshold, churn)):
-        k_next = max(state.interval // 2, cfg.k_min)
-    else:
-        k_next = min(state.interval * 2, cfg.k_max)
+    k_next = torch.where(churn > _f32(cfg.churn_threshold, churn),
+                         torch.clamp(state.interval // 2, min=cfg.k_min),
+                         torch.clamp(state.interval * 2, max=cfg.k_max))
 
     new_state = PruneState(
         score=torch.zeros_like(state.score),
@@ -267,20 +260,42 @@ def interval_update(state: PruneState, g: GaussianField,
     return new_state, g.replace(alive=alive), want > 0
 
 
-interval_update.host_reads = 0
+def read_when(flag: torch.Tensor, body) -> None:
+    """Run ``body`` if the () bool ``flag`` holds, read on the host (one
+    sync): :func:`cond_interval_update`'s ``when`` outside the engine."""
+    if bool(flag):
+        body()
 
 
-def cond_interval_update(state: PruneState, g: GaussianField, cur_frags,
-                         build_fn, cfg: PruneConfig):
-    """The boundary as tracking's loop takes it: once ``iters_left`` has run
-    out, rebuild the fragment lists (``build_fn(g, masked)``) and run
-    :func:`interval_update`; otherwise pass everything through.  Returns
-    ``(state, g, frags, fired)`` with ``fired`` a host bool."""
-    if state.iters_left > 0:
-        return state, g, cur_frags, False
-    fresh = build_fn(g, state.masked)
-    state, g, _ = interval_update(state, g, fresh.count, cfg)
-    return state, g, fresh, True
+def assign(dst, src) -> None:
+    """Write every tensor of the NamedTuple ``src`` into the same field
+    of ``dst`` in place (fields that are the same tensor are skipped)."""
+    for d, v in zip(dst, src):
+        if v is not d:
+            d.copy_(v)
+
+
+def cond_interval_update(state: PruneState, g: GaussianField, frags,
+                         build_fn, cfg: PruneConfig, when=read_when) -> torch.Tensor:
+    """The boundary as tracking's loop takes it, in place: under
+    ``when(fired, body)`` with ``fired = iters_left <= 0`` (a () bool
+    tensor), the body rebuilds the fragment lists (``build_fn(g,
+    masked)``), runs :func:`interval_update` and writes the new state
+    into ``state``'s tensors, the alive mask into ``g.alive`` and the
+    fresh lists into ``frags``.  Where ``fired`` is False they keep their
+    values, as the reference's ``lax.cond`` passes them through.  Returns
+    ``fired``."""
+    fired = state.iters_left <= 0
+
+    def boundary():
+        fresh = build_fn(g, state.masked)
+        new_state, new_g, _ = interval_update(state, g, fresh.count, cfg)
+        assign(state, new_state)
+        g.alive.copy_(new_g.alive)
+        assign(frags, fresh)
+
+    when(fired, boundary)
+    return fired
 
 
 def prune_ratio(state: PruneState) -> torch.Tensor:

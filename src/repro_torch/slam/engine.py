@@ -6,13 +6,13 @@ that the session's :class:`~repro_torch.slam.graphs.PhaseRunner` captures
 once as a CUDA graph and replays (``SLAMConfig.fused``, the default), or
 runs eagerly, one iteration after another (``fused=False``, the oracle):
 
-* tracking without pruning: the frame's fragment-list build (and WSU
-  schedule) and the K iterations, one segment, one replay per frame;
-* tracking with §4.1 pruning: the host knows each interval boundary from
-  its own clock, so the iterations between boundaries are replays of a
-  one-iteration segment that carries the pose, its Adam state, the scores
-  and the stability leaves; a fired boundary's rebuild and
-  ``interval_update`` run eagerly in between;
+* tracking: the frame's fragment-list build (and WSU schedule) and the K
+  iterations, one segment, one replay per frame; with §4.1 pruning every
+  iteration also accumulates the Eq. 7 scores and counts the device
+  interval clock down, and each boundary (the rebuild, ``interval_update``
+  and the schedule) runs inside the same segment under a conditional node
+  on ``iters_left <= 0``, as the reference's ``lax.cond`` inside its
+  ``lax.scan``;
 * mapping: :meth:`_Stage._map_scan_masked` is device work only (the
   window builds and their schedules, the sparse stable background, every
   iteration with the round-robin stride rebuild at a device slot, and the
@@ -21,9 +21,9 @@ runs eagerly, one iteration after another (``fused=False``, the oracle):
   bootstrap mapping (``session._boot_segment``).  The window fill is a
   device tensor, so one graph serves every fill.
 
-Only pruning's fragment-list builds run eagerly, between replays; none
-reads the device.  Each ``lax.cond`` of a phase is a host ``if`` on a
-host clock or a select on the device, and each ``vmap`` over the
+Nothing reads the device.  Each ``lax.cond`` of a phase is a
+conditional node, a host ``if`` on a host value or a select on the
+device, and each ``vmap`` over the
 keyframe window a loop over views; every mapping iteration still renders
 the whole window as ONE batched raster call.  On the ``schedule``
 backend a WSU schedule rides next to each cached fragment list and is
@@ -38,14 +38,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._device import constant
 from repro_torch.core import gaussians as G
 from repro_torch.core import lie, pruning
 from repro_torch.core.camera import Camera, Intrinsics
 from repro_torch.core.losses import slam_loss
 from repro_torch.core.raster_api import RasterPlan
 from repro_torch.core.render import render
-from repro_torch.core.schedule import TileSchedule, scheduled_trips
+from repro_torch.core.schedule import scheduled_trips
 from repro_torch.core.sorting import (
     FragmentLists, build_fragment_lists, count_skipped_fragments, make_tile_grid,
     stack_fragment_lists, tile_trips,
@@ -56,7 +55,7 @@ from repro_torch.slam.graphs import (
     PhaseRunner, flat, row_carry, row_names, row_view, rows_segment, unflat,
 )
 from repro_torch.slam.map.paged import (
-    PageTable, gather_field, scatter_field, validate_paged, working_set,
+    PageTable, gather_field, validate_paged, working_set,
 )
 from repro_torch.slam.metrics import DeviceWork, device_work_add
 from repro_torch.train.optimizer import (
@@ -142,21 +141,6 @@ class _Stage:
         return build_fragment_lists(proj, self.grid, self.cfg.frag_capacity,
                                     keep)
 
-    def _build_core(self, g, masked, w2c, keep=None) -> FragmentLists:
-        """:meth:`_build` as an eager call of its own."""
-        self.runner.count()
-        return self._build(g, masked, w2c, keep)
-
-    def _paged_build_core(self, g, masked, w2c, page: PageTable, kf_w2c):
-        """The pruning path's pre-tracking build in paged mode, as one eager
-        call: the frame's working set at ``w2c`` (the cull, the selection
-        and the view's rows) and the fragment lists of the view.  Returns
-        ``(frags, view_idx)``."""
-        self.runner.count()
-        view_idx = self._working_set(page, w2c, kf_w2c)
-        return self._build(gather_field(g, view_idx), masked.index_select(0, view_idx),
-                           w2c), view_idx
-
     @torch.no_grad()
     def _sparse_build_core(self, g, masked, keep, w2c):
         """The fragment lists of the rows in ``keep`` only, and the ()
@@ -169,12 +153,6 @@ class _Stage:
         if keep is None:
             return frags, torch.zeros((), dtype=torch.int32, device=self.device)
         return frags, count_skipped_fragments(proj, self.grid, keep)
-
-    def _sched_core(self, frags: FragmentLists):
-        """The WSU schedule of one view's cached fragment counts (device
-        math, no host sync)."""
-        self.runner.count()
-        return build_plan_schedule(frags, self.plan)
 
     def _slot_programs_core(self, frags: FragmentLists, sched=None):
         """() scheduled raster programs of one view in the WSU's subtile
@@ -275,96 +253,115 @@ class _Stage:
     # ---- segments (one or more iterations over fixed-shape tensors) -------
 
     def _track_segment(self, n: int, prune: bool):
-        """``n`` tracking iterations over the tensors ``_track_inputs``
-        names.  Without ``prune`` the segment first builds the frame's
-        fragment lists (and schedule) at the base pose; with it, it takes
-        them as inputs and every iteration also accumulates the Eq. 7
-        scores and the stability leaves from its own backward (the input
-        ``settle``, a () bool, is False while ``opt_steps`` is under
-        ``stable_warmup``).
+        """The frame's fragment-list build (and, on the ``schedule``
+        backend, its schedule) at the base pose and ``n`` tracking
+        iterations on them, over the tensors ``_track_inputs`` names.
 
-        In paged mode (``cfg.paged``) the iterations run on the frame's
-        working set.  Without ``prune`` the segment computes it (the cull,
-        the selection and the view's rows, from the page table, the base
-        pose and the keyframe ring), gathers the view, builds on it and
-        returns ``view_idx``; with it, it takes ``view_idx`` from the
-        pre-tracking build, gathers the view's rows of the map and the
-        pruning leaves, and scatters the leaves back, so the carried
-        leaves stay storage-sized.  A gather after a scatter with the same
-        rows is a copy, so replays of one iteration equal the reference's
-        one gather, K iterations and one scatter bit for bit."""
+        With ``prune`` (§4.1), a conditional segment (``fn(t, when)``,
+        :meth:`PhaseRunner.run`): every iteration also accumulates the
+        Eq. 7 scores and the stability leaves from its own backward and
+        counts the interval clock down, then takes the boundary under
+        ``when(iters_left <= 0, ...)`` (``pruning.cond_interval_update``:
+        the rebuild at the current pose, ``interval_update`` and, on
+        ``schedule``, the schedule), as the reference's
+        ``_track_scan_prune`` body does.  The state a boundary rewrites
+        (the pruning leaves and clocks, ``alive``, the lists and the
+        schedule) lives in buffers the segment makes before its first
+        iteration, which every iteration and boundary write in place, so
+        a skipped boundary leaves them as they were.
+
+        In paged mode (``cfg.paged``) the segment computes the frame's
+        working set (the cull, the selection and the view's rows, from the
+        page table, the base pose and the keyframe ring), gathers the view
+        (and the pruning leaves' view rows), builds and tracks on it,
+        returns ``view_idx`` and, with ``prune``, scatters the leaves and
+        ``alive`` back to storage at the end (a gather after a scatter
+        with the same rows is a copy, so this equals a gather and scatter
+        per iteration bit for bit)."""
         prune_cfg, paged = self.cfg.prune, self.cfg.paged is not None
 
-        def fn(t):
-            g = unflat(t, "g", G.GaussianField)
-            masked, xi = t["masked"], t["xi"]
+        def fn(t, when=None):
+            g, base = unflat(t, "g", G.GaussianField), t["base"]
+            ps = unflat(t, "p", pruning.PruneState) if prune else None
+            masked, xi = (ps.masked if prune else t["masked"]), t["xi"]
             view_idx = storage = None
             if paged:
-                view_idx = (t["view_idx"] if prune else self._working_set(
-                    unflat(t, "page", PageTable), t["base"], t["kf_w2c"]))
+                view_idx = self._working_set(unflat(t, "page", PageTable), base,
+                                             t["kf_w2c"])
                 storage = (view_idx, g.capacity)
                 g, masked = gather_field(g, view_idx), masked.index_select(0, view_idx)
+                if prune:
+                    ps = pruning.gather_rows(ps, view_idx)
             if prune:
-                frags = unflat(t, "frags", FragmentLists)
-                sched = unflat(t, "sched", TileSchedule) if self.scheduled else None
-            else:
-                frags = self._build(g, masked, t["base"])
-                sched = build_plan_schedule(frags, self.plan) if self.scheduled else None
+                # The segment's own state buffers (the inputs stay as given).
+                ps = pruning.PruneState(*(x.clone() for x in ps))
+                g = g.replace(alive=g.alive.clone())
+                masked = ps.masked
+            frags = self._build(g, masked, base)
+            sched = build_plan_schedule(frags, self.plan) if self.scheduled else None
             ostate = AdamState(step=t["opt.step"], mu={"xi": t["opt.mu.xi"]},
                                nu={"xi": t["opt.nu.xi"]})
             work = unflat(t, "work", DeviceWork)
-            if prune:
-                score, ema, age = t["p.score"], t["p.grad_ema"], t["p.age"]
-                if paged:
-                    score, ema, age = (x.index_select(0, view_idx) for x in (score, ema, age))
-            alive_eff = (g.alive & ~masked).sum()
-            losses = []
+            rows = torch.full_like(work.frag_build_rows, self.build_rows(g)) if prune else None
+
+            def boundary_when(flag, body):
+                def run():
+                    body()
+                    if self.scheduled:
+                        pruning.assign(sched, build_plan_schedule(frags, self.plan))
+                # Eager, the rebuild, interval_update and the schedule.
+                when(flag, run, 2 + self.scheduled)
+
+            losses, fired, alive_eff = [], [], None
             for _ in range(n):
+                if prune or alive_eff is None:      # a boundary changes it
+                    alive_eff = (g.alive & ~masked).sum()
                 loss, xi, ostate, grads = self._track_iter_core(
-                    g, masked, xi, ostate, t["base"], t["obs_rgb"], t["obs_depth"],
+                    g, masked, xi, ostate, base, t["obs_rgb"], t["obs_depth"],
                     frags, sched, score_grads=prune, storage=storage)
                 work = device_work_add(work, frags.total, self.pixels, alive_eff,
                                        unstable=0)
-                if prune:
-                    s = pruning.importance_scores(grads, prune_cfg)
-                    score = score + s
-                    ema, age, stable = pruning.stability_update(
-                        ema, age, s, g.alive, prune_cfg, t["settle"])
                 losses.append(loss)
+                if not prune:
+                    continue
+                pruning.assign(ps, pruning.accumulate(ps, grads, prune_cfg, alive=g.alive))
+                hit = pruning.cond_interval_update(
+                    ps, g, frags,
+                    lambda gg, mm, xi=xi: self._build(gg, mm, lie.se3_exp(xi) @ base),
+                    prune_cfg, boundary_when)
+                work = work._replace(frag_build_rows=work.frag_build_rows
+                                     + torch.where(hit, rows, torch.zeros_like(rows)))
+                fired.append(hit)
             out = {"xi": xi, **flat("opt", ostate), **flat("work", work),
                    "losses": torch.stack(losses)}
-            if prune:
-                leaves = {"p.score": score, "p.grad_ema": ema, "p.age": age,
-                          "p.stable": stable}
-                if paged:
-                    leaves = {k: t[k].index_copy(0, view_idx, v) for k, v in leaves.items()}
-                out.update(leaves)
-            elif paged:
+            if paged:
                 out["view_idx"] = view_idx
+            if prune:
+                alive = g.alive
+                if paged:
+                    ps = pruning.scatter_rows(unflat(t, "p", pruning.PruneState), ps,
+                                              view_idx)
+                    alive = t["g.alive"].index_copy(0, view_idx, alive)
+                out.update({**flat("p", ps), "g.alive": alive, "fired": torch.stack(fired)})
             return out
 
         return fn
 
-    def _track_inputs(self, g, masked, base_w2c, obs_rgb, obs_depth, frags,
-                      sched, xi, ostate, work, pstate=None, view=None) -> dict:
-        """The tracking segment's inputs; ``view`` is, in paged mode, the
-        page table and keyframe ring (no pruning) or ``view_idx``."""
-        out = {**flat("g", g), "masked": masked, "base": base_w2c,
-               "obs_rgb": obs_rgb, "obs_depth": obs_depth,
-               **flat("frags", frags), **flat("sched", sched), "xi": xi,
-               **flat("opt", ostate), **flat("work", work)}
-        if isinstance(view, torch.Tensor):
-            out["view_idx"] = view
-        elif view is not None:
+    def _track_inputs(self, g, masked, base_w2c, obs_rgb, obs_depth, xi, ostate,
+                      work, pstate=None, view=None) -> dict:
+        """The tracking segment's inputs: with pruning, ``pstate`` in place
+        of ``masked``; in paged mode ``view``, the page table and keyframe
+        ring."""
+        out = {**flat("g", g), "base": base_w2c, "obs_rgb": obs_rgb,
+               "obs_depth": obs_depth, "xi": xi, **flat("opt", ostate),
+               **flat("work", work)}
+        out.update(flat("p", pstate) if pstate is not None else {"masked": masked})
+        if view is not None:
             out.update({**flat("page", view[0]), "kf_w2c": view[1]})
-        if pstate is not None:
-            out.update({"p.score": pstate.score, "p.grad_ema": pstate.grad_ema,
-                        "p.age": pstate.age, "p.stable": pstate.stable})
         return out
 
     _TRACK_CARRY = ("xi", "opt.step", "opt.mu.xi", "opt.nu.xi",
                     *(f"work.{f}" for f in DeviceWork._fields))
-    _PRUNE_CARRY = ("p.score", "p.grad_ema", "p.age", "p.stable")
 
     # ---- phases ----------------------------------------------------------
 
@@ -378,137 +375,60 @@ class _Stage:
         ``schedule`` backend, one schedule from it for the whole phase) and
         the K tracking iterations on them: one segment run.  Returns
         ``(xi, work, losses, fired)``."""
-        return self._track_rows_noprune(
-            [(g, masked, base_w2c, obs_rgb, obs_depth, work)])[0][:4]
+        return self._track_rows(
+            [(g, masked, None, base_w2c, obs_rgb, obs_depth, work)])[0][:4]
 
-    def _track_rows_noprune(self, rows, views=None):
-        """:meth:`_track_scan_noprune` of S sessions at once: ``rows`` holds
-        each one's ``(g, masked, base_w2c, obs_rgb, obs_depth, work)`` and,
-        in paged mode, ``views`` each one's ``(page table, keyframe
-        ring)``.  One run of one S-row segment (each row's tensors and ops
-        its own, as in a solo run); returns each row's ``(xi, work, losses,
-        fired, view_idx)`` (``view_idx`` None unless paged)."""
-        k = self.cfg.iters_track
-        views = views or [None] * len(rows)
+    def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
+                          obs_rgb, obs_depth, work: DeviceWork):
+        """The frame's build and the K tracking iterations with §4.1
+        pruning, every fired boundary inside (``_track_segment``): one
+        segment run, one graph replay when fused on the card.  Returns
+        ``(xi, g, pstate, work, losses, fired)``."""
+        xi, work, losses, fired, _, g, pstate = self._track_rows(
+            [(g, pstate.masked, pstate, base_w2c, obs_rgb, obs_depth, work)])[0]
+        return xi, g, pstate, work, losses, fired
+
+    def _track_rows(self, rows, views=None):
+        """The tracking phase of S sessions at once: ``rows`` holds each
+        one's ``(g, masked, pstate, base_w2c, obs_rgb, obs_depth, work)``
+        (``pstate`` None without pruning) and, in paged mode, ``views``
+        each one's ``(page table, keyframe ring)``.  One run of one S-row
+        segment (each row's tensors and ops its own, as in a solo run): one
+        graph replay when fused on the card, with or without pruning.
+        Returns each row's ``(xi, work, losses, fired, view_idx, g,
+        pstate)``: ``view_idx`` None unless paged, ``g`` and ``pstate``
+        (storage-sized) as given without pruning."""
+        k, n_rows = self.cfg.iters_track, len(rows)
+        prune = self.cfg.prune is not None
+        views = views or [None] * n_rows
         inputs = {}
-        for s, ((g, masked, base_w2c, obs_rgb, obs_depth, work), view) in enumerate(
-                zip(rows, views)):
+        for s, ((g, masked, pstate, base_w2c, obs_rgb, obs_depth, work), view) in \
+                enumerate(zip(rows, views)):
+            # The pre-tracking build; pruning adds one per fired boundary.
             work = work._replace(frag_build_rows=work.frag_build_rows + self.build_rows(g))
             xi, ostate = self._pose_start()
             inputs.update(row_names(s, self._track_inputs(
-                g, masked, base_w2c, obs_rgb, obs_depth, None, None, xi, ostate,
-                work, view=view)))
+                g, masked, base_w2c, obs_rgb, obs_depth, xi, ostate, work,
+                pstate if prune else None, view)))
+        # Eager, without pruning the K iterations; with it also the build
+        # and the schedule (each fired boundary counts its own).
         final, runs = self.runner.run(
-            ("track", self.cfg.backend, self.factor, k, len(rows)),
-            rows_segment([self._track_segment(k, prune=False)] * len(rows)),
-            inputs, row_carry(self._TRACK_CARRY, len(rows)), iters=k)
+            ("track-prune" if prune else "track", self.cfg.backend, self.factor, k, n_rows),
+            rows_segment([self._track_segment(k, prune)] * n_rows), inputs,
+            row_carry(self._TRACK_CARRY, n_rows),
+            iters=k + (1 + self.scheduled if prune else 0), conditional=prune)
         out = []
-        for s in range(len(rows)):
+        for s, (g, _, pstate, *_) in enumerate(rows):
             f, r = row_view(s, final), row_view(s, runs[0])
-            out.append((f["xi"], unflat(f, "work", DeviceWork), r["losses"],
-                        torch.zeros(k, dtype=torch.bool, device=self.device),
-                        r.get("view_idx")))
+            if prune:
+                g = g.replace(alive=r["g.alive"])
+                pstate = unflat(r, "p", pruning.PruneState)
+                fired = r["fired"]
+            else:
+                fired = torch.zeros(k, dtype=torch.bool, device=self.device)
+            out.append((f["xi"], unflat(f, "work", DeviceWork), r["losses"], fired,
+                        r.get("view_idx"), g, pstate))
         return out
-
-    def _track_scan_prune(self, g, pstate: pruning.PruneState, base_w2c,
-                          obs_rgb, obs_depth, frags, work: DeviceWork):
-        """The K tracking iterations with §4.1 pruning: every iteration
-        accumulates the Eq. 7 scores from its own backward; on a fired
-        boundary the fragment lists are rebuilt at the current pose before
-        ``interval_update`` (and, on the ``schedule`` backend, the schedule
-        with them).  The iterations between boundaries (and on either side
-        of the stability warmup's end) are runs of a one-iteration segment.
-        Returns ``(xi, g, pstate, work, losses, fired)``."""
-        return self._track_rows_prune(
-            [(g, pstate, base_w2c, obs_rgb, obs_depth, frags, work)])[0]
-
-    def _track_rows_prune(self, rows, view_idxs=None):
-        """:meth:`_track_scan_prune` of S sessions at once: ``rows`` holds
-        each one's ``(g, pstate, base_w2c, obs_rgb, obs_depth, frags,
-        work)`` and, in paged mode, ``view_idxs`` each one's working set
-        (``frags`` are then the view's).  The iterations run as replays of
-        one one-iteration S-row segment, up to the next boundary any row's
-        host clock knows (or a row's stability warmup end); after each run
-        every row whose interval ran out takes its own boundary (on its
-        view, scattered back).  Returns each row's ``(xi, g, pstate, work,
-        losses, fired)``, ``g`` and ``pstate`` storage-sized."""
-        prune_cfg = self.cfg.prune
-        k, n_rows = self.cfg.iters_track, len(rows)
-        view_idxs = view_idxs or [None] * n_rows
-        st = []
-        for (g, pstate, base_w2c, obs_rgb, obs_depth, frags, work), view_idx in zip(
-                rows, view_idxs):
-            sched = self._sched_core(frags) if self.scheduled else None
-            xi, ostate = self._pose_start()
-            # The caller's pre-track build, plus one per fired boundary below.
-            st.append(dict(
-                g=g, pstate=pstate, base=base_w2c, rgb=obs_rgb, depth=obs_depth,
-                frags=frags, sched=sched, xi=xi, ostate=ostate, losses=[],
-                fired=[], view_idx=view_idx, work=work._replace(
-                    frag_build_rows=work.frag_build_rows + self.build_rows(g))))
-        segment = rows_segment([self._track_segment(1, prune=True)] * n_rows)
-        carry = row_carry(self._TRACK_CARRY + self._PRUNE_CARRY, n_rows)
-        done = 0
-        while done < k:
-            # Iterations to the nearest boundary (a row's ``iters_left``
-            # runs out), to the frame's end, or to a row's stability
-            # warmup end.
-            n, inputs = k - done, {}
-            for s, r in enumerate(st):
-                ps = r["pstate"]
-                settle = ps.opt_steps + 1 >= prune_cfg.stable_warmup
-                m = min(ps.iters_left, k - done)
-                if not settle:
-                    m = min(m, prune_cfg.stable_warmup - 1 - ps.opt_steps)
-                n = min(n, max(m, 1))
-                row = self._track_inputs(r["g"], ps.masked, r["base"], r["rgb"],
-                                         r["depth"], r["frags"], r["sched"],
-                                         r["xi"], r["ostate"], r["work"], ps,
-                                         view=r["view_idx"])
-                row["settle"] = constant(settle, torch.bool, self.device)
-                inputs.update(row_names(s, row))
-            final, runs = self.runner.run(
-                ("track-prune", self.cfg.backend, self.factor, n_rows), segment,
-                inputs, carry, times=n)
-            done += n
-            for s, r in enumerate(st):
-                f = row_view(s, final)
-                r["xi"] = f["xi"]
-                r["ostate"] = AdamState(step=f["opt.step"], mu={"xi": f["opt.mu.xi"]},
-                                        nu={"xi": f["opt.nu.xi"]})
-                r["work"] = unflat(f, "work", DeviceWork)
-                ps = r["pstate"]
-                ps = ps._replace(
-                    score=f["p.score"], grad_ema=f["p.grad_ema"], age=f["p.age"],
-                    stable=f["p.stable"], iters_left=ps.iters_left - n,
-                    opt_steps=ps.opt_steps + n)
-                r["losses"] += [row_view(s, run)["losses"] for run in runs]
-                r["fired"] += [False] * n
-
-                def build_fn(gg, mm, xi=r["xi"], base=r["base"]):
-                    return self._build_core(gg, mm, lie.se3_exp(xi) @ base)
-
-                vidx = r["view_idx"]
-                if vidx is None:
-                    ps, r["g"], r["frags"], hit = pruning.cond_interval_update(
-                        ps, r["g"], r["frags"], build_fn, prune_cfg)
-                else:
-                    view_ps, view_g, r["frags"], hit = pruning.cond_interval_update(
-                        pruning.gather_rows(ps, vidx), gather_field(r["g"], vidx),
-                        r["frags"], build_fn, prune_cfg)
-                    ps = pruning.scatter_rows(ps, view_ps, vidx)
-                    r["g"] = scatter_field(r["g"], view_g, vidx)
-                r["pstate"] = ps
-                if hit:
-                    self.runner.count(syncs=1)      # interval_update's churn read
-                    r["fired"][-1] = True
-                    r["work"] = r["work"]._replace(
-                        frag_build_rows=r["work"].frag_build_rows + self.build_rows(r["g"]))
-                    if self.scheduled:
-                        r["sched"] = self._sched_core(r["frags"])
-        return [(r["xi"], r["g"], r["pstate"], r["work"], torch.cat(r["losses"]),
-                 torch.tensor(r["fired"], dtype=torch.bool, device=self.device))
-                for r in st]
 
     def _map_scan_masked(self, g, masked, opt_state, kf_w2c, kf_rgb, kf_depth,
                          n_valid, work: DeviceWork, stable=None):

@@ -30,7 +30,13 @@ without a read;
 on the CPU, the same function runs under ``if bool(flag)``; eager, the
 flags are read.  A body writes its ``carry`` outputs into the inputs of
 the same name, so a skipped body leaves the state as it was, and its
-per-step outputs over defaults written before its node.
+per-step outputs over defaults written before its node.  A segment may
+also run bodies under device flags anywhere inside its own loop
+(:meth:`PhaseRunner.run` with ``conditional``: the segment gets a
+``when(flag, body)``, the counterpart of a ``lax.cond`` inside a
+``lax.scan`` body, which §4.1's pruning boundary is): each body is
+captured under an IF node of its own and writes in place into buffers
+made before it.
 
 Static buffers and aliasing.  The runner owns each segment's input buffers:
 :meth:`PhaseRunner.run` copies the caller's tensors in with ``copy_``.
@@ -56,18 +62,17 @@ Units of :class:`EngineStats` (the reference's ``engine.py:96-110``):
 * **dispatch** — one graph replay (one run of a segment when fused, also
   on the CPU); when not fused, each eager host call that one run of a
   segment stands for (its iterations and the phase cores it calls: each
-  fragment-list build, schedule build and forward render, densification);
-  and one eager host call of a phase core outside the segments: §4.1
-  pruning's fragment-list build (``_build_core``) and schedule
-  (``_sched_core``), and a fired boundary's rebuild, schedule and
-  ``interval_update``;
-* **sync** — one device-to-host read: a fired boundary's churn read
-  (``core/pruning.py``), under §4.2 Photo-SLAM's host factor choice and
-  the read of a device keyframe flag (``session.run_sequence``), an eager
-  (not fused) run's read of GS-SLAM's and Photo-SLAM's flags, the seed
-  map's two frame reads and finalize's reads.  Neither a fragment-list
-  build (``core/sorting.py``), densification nor a keyframe decision
-  reads anything back;
+  fragment-list build, schedule build and forward render, densification),
+  and those of each conditional body that runs (a fired §4.1 boundary:
+  its rebuild, ``interval_update`` and, on ``schedule``, its schedule);
+* **sync** — one device-to-host read: under §4.2 Photo-SLAM's host
+  factor choice and the read of a device keyframe flag
+  (``session.run_sequence``), an eager (not fused) run's read of a
+  device flag (GS-SLAM's and Photo-SLAM's keyframe decision; §4.1's
+  boundary check, once per tracking iteration, as the reference's
+  unfused loop reads it), the seed map's two frame reads and finalize's
+  reads.  Neither a fragment-list build (``core/sorting.py``), a pruning
+  boundary, densification nor a keyframe decision reads anything back;
 * **replay** — one CUDA graph replay (0 on the CPU);
 * **capture** — one segment captured as a CUDA graph (its warm-up run and
   its capture: a session's first use of a phase at a factor and shape).
@@ -89,9 +94,13 @@ graph with the same bits.)  ``session_init``'s bootstrap mapping is one
 replay too.  When not fused a keyframe's mapping counts ``2 +
 (W + iters_map // stride) * (1 + scheduled) + iters_map + 2`` (``W`` the
 window; ``W + scheduled + 1`` more under sparse mapping), the same kernels
-in the same order.  A fired §4.1 boundary adds
-its rebuild and read; ``tests/test_torch_fused.py`` holds the counts to
-the formula.
+in the same order.  RTGS (§4.1 pruning) counts the same fused: its
+tracking phase, the frame's build, the K iterations and every fired
+boundary, is one replay, so a tracking-only frame counts 1 / 0 / 1 and a
+keyframe 2 / 0 / 2 (the reference's ``_track_scan_prune`` is one
+``lax.scan``); eager it counts ``1 + scheduled + K + fired * (2 +
+scheduled)`` dispatches and K syncs.  ``tests/test_torch_fused.py`` holds
+the counts to the formula.
 
 S rows (``session.step_many``).  S stacked sessions share one runner, and
 each tracking segment has an S-row form (:func:`rows_segment`): row ``s``'s
@@ -106,10 +115,9 @@ by S; solo is S = 1.  A frame-step of S rows counts:
   builds ride inside the one replay);
 * any row may take one: 2 dispatches, 0 syncs and 2 replays, however many
   rows map (GS-SLAM and Photo-SLAM: every frame-step);
-* with §4.1 pruning, tracking is S eager builds (and schedules) and K
-  replays of a one-iteration S-row segment, plus each row's fired
-  boundaries (2 dispatches and 1 sync each, 3 and 1 on ``schedule``);
-  Photo-SLAM's geometric tracking is 1 replay for all rows.
+* with §4.1 pruning the same: each row's build, iterations and fired
+  boundaries ride inside the one S-row tracking replay; Photo-SLAM's
+  geometric tracking is 1 replay for all rows.
 
 ``tests/test_torch_stacked.py`` holds the S-row counts to this formula.
 """
@@ -118,6 +126,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import torch
@@ -195,13 +204,14 @@ def row_carry(carry, n_rows: int) -> tuple:
     return tuple(f"{s}/{k}" for s in range(n_rows) for k in carry)
 
 
-def rows_segment(fns) -> Callable[[dict], dict]:
+def rows_segment(fns) -> Callable[..., dict]:
     """The S-row segment that runs one-row segment ``fns[s]`` on row
-    ``s``'s tensors (:func:`row_names`), one row after another."""
-    def fn(t):
+    ``s``'s tensors (:func:`row_names`), one row after another; any
+    further argument (a conditional segment's ``when``) is passed on."""
+    def fn(t, *args):
         out = {}
         for s, f in enumerate(fns):
-            out.update(row_names(s, f(row_view(s, t))))
+            out.update(row_names(s, f(row_view(s, t), *args)))
         return out
     return fn
 
@@ -285,34 +295,48 @@ class PhaseRunner:
         self._pool = None
         # Kernel launches counted through replays, by wrapper name.
         self.replayed_launches = {c.__name__: 0 for c in launch_counters()}
+        # (key, host seconds) of every capture, warm-up included.
+        self.capture_times: list = []
 
     def count(self, dispatches: int = 1, syncs: int = 0) -> None:
         """Count an eager host call of a phase core and its reads."""
         self.stats.dispatches += dispatches
         self.stats.syncs += syncs
 
-    def run(self, key, fn: Callable[[dict], dict], inputs: dict, carry=(),
-            times: int = 1, iters: int = 1):
+    def run(self, key, fn: Callable[..., dict], inputs: dict, carry=(),
+            times: int = 1, iters: int = 1, conditional: bool = False):
         """Run ``fn`` ``times`` times from ``inputs``; returns ``(carried,
         runs)``: the final value of every ``carry`` output and, per run,
         the other outputs.  ``iters`` is the dispatches one eager run of
-        ``fn`` counts (its iterations and the phase cores it calls)."""
+        ``fn`` counts (its iterations and the phase cores it calls).
+
+        ``conditional``: ``fn`` is called as ``fn(t, when)``, where
+        ``when(flag, body, iters)`` runs the zero-argument ``body`` under
+        the () bool device tensor ``flag`` at that point of the segment
+        (the counterpart of a ``lax.cond`` inside a ``lax.scan`` body).
+        ``body`` must write its results in place into tensors that exist
+        before the call, so a skipped body leaves them as they were.
+        Fused on the card it is captured under a CUDA graph IF node, and a
+        replay runs or skips it without a read; fused on the CPU it runs
+        under ``if bool(flag)``; eager, the flag is read (one sync) and a
+        body that runs counts ``iters`` dispatches."""
         if not self.fused:
             tensors, runs = dict(inputs), []
+            args = (self._eager_when,) if conditional else ()
             for _ in range(times):
-                out = fn(tensors)
+                out = fn(tensors, *args)
                 tensors.update({k: out[k] for k in carry})
                 runs.append({k: v for k, v in out.items() if k not in carry})
                 self.stats.dispatches += iters
             return {k: tensors[k] for k in carry}, runs
 
-        seg = self._segment(key, fn, inputs, carry)
+        seg = self._segment(key, fn, inputs, carry, conditional)
         for k, v in inputs.items():
             seg.inputs[k].copy_(v)
         runs = []
         for _ in range(times):
             if seg.graph is None:
-                out = fn(seg.inputs)
+                out = fn(seg.inputs, *((_cpu_when,) if conditional else ()))
                 for k in carry:
                     seg.inputs[k].copy_(out[k])
             else:
@@ -321,6 +345,12 @@ class PhaseRunner:
             runs.append({k: v.clone() for k, v in out.items() if k not in carry})
             self.stats.dispatches += 1
         return {k: seg.inputs[k].clone() for k in carry}, runs
+
+    def _eager_when(self, flag, body, iters: int = 1) -> None:
+        self.stats.syncs += 1
+        if bool(flag):
+            body()
+            self.stats.dispatches += iters
 
     def run_when(self, key, decide: Callable[[dict], torch.Tensor],
                  body: Callable[[dict], dict], inputs: dict, flags, carry,
@@ -362,14 +392,14 @@ class PhaseRunner:
             seg.host_rows = tuple(f is not None for f in flags)
             seg.flags = [None] * n
             if self.capture:
-                self._capture_when(seg, self._when_plan(seg, decide, body, n, carry),
+                self._capture_when(key, seg, self._when_plan(seg, decide, body, n, carry),
                                    decide, body, n)
             self._segments[full_key] = seg
         for k, v in inputs.items():
             seg.inputs[k].copy_(v)
         if seg.graph is None:
             self._when_plan(seg, decide, body, n, carry)(
-                lambda s, flag, fn: fn() if bool(flag) else None)
+                lambda flag, fn, device_decided: _cpu_when(flag, fn))
         else:
             self._replay(seg)
             for s, f in enumerate(flags):
@@ -403,7 +433,7 @@ class PhaseRunner:
 
     def _when_plan(self, seg: _Segment, decide, body, n: int, carry):
         """The rows of a conditional segment over its buffers, given
-        ``cond(s, flag, fn)``, which runs ``fn`` under ``flag``: each row's
+        ``cond(flag, fn)``, which runs ``fn`` under ``flag``: each row's
         decision, then its per-step defaults, then its body."""
         def plan(cond):
             for s in range(n):
@@ -422,10 +452,8 @@ class PhaseRunner:
                         buf = seg.outputs[f"{s}/{k}"]
                         _check_like(k, out[k], buf)
                         buf.copy_(out[k])
-                    if seg.runs is not None and not seg.host_rows[s]:
-                        seg.runs[s:s + 1].add_(1)
 
-                cond(s, flag, run_body)
+                cond(flag, run_body, not seg.host_rows[s])
         return plan
 
     def _replay(self, seg: _Segment) -> None:
@@ -467,20 +495,40 @@ class PhaseRunner:
             self.fold_run_counts(counts.tolist())
             self.stats.syncs += 1
 
-    def _segment(self, key, fn, inputs: dict, carry) -> _Segment:
+    def _segment(self, key, fn, inputs: dict, carry, conditional: bool) -> _Segment:
         full_key = (key, tuple(carry), tuple(
             (k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())))
         seg = self._segments.get(full_key)
         if seg is None:
             seg = _Segment(inputs)
             if self.capture:
-                self._capture(seg, fn, carry)   # raises on failure; nothing kept
+                # raises on failure; nothing kept
+                self._capture(key, seg, fn, carry, conditional)
             self._segments[full_key] = seg
         return seg
 
-    def _capture(self, seg: _Segment, fn, carry) -> None:
+    def _capture(self, key, seg: _Segment, fn, carry, conditional: bool) -> None:
+        """Capture a segment: one warm-up run on a side stream (with every
+        conditional body run on the bodies' stream, whatever its flag),
+        then the graph, each conditional body under an IF node
+        (:meth:`_capture_node`)."""
+        t0 = time.perf_counter()
         counters = launch_counters()
         before = [c.launches for c in counters]
+        bs = _body_stream_and_pool(self.device)[0] if conditional else None
+        nodes = []
+
+        def warm_when(flag, body, iters=1):
+            cur = torch.cuda.current_stream()
+            bs.wait_stream(cur)
+            with torch.cuda.stream(bs):
+                body()
+            cur.wait_stream(bs)
+            nodes.append(flag)
+
+        def node_when(flag, body, iters=1):
+            self._capture_node(seg, flag, body, True)
+
         try:
             with torch.cuda.device(self.device):
                 # Warm-up off the capture: lazy initialisation and the
@@ -488,13 +536,17 @@ class PhaseRunner:
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):
-                    fn(seg.inputs)
+                    fn(seg.inputs, *((warm_when,) if conditional else ()))
                 torch.cuda.current_stream().wait_stream(side)
                 for c, b in zip(counters, before):
                     c.launches = b
+                if nodes:
+                    seg.runs = torch.zeros((len(nodes),), dtype=torch.int64,
+                                           device=self.device)
+                    seg.folded = [0] * len(nodes)
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self._graph_pool()):
-                    out = fn(seg.inputs)
+                    out = fn(seg.inputs, *((node_when,) if conditional else ()))
                     for k in carry:
                         seg.inputs[k].copy_(out[k])
             seg.deltas = tuple(c.launches - b for c, b in zip(counters, before))
@@ -503,48 +555,58 @@ class PhaseRunner:
                 c.launches = b
         seg.graph, seg.outputs = graph, out
         self.stats.captures += 1
+        self.capture_times.append((key, time.perf_counter() - t0))
 
     def _graph_pool(self):
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def _capture_when(self, seg: _Segment, plan, decide, body, n: int) -> None:
+    def _capture_node(self, seg: _Segment, flag: torch.Tensor, fn,
+                      device_decided: bool) -> None:
+        """Inside a capture: ``fn`` under a conditional IF node on the ()
+        bool device tensor ``flag``, captured on the bodies' stream into
+        the node's body graph with its allocations routed into the bodies'
+        pool (:data:`_BODY`), so nothing outside a body shares their
+        memory.  Its launches are kept apart in ``seg.body_deltas`` (the
+        node's index); a ``device_decided`` node counts its runs in
+        ``seg.runs`` on the device."""
+        counters = launch_counters()
+        lib = _cond_lib()
+        bs, body_pool = _body_stream_and_pool(self.device)
+        node, mid = len(seg.body_deltas), [c.launches for c in counters]
+        cs, dev_index = torch.cuda.current_stream(), torch.cuda.current_device()
+        body_graph = _P()
+        _cuda_check("opening a conditional node", lib.cond_begin(
+            cs.cuda_stream, flag.data_ptr(), bs.cuda_stream, ctypes.byref(body_graph)))
+        try:
+            with torch.cuda.stream(bs):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(dev_index, body_pool)
+                try:
+                    fn()
+                    if device_decided:
+                        seg.runs[node:node + 1].add_(1)
+                finally:
+                    torch._C._cuda_endAllocateToPool(dev_index, body_pool)
+        except BaseException:
+            # The body's error is the one raised; its node stays empty.
+            lib.cond_end(bs.cuda_stream, body_graph)
+            raise
+        _cuda_check("closing a conditional node",
+                    lib.cond_end(bs.cuda_stream, body_graph))
+        seg.body_deltas.append(tuple(c.launches - m for c, m in zip(counters, mid)))
+        for c, m in zip(counters, mid):
+            c.launches = m
+
+    def _capture_when(self, key, seg: _Segment, plan, decide, body, n: int) -> None:
         """Capture a conditional segment: one warm-up run of every row's
         decision and body on the body stream (which makes the lazily built
         buffers, the body stream's cuBLAS workspace among them), then the
-        graph.  Each body is captured on the body stream into its IF node's
-        body graph, its allocations routed into the bodies' pool
-        (:data:`_BODY`): only bodies allocate there, so nothing outside a
-        body shares their memory."""
+        graph, each row's body under an IF node (:meth:`_capture_node`)."""
+        t0 = time.perf_counter()
         counters = launch_counters()
         before = [c.launches for c in counters]
-        lib = _cond_lib()
-        bs, body_pool = _body_stream_and_pool(self.device)
-
-        def cond(s, flag, fn):
-            mid = [c.launches for c in counters]
-            cs, dev_index = torch.cuda.current_stream(), torch.cuda.current_device()
-            body_graph = _P()
-            _cuda_check("opening a conditional node", lib.cond_begin(
-                cs.cuda_stream, flag.data_ptr(), bs.cuda_stream, ctypes.byref(body_graph)))
-            try:
-                with torch.cuda.stream(bs):
-                    torch._C._cuda_beginAllocateCurrentStreamToPool(dev_index, body_pool)
-                    try:
-                        fn()
-                    finally:
-                        torch._C._cuda_endAllocateToPool(dev_index, body_pool)
-            except BaseException:
-                # The body's error is the one raised; its node stays empty.
-                lib.cond_end(bs.cuda_stream, body_graph)
-                raise
-            _cuda_check("closing a conditional node",
-                        lib.cond_end(bs.cuda_stream, body_graph))
-            seg.body_deltas.append(tuple(c.launches - m for c, m in zip(counters, mid)))
-            for c, m in zip(counters, mid):
-                c.launches = m
-
+        bs = _body_stream_and_pool(self.device)[0]
         try:
             with torch.cuda.device(self.device):
                 bs.wait_stream(torch.cuda.current_stream())
@@ -562,10 +624,19 @@ class PhaseRunner:
                     seg.folded = [0] * n
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self._graph_pool()):
-                    plan(cond)
+                    plan(lambda flag, fn, device_decided: self._capture_node(
+                        seg, flag, fn, device_decided))
             seg.deltas = tuple(c.launches - b for c, b in zip(counters, before))
         finally:
             for c, b in zip(counters, before):
                 c.launches = b
         seg.graph = graph
         self.stats.captures += 1
+        self.capture_times.append((key, time.perf_counter() - t0))
+
+
+def _cpu_when(flag, body, iters: int = 1) -> None:
+    """A conditional body fused on the CPU: the flag is a host read there,
+    which costs no sync."""
+    if bool(flag):
+        body()

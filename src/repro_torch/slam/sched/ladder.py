@@ -109,8 +109,8 @@ class PoolLadder:
 
     def warmup(self) -> dict:
         """Capture every segment a serving step can reach: each rung's
-        S-row tracking graph (one blank-frame step; with pruning, the
-        one-iteration graph) and one template swap, then each rung's S-row
+        S-row tracking graph (one blank-frame step; with pruning, every
+        boundary under its conditional nodes) and one template swap, then each rung's S-row
         keyframe graph (``warm_keyframe`` on S copies of the template: the
         dense graph, or the sparse one under ``cfg.sparse_opt``; the window
         fill and the rows' flags are device values, so it serves every fill

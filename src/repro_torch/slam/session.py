@@ -43,10 +43,11 @@ Photo-SLAM decide inside the keyframe graph, on the device, so each of
 their frames is two replays and reads nothing back.  The keyframe
 counters, the last keyframe's index and image and the PSNR log are
 device tensors, and the densify picks are drawn ahead at init into a
-table the body indexes (nothing inside a graph may draw).  The other
-``lax.cond`` branches are host ``if``s on host integers (frame index,
-the pruning interval clock); a fired pruning boundary reads one device
-value.  ``stats=`` (an
+table the body indexes (nothing inside a graph may draw).  §4.1's
+pruning boundary is a conditional body inside the tracking graph, on the
+device interval clock, so an RTGS tracking phase is one replay too.  The
+other ``lax.cond`` branches are host ``if``s on host integers (the frame
+index).  ``stats=`` (an
 :class:`~repro_torch.slam.graphs.EngineStats`) counts dispatches, syncs
 and graph replays, as the reference counts its dispatches and syncs.  A
 step writes the session's trajectory and alive logs in place and
@@ -755,8 +756,7 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
 
     # Each row's (xi, work, losses, fired, view_idx); pruning also changes
     # g and pstate.  In paged mode ``view_idx`` is the frame's working set,
-    # computed inside tracking (inside the pre-tracking build when
-    # pruning) and passed to the keyframe segment.
+    # computed inside tracking and passed to the keyframe segment.
     bases = [sess.velocity @ sess.pose for sess in rows]
     gs, pstates = [sess.g for sess in rows], [sess.pstate for sess in rows]
     paged = cfg.paged is not None
@@ -766,23 +766,13 @@ def _step_rows(rows: List["SlamSession"], obs, factor: int, perms,
         st_t = rows[0].stage_at(factor)
         obs_t = [(downsample_image(rgb, factor), downsample_depth(depth, factor))
                  for rgb, depth in obs]
-        if cfg.prune is not None:
-            built = [st_t._paged_build_core(sess.g, sess.cur_masked, base, sess.page,
-                                            sess.kf_w2c) if paged else
-                     (st_t._build_core(sess.g, sess.cur_masked, base), None)
-                     for sess, base in zip(rows, bases)]
-            out = st_t._track_rows_prune([
-                (sess.g, sess.pstate, base, o_rgb, o_depth, frags, device_work_zero(dev))
-                for sess, base, (o_rgb, o_depth), (frags, _) in zip(
-                    rows, bases, obs_t, built)], [v for _, v in built])
-            gs, pstates = [o[1] for o in out], [o[2] for o in out]
-            tracked = [(xi, w, losses, fired, v) for (xi, _, _, w, losses, fired), (_, v)
-                       in zip(out, built)]
-        else:
-            tracked = st_t._track_rows_noprune([
-                (sess.g, sess.cur_masked, base, o_rgb, o_depth, device_work_zero(dev))
-                for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)],
-                [(sess.page, sess.kf_w2c) for sess in rows] if paged else None)
+        out = st_t._track_rows([
+            (sess.g, sess.cur_masked, sess.pstate, base, o_rgb, o_depth,
+             device_work_zero(dev))
+            for sess, base, (o_rgb, o_depth) in zip(rows, bases, obs_t)],
+            [(sess.page, sess.kf_w2c) for sess in rows] if paged else None)
+        tracked = [o[:5] for o in out]
+        gs, pstates = [o[5] for o in out], [o[6] for o in out]
 
     with torch.no_grad():
         new_poses = [lie.se3_exp(t[0]) @ base for t, base in zip(tracked, bases)]
@@ -1043,7 +1033,7 @@ def step_many(stacked: SessionStack, frames, *,
     sequence of S per-session frames or an :class:`Observation`; ``perms``
     fixes each row's densify pick (tests only).  Each row does its solo
     step's work, bit for bit: the S rows' tracking is one run of an S-row
-    segment (one graph replay when no row prunes), and their keyframe
+    segment (one graph replay, pruning boundaries included), and their keyframe
     branches one run of the S-row keyframe segment (one replay, each row's
     mapping under its own flag), which a frame-step the host knows has no
     keyframe row skips.  Nothing is read back.  Returns the advanced stack

@@ -34,16 +34,13 @@ def tree_tensors(tree) -> list:
 
 
 def same_session(a, b) -> bool:
-    """Two port sessions hold the same state bit for bit: every tensor,
-    the host clocks and counts, and the densify generator's state."""
+    """Two port sessions hold the same state bit for bit: every tensor
+    (the pruning clocks among them), the host counts, and the densify
+    generator's state."""
     host = ("frame_idx", "last_kf_host")
     if any(getattr(a, f) != getattr(b, f) for f in host):
         return False
     if (a.pstate is None) != (b.pstate is None):
-        return False
-    if a.pstate is not None and any(
-            getattr(a.pstate, f) != getattr(b.pstate, f)
-            for f in ("interval", "iters_left", "opt_steps")):
         return False
     ta, tb = tree_tensors(a), tree_tensors(b)
     return (len(ta) == len(tb) and all(same_bits(x, y) for x, y in zip(ta, tb))

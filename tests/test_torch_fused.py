@@ -45,8 +45,8 @@ PATHS = {
     "schedule": dict(backend="schedule"),
     "rtgs": dict(prune=PruneConfig(k0=2, step_frac=0.08),
                  downsample=DownsampleConfig(enabled=True)),
-    # The stability warmup ends inside frame 3's tracking, so the
-    # one-iteration pruning segment runs both before and after it.
+    # The stability warmup ends inside frame 3's tracking, whose one
+    # segment run reads the warmup's end from the device clock.
     "sparse": dict(backend="schedule", sparse_opt=True,
                    prune=PruneConfig(k0=2, step_frac=0.1, stable_ema_beta=0.6,
                                      stable_rel=4.0, stable_age=2, stable_warmup=8)),
@@ -186,21 +186,25 @@ def test_step_results_do_not_alias_the_next_step(data):
 
 def _expected(cfg, kf, fired):
     """Dispatches and syncs of one MonoGS step by the formula of
-    ``slam/graphs.py``; ``fired`` are the step's boundary flags.  Without
-    pruning, tracking (its build and schedule included) is one replay of a
-    K-iteration segment; with pruning, an eager build (and schedule), K
-    replays of a one-iteration segment and, per fired boundary, a rebuild,
-    a schedule and ``interval_update`` (its one read); eager, K iterations
-    in place of the replays.  A keyframe's mapping work is one replay of
-    the keyframe segment; eager, one dispatch per host call it stands for.
-    Neither a fragment-list build nor densification reads the device."""
+    ``slam/graphs.py``; ``fired`` are the step's boundary flags.  Fused,
+    tracking (its build and schedule, and with pruning every fired
+    boundary, included) is one run of a K-iteration segment, with or
+    without pruning.  Eager, K iterations; with pruning also the build
+    (and schedule), one read per iteration for the boundary check (as the
+    reference's unfused loop reads it) and, per fired boundary, a rebuild,
+    ``interval_update`` and a schedule.  A keyframe's mapping work is one
+    replay of the keyframe segment; eager, one dispatch per host call it
+    stands for.  Neither a fragment-list build, a boundary nor
+    densification reads the device."""
     sched = cfg.backend == "schedule"
     k = cfg.iters_track
-    if cfg.prune is None:
-        d, s = (1 if cfg.fused else k), 0
+    if cfg.fused:
+        d, s = 1, 0
+    elif cfg.prune is None:
+        d, s = k, 0
     else:
         d = 1 + sched + k + sum(fired) * (2 + sched)
-        s = sum(fired)
+        s = k
     if kf and cfg.fused:
         d += 1
     elif kf:

@@ -340,12 +340,13 @@ def test_view_helpers_match():
     def prune_state(seed, rows):
         q = np.random.default_rng(seed)
         return dict(score=q.normal(size=rows).astype(np.float32),
-                    masked=q.uniform(size=rows) < 0.3, interval=4, iters_left=2,
+                    masked=q.uniform(size=rows) < 0.3, interval=np.int32(4),
+                    iters_left=np.int32(2),
                     prev_tile_count=q.integers(0, 9, 12).astype(np.int32),
                     initial_alive=np.int32(300), removed=np.int32(seed),
                     grad_ema=q.normal(size=rows).astype(np.float32),
                     age=q.integers(0, 5, rows).astype(np.int32),
-                    stable=q.uniform(size=rows) < 0.5, opt_steps=7)
+                    stable=q.uniform(size=rows) < 0.5, opt_steps=np.int32(7))
 
     full, view = prune_state(1, n), prune_state(2, m)
 
@@ -360,7 +361,7 @@ def test_view_helpers_match():
                   jpruning.scatter_rows(ps_j(full), ps_j(view), ij))):
         for f in tpruning.PruneState._fields:
             x, y = getattr(a, f), getattr(b, f)
-            assert (x == int(y)) if isinstance(x, int) else _same(x, y), f
+            assert _same(x, y), f
 
     def adam(seed, rows):
         q = np.random.default_rng(seed)

@@ -4,7 +4,7 @@
 The inputs are numpy draws from a seed; every case runs the same sequence
 of calls on both sides.  Integer and bool leaves (masks, ``interval``,
 ``iters_left``, ``removed``, ``prev_tile_count``, ``age``, ``stable``) must
-be equal; float leaves (``score``, ``grad_ema``) agree within 1e-6
+be equal, the clocks as () int32 tensors; float leaves (``score``, ``grad_ema``) agree within 1e-6
 relative.  The cases mirror ``tests/test_pruning_downsample.py``, plus
 selections where most scores tie at 0.
 """
@@ -54,7 +54,8 @@ def assert_state_equal(t, j):
     for f in tp.PruneState._fields:
         got, want = getattr(t, f), getattr(j, f)
         if f in CLOCKS:
-            assert got == int(want), f
+            assert got.dtype == torch.int32 and got.shape == (), f
+            assert int(got) == int(want), f
         elif f in FLOATS:
             np.testing.assert_allclose(np_(got), np.asarray(want), rtol=1e-6,
                                        atol=1e-30, err_msg=f)
@@ -174,7 +175,7 @@ def test_prune_cap_respected(seed):
 def test_interval_adapts_to_churn(counts, k_next):
     s = _boundaries(np.ones(8, bool), [np.zeros(8)], [counts], dict(k0=8),
                     prev=[10, 10, 10, 10])
-    assert s.interval == s.iters_left == k_next
+    assert int(s.interval) == int(s.iters_left) == k_next
 
 
 @pytest.mark.parametrize("zero_frac", [0.5, 0.9, 1.0])
@@ -223,28 +224,31 @@ def test_retile_matches_and_parks_baselines():
 @pytest.mark.parametrize("iters_left", [2, 0])
 def test_cond_interval_update_matches(iters_left):
     """Off a boundary everything passes through; on one the lists are
-    rebuilt by ``build_fn`` and ``interval_update`` runs."""
+    rebuilt by ``build_fn`` and ``interval_update`` runs.  The port writes
+    the state, ``alive`` and the lists in place and returns ``fired`` as
+    a () bool tensor."""
     r = np.random.default_rng(iters_left)
     n, tiles = 24, 4
     (g_j, s_j, jcfg), (g_t, s_t, tcfg) = _start(
         np.ones(n, bool), tiles, dict(k0=2, step_frac=0.25),
         score=r.uniform(size=n).astype(np.float32))
     s_j, s_t = s_j._replace(iters_left=jnp.asarray(iters_left, jnp.int32)), \
-        s_t._replace(iters_left=iters_left)
+        s_t._replace(iters_left=th(np.int32(iters_left)))
     fresh = (r.integers(-1, n, (tiles, 8)).astype(np.int32),
              r.integers(0, 8, tiles).astype(np.int32), np.int32(0), np.int32(11))
     cur = tuple(np.zeros_like(x) for x in fresh)
     out_j = jp.cond_interval_update(
         s_j, g_j, FragmentLists(*map(jx, cur)), lambda gg, mm: FragmentLists(*map(jx, fresh)),
         jcfg)
-    out_t = tp.cond_interval_update(
-        s_t, g_t, FragmentLists(*map(th, cur)), lambda gg, mm: FragmentLists(*map(th, fresh)),
-        tcfg)
-    assert_state_equal(out_t[0], out_j[0])
-    assert np.array_equal(np_(out_t[1].alive), np.asarray(out_j[1].alive))
-    for a, b in zip(out_t[2], out_j[2]):
+    frags_t = FragmentLists(*map(th, cur))
+    fired_t = tp.cond_interval_update(
+        s_t, g_t, frags_t, lambda gg, mm: FragmentLists(*map(th, fresh)), tcfg)
+    assert_state_equal(s_t, out_j[0])
+    assert np.array_equal(np_(g_t.alive), np.asarray(out_j[1].alive))
+    for a, b in zip(frags_t, out_j[2]):
         assert np.array_equal(np_(a), np.asarray(b))
-    assert out_t[3] == bool(out_j[3]) == (iters_left == 0)
+    assert fired_t.dtype == torch.bool and fired_t.shape == ()
+    assert bool(fired_t) == bool(out_j[3]) == (iters_left == 0)
 
 
 def test_masks_and_ratio_match():
@@ -260,7 +264,7 @@ def test_masks_and_ratio_match():
 
 def test_prune_state_round_trip():
     """``convert.prune_state_from_numpy`` carries all eleven leaves of a
-    reference state across (clocks as host ints) and back unchanged."""
+    reference state across (clocks as () int32 tensors) and back unchanged."""
     r = np.random.default_rng(6)
     n = 40
     g_j, _ = _fields(r.uniform(size=n) > 0.1)
@@ -275,5 +279,6 @@ def test_prune_state_round_trip():
         stable=jx(r.uniform(size=n) < 0.5), opt_steps=jnp.asarray(13, jnp.int32))
     s_t = convert.prune_state_from_numpy(jax.device_get(s_j), device="cpu")
     assert_state_equal(s_t, s_j)
-    assert all(isinstance(getattr(s_t, f), int) for f in CLOCKS)
+    assert all(getattr(s_t, f).dtype == torch.int32 and getattr(s_t, f).shape == ()
+               for f in CLOCKS)
     assert s_t.masked.dtype == torch.bool and s_t.age.dtype == torch.int32

@@ -181,8 +181,7 @@ def test_sharded_pool_matches_step_many_bit_for_bit(duo):
         assert srv.pump() == 1
         steps.append((pool.stats.dispatches - before, srv.last_result.is_kf))
     srv.drain()
-    # A tracking-only frame-step of the two rows with pruning: two eager
-    # builds and the K one-iteration replays, plus the boundaries' work.
+    # The first frame-step is tracking-only, the second maps both rows.
     assert steps[0][1] == (False, False) and steps[1][1] == (True, True)
     assert srv.stats.steps == 3 and srv.stats.frames_in == 6
     assert srv.stats.queue_wait_s >= 0.0
