@@ -13,7 +13,21 @@ Run from the root of a checkout.  In order, it
    ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, prints the
    ``-Xptxas -v`` lines and each kernel's registers and spills, and checks
    that K2, K5 and K3's merge at the main path's width spill nothing;
-3. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
+3. ``[lm]``: the LM scaffold's serving path (``models/``,
+   ``launch/serve.py``; it reaches no ``pallas_call``, so it adds no kernel
+   to the kernels line): zamba2-1.2b and phi4-mini-3.8b initialised on the
+   card at full width and served through ``launch.serve.serve`` (4 x 256
+   prompt tokens, 64 greedy tokens; one warm-up, then the median of 3),
+   every logit finite and every tensor on the card, prefill tokens/s,
+   decode ms per step and tokens/s, peak memory and parameter bytes,
+   decode vs forward at 128 tokens, one decode step under
+   ``set_sync_debug_mode("error")`` (with ``profile``, one traced decode
+   step each: launches, busy and idle time, top device operations); then
+   the ten architectures at
+   reduced size, card against the port's own CPU run (prefill, pad_cache
+   and 4 teacher-forced decode steps), and the reference's
+   decode-vs-forward invariant on the card for four of them;
+4. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
    card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
    fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
    to tile order against K1 and K2 bit for bit, and times all of them with
@@ -26,21 +40,21 @@ Run from the root of a checkout.  In order, it
    float64 prefix sum at (307200, 10) and times it beside ``torch.cumsum``
    (K3 and ``index_add_`` as device time from CUDA-graph replays, since
    their kernels take less time than the host needs to launch them);
-4. repeats the comparisons and times of step 3 on the packed attrs of a
+5. repeats the comparisons and times of step 3 on the packed attrs of a
    full-size ground-truth view (uneven tile loads), prints their tile-load
    and pair-load imbalance, and holds K3's merge (GMU level 2) on that
    view's K2 gradients, alone and as four views at once, against its plain
    version (bit for bit), a second launch and a float64 segment sum, and
    times it, the whole ``merge_views`` call and one ``index_add_`` of the
    valid rows;
-5. renders the full-size ground-truth scene through the ``kernel`` backend
+6. renders the full-size ground-truth scene through the ``kernel`` backend
    and the pure-tensor ``ref`` backend and compares images and gradients;
    checks that the ``schedule`` backend equals the ``kernel`` backend bit
    for bit (images and per-Gaussian gradients, 1 and 4 views) and that a
    batched 4-view render equals four single-view renders;
-6. runs a small session on the card and on the CPU from the same inputs
+7. runs a small session on the card and on the CPU from the same inputs
    and compares poses and PSNR;
-7. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
+8. runs the MonoGS SLAM session on the full-size room0 scene (640x480,
    12 frames, a 131072-Gaussian pool) with every launch counter set to 0
    just before, fused (the default: each phase's iterations replayed as a
    CUDA graph), and checks that K1, K2 and K3 carried it (one K3 merge per
@@ -55,7 +69,7 @@ Run from the root of a checkout.  In order, it
    eager, fused), printing ms per frame, dispatches, syncs and graph
    replays per tracking-only frame and keyframe, and the keyframe's ms
    beside the parent's;
-8. runs the same session on the ``schedule`` backend, counters set to 0
+9. runs the same session on the ``schedule`` backend, counters set to 0
    again, and checks that K4, K5 and K3 carried it (one K3 merge per
    backward; no K1, K2 or plain run), the same bounds, the same counts
    per step, the same keyframes, and camera centres within 1 mm of step
@@ -70,16 +84,16 @@ Run from the root of a checkout.  In order, it
    GS-SLAM and Photo-SLAM at [main]'s config, whose keyframe decisions
    stay on the device, fused (2 dispatches, 0 syncs and 2 replays on every
    step, keyframe or not) against eager, bit for bit;
-9. ``[scenes]``: builds desk0, stairs0 and corridor0 at 640x480 through K1
+10. ``[scenes]``: builds desk0, stairs0 and corridor0 at 640x480 through K1
    and holds K1, K2, K4 and K5 against their plain versions on one view of
    each;
-10. ``[sparse]``: sparse stable/unstable mapping against dense on room0 and
+11. ``[sparse]``: sparse stable/unstable mapping against dense on room0 and
     desk0 (640x480, 16 frames, ``schedule``), then sparse room0 on
     ``kernel``: the warmup poses equal dense bit for bit, ``kernel``
     equals ``schedule``, stable rows stay byte-frozen, the tail optimizes
     fewer Gaussians and schedules fewer programs, the PSNR loss is under
     0.35 dB, and K3 merges once per backward with no plain run;
-11. ``[serve]``: a ``SlamServer`` over a ``ShardedPool`` of S=4 stacked
+12. ``[serve]``: a ``SlamServer`` over a ``ShardedPool`` of S=4 stacked
     sessions on [main]'s config (room0, desk0, stairs0, corridor0, 12
     frames each, fed through ``submit`` and ``pump``; stairs0 retired after
     its frame 6 and a fresh room1 session admitted in its slot; the S=4
@@ -97,7 +111,7 @@ Run from the root of a checkout.  In order, it
     ``warmup`` (each rung's tracking and S-row keyframe graphs), three streams through an ``IngestWorker`` thread with one
     migration S=1 -> S=2 while frames are queued; the runner census after
     serving equals the warmup's and every stream its solo run;
-12. ``[paged]``: PagedMap.  [main]'s config with every page in view
+13. ``[paged]``: PagedMap.  [main]'s config with every page in view
     (``PagedConfig(1024, 128)``) equals ``[main]`` and ``[main-sched]``
     bit for bit, with their launches and 1 / 0 / 1 and 2 / 0 / 2 counts,
     and a 2-row pool of it its solo runs (2 / 0 / 2 per frame-step with
@@ -112,7 +126,7 @@ Run from the root of a checkout.  In order, it
     leaves out an alive row; on the bench's own inputs the first tracking
     iteration's pose gradient over the view must equal flat's bit for bit
     and the four gates must pass;
-13. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
+14. with ``profile``, traces the tail keyframe of each ``[sparse]`` run,
     then one tracking-only frame and one keyframe of a further full-size
     session, fused and eager, and one RTGS tracking frame with
     ``torch.profiler``, and prints the tables, each frame's
@@ -2588,6 +2602,231 @@ def phase_profile(dev, ds, ds_rtgs, main_split):
     return out
 
 
+# [lm]: the LM scaffold's serving path (models/, launch/serve.py).  It
+# reaches no pallas_call, so it adds no kernel to the kernels line.
+LM_FULL = ("zamba2-1.2b", "phi4-mini-3.8b")
+LM_FORWARD_CHECK = ("llama3-405b", "xlstm-125m", "zamba2-1.2b", "qwen3-moe-30b-a3b")
+LM_PREFILL_TOL, LM_DECODE_TOL = 3e-2, 7e-2  # the reference's own prefill / decode
+# whisper-large-v3's prefill on the card parts from its CPU run by up to
+# ~5e-2 at reduced size: cuBLAS and MKL sum the bf16 GEMMs in other orders,
+# and its two encoder and four decoder layers, each attending over the whole
+# memory, spread one flipped rounding furthest; it is held to the decode
+# tolerance, which the reference sets for accumulation-order differences.
+LM_PREFILL_TOL_BY_ARCH = {"whisper-large-v3": LM_DECODE_TOL}
+LM_SERVE_BATCH, LM_PROMPT, LM_GEN = 4, 256, 64
+# Decode vs forward at full width (prefill 127 / decode token 128 against a
+# forward over 128).  The reference's own gap grows with depth at full width:
+# zamba2's is 0.05 at 2 layers and 0.09 at 8 (its bf16 causal conv rounds
+# each product in the chunked path and once in the decode step), which
+# tests/test_torch_lm.py measures on the CPU against the port's, and
+# tools/lm_serve.py gaps prints on the card by depth; phi4 stays within the
+# reference's decode tolerance.
+LM_FULL_GAP_TOL = {"zamba2-1.2b": 0.25, "phi4-mini-3.8b": LM_DECODE_TOL}
+
+
+def lm_tree(tree, fn):
+    return {k: lm_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def lm_leaves(tree) -> list:
+    return [x for v in tree.values()
+            for x in (lm_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def lm_teacher_forced(model, params, batch, feed):
+    """Prefill, pad_cache, then one decode step per row of ``feed``; every
+    step's logits."""
+    import torch
+    logits, cache = model.prefill(params, batch)
+    cache = model.pad_cache(cache, model.prompt_len(batch) + len(feed) + 1)
+    out = [logits]
+    for tok in feed:
+        logits, cache = model.decode_step(params, cache, tok)
+        out.append(logits)
+    return out, cache
+
+
+def lm_decode_vs_forward(model, params, toks, tol=None):
+    """The reference's invariant (tests/test_models.py): prefill over all
+    but the last token, decode the last, against one forward over all of
+    them.  Returns the two max |d| and whether each is within tolerance
+    (``tol``, else the prefill and decode tolerances)."""
+    from repro_torch.models.lm import BF16
+    n = toks.shape[1] - 1
+    xx = model._backbone(params, model._embed_inputs(params, {"tokens": toks}))[0]
+    full = model._logits(params, xx[:, n - 1:n + 1].to(BF16))
+    logits_p, cache = model.prefill(params, {"tokens": toks[:, :n]})
+    logits_d, _ = model.decode_step(params, model.pad_cache(cache, n + 2), toks[:, n:])
+    pairs = ((logits_p[:, 0], full[:, 0], tol or LM_PREFILL_TOL),
+             (logits_d[:, 0], full[:, 1], tol or LM_DECODE_TOL))
+    return [(max_err(a, b), close(a, b, tol, tol)) for a, b, tol in pairs]
+
+
+def phase_lm(dev, profile=False):
+    """The LM serving path on the card: zamba2-1.2b and phi4-mini-3.8b at
+    full width (init on the card, ``serve`` of 4 x 256 prompt tokens and 64
+    greedy tokens: one warm-up, then the median of 3; decode vs forward at
+    128 tokens; a decode step under ``set_sync_debug_mode("error")``; with
+    ``profile`` one traced decode step each), first, so that no CPU work of
+    this phase runs beside the timed runs; then the ten architectures at
+    reduced size against the port's own CPU run (prefill, pad_cache, 4
+    teacher-forced decode steps) and the reference's decode-vs-forward
+    invariant on the card."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.serve import device_batch, serve
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import synthetic_batch
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in LM_FULL:
+        cfg = get_arch(name)
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t1 = time.perf_counter()
+        params = init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        leaves = lm_leaves(params)
+        param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        require(all(t.device.type == "cuda" for t in leaves), f"[lm] {name}: params off the card")
+        batch = device_batch(synthetic_batch(
+            cfg, ShapeSpec("serve", LM_PROMPT, LM_SERVE_BATCH, "prefill"), 0), dev)
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = [serve(model, params, batch, LM_GEN) for _ in range(4)]  # warm-up + 3
+        for res in runs:
+            require(bool(res.finite), f"[lm] {name}: a logit of the run is not finite")
+            require(all(t.device.type == "cuda" for t in (res.tokens, res.last_logits)),
+                    f"[lm] {name}: an output is off the card")
+            require(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+                    f"[lm] {name}: a generated id is out of the vocabulary")
+        require(all(torch.equal(r.tokens, runs[0].tokens) for r in runs[1:]),
+                f"[lm] {name}: the greedy ids differ between identical runs")
+        peak = torch.cuda.max_memory_allocated(dev)
+        pre = statistics.median(r.prefill_s for r in runs[1:])
+        dec = statistics.median(r.decode_s for r in runs[1:])
+        tol = LM_FULL_GAP_TOL[name]
+        (ep, okp), (ed, okd) = lm_decode_vs_forward(model, params, batch["tokens"][:, :128], tol)
+        # no readback in a decode step at full width
+        logits, cache = model.prefill(params, {"tokens": batch["tokens"][:, :32]})
+        cache = model.pad_cache(cache, 40)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits2, cache = model.decode_step(params, cache, tok)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(bool(torch.isfinite(logits2).all()), f"[lm] {name}: synced decode not finite")
+        ntok = LM_SERVE_BATCH * LM_PROMPT
+        out[name] = dict(params=sum(t.numel() for t in leaves), param_bytes=param_bytes,
+                         init_s=init_s, prefill_ms=pre * 1e3, prefill_tok_s=ntok / pre,
+                         decode_ms_per_token=dec * 1e3 / LM_GEN,
+                         decode_tok_s=LM_SERVE_BATCH * LM_GEN / dec, peak_bytes=peak,
+                         init_peak_bytes=init_peak,
+                         decode_vs_forward=(ep, ed))
+        log(f"[lm] {name} full width ({out[name]['params'] / 1e9:.3f} B params, "
+            f"{param_bytes / 2**30:.2f} GiB bf16/f32, init {init_s:.2f} s): serve "
+            f"{LM_SERVE_BATCH} x {LM_PROMPT} + {LM_GEN}: prefill {pre * 1e3:.2f} ms "
+            f"({ntok / pre:.0f} tok/s), decode {dec * 1e3 / LM_GEN:.3f} ms per step "
+            f"({LM_SERVE_BATCH * LM_GEN / dec:.1f} tok/s), median of 3 after a warm-up "
+            f"(runs: prefill " + ", ".join(f"{r.prefill_s * 1e3:.2f}" for r in runs)
+            + " ms; decode " + ", ".join(f"{r.decode_s * 1e3:.1f}" for r in runs)
+            + f" ms); peak memory serving {peak / 2**30:.2f} GiB (init "
+            f"{init_peak / 2**30:.2f} GiB); greedy ids of row 0 "
+            f"{runs[0].tokens[0, :8].tolist()}...; decode vs forward at 128 tokens: "
+            f"prefill of 127 {ep:.2e}, decode of token 128 {ed:.2e}; a decode step under "
+            "set_sync_debug_mode('error') ran")
+        require(okp and okd, f"[lm] {name}: decode disagrees with the forward at full width")
+        if profile:
+            out[name]["profile"] = lm_profile(name, model, params, cache, tok)
+        del params, cache, runs, leaves, logits, logits2
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    shape = ShapeSpec("lm", seq_len=32, global_batch=2, kind="prefill")
+    for name in list_archs():
+        cfg = get_arch(name).reduced()
+        model = Model(cfg)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        p_cpu = init_params(cfg, gen, device="cpu")
+        p_dev = lm_tree(p_cpu, lambda t: t.to(dev))
+        feed = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(4, 2, 1)).astype(np.int32)
+        runs = {}
+        for d, params in (("cpu", p_cpu), ("card", p_dev)):
+            where = "cpu" if d == "cpu" else dev
+            runs[d], cache = lm_teacher_forced(
+                model, params, device_batch(synthetic_batch(cfg, shape, 0), where),
+                [torch.from_numpy(t).to(where) for t in feed])
+        require(all(t.device.type == "cuda" for t in runs["card"] + lm_leaves(cache)),
+                f"[lm] {name}: a tensor of the card's run is not on the card")
+        errs = [max_err(a.cpu(), b) for a, b in zip(runs["card"], runs["cpu"])]
+        ok = [close(a.cpu(), b, tol, tol) for a, b, tol in zip(
+            runs["card"], runs["cpu"],
+            [LM_PREFILL_TOL_BY_ARCH.get(name, LM_PREFILL_TOL)] + [LM_DECODE_TOL] * len(feed))]
+        log(f"[lm] {name} reduced, card vs CPU: max |d| prefill {errs[0]:.2e} "
+            f"(tol {LM_PREFILL_TOL_BY_ARCH.get(name, LM_PREFILL_TOL):.0e}), "
+            f"decode steps " + ", ".join(f"{e:.2e}" for e in errs[1:]) + " (tol 7e-2)"
+            + ("" if all(ok) else "  FAIL"))
+        require(all(ok), f"[lm] {name}: card and CPU logits differ beyond tolerance")
+    for name in LM_FORWARD_CHECK:
+        cfg = get_arch(name).reduced()
+        if cfg.num_experts:  # no capacity drops: decode == forward needs them off
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.num_experts))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model, params = Model(cfg), init_params(cfg, gen, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.vocab_size, size=(2, 17)).astype(np.int32)).to(dev)
+        (ep, okp), (ed, okd) = lm_decode_vs_forward(model, params, toks)
+        log(f"[lm] {name} reduced, decode vs forward on the card: prefill of 16 {ep:.2e}, "
+            f"decode of token 16 {ed:.2e}")
+        require(okp and okd, f"[lm] {name}: decode disagrees with the forward")
+    t_reduced = time.perf_counter() - t1
+
+    log(f"[lm] done in {time.perf_counter() - t0:.1f} s (the ten reduced architectures "
+        f"and the decode-vs-forward checks {t_reduced:.1f} s)")
+    return out
+
+
+def lm_profile(name, model, params, cache, tok) -> dict:
+    """One traced full-width decode step: its host launch calls, the
+    device's busy and idle time, and the top device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(2):   # warm: the tracer's own start-up, then one step
+        with profile(activities=activities):
+            _, cache = model.decode_step(params, cache, tok)
+            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        _, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    log(f"[lm-profile] {name} one full-width decode step: wall {wall_ms:.2f} ms under the "
+        f"profiler, kernels busy {busy_ms:.2f} ms, device idle {wall_ms - busy_ms:.2f} ms "
+        f"({100 * (1 - busy_ms / wall_ms):.0f}%), {launches} cudaLaunchKernel calls")
+    log(events.table(sort_by="self_cuda_time_total", row_limit=12))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches)
+
+
 def main(argv) -> int:
     if argv not in ([], ["profile"]):
         print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
@@ -2614,6 +2853,7 @@ def main(argv) -> int:
 
     t_all = time.perf_counter()
     phase_build()
+    phase_lm(dev, profile=argv == ["profile"])
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
     ds = make_scene(dev)

@@ -140,3 +140,35 @@ def session_from_numpy(src, cfg: SLAMConfig, intr: Intrinsics, *,
               if getattr(src, "page", None) is not None else None),
         last_kf_host=int(src.last_kf_idx) if cfg.keyframe.on_host else None,
     )
+
+
+def _leaf(x, device) -> torch.Tensor:
+    """A numpy leaf of the reference's LM trees as a tensor, bf16 bit for
+    bit: JAX's bf16 arrives as ``ml_dtypes.bfloat16``, which
+    ``torch.as_tensor`` refuses, so its bits cross as int16."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def lm_params_from_numpy(tree, device=None) -> dict:
+    """The port's LM parameters from the reference's parameter tree (a dict
+    of numpy arrays, as ``jax.device_get`` gives it): the same keys,
+    shapes, dtypes and bits."""
+    return _tree(tree, resolve_device(device))
+
+
+def lm_cache_from_numpy(tree, device=None) -> dict:
+    """A decode cache of the port from the reference's (``prefill``'s or
+    ``pad_cache``'s, after ``jax.device_get``); ``len`` is a () int32
+    tensor, as there."""
+    out = _tree(tree, resolve_device(device))
+    out["len"] = out["len"].to(torch.int32).reshape(())
+    return out

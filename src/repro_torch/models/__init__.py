@@ -1,0 +1,1 @@
+"""models of the PyTorch port (see repro_torch/__init__.py)."""

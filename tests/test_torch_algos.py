@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _shared_runs import shared
 from _torch_parity import jx, np_, th
 from repro.core import lie as jlie
 from repro.core.keyframes import KeyframePolicy as JPolicy
@@ -44,17 +45,28 @@ def _jax_perm(idx, per):
     return torch.as_tensor(np.array(jax.random.permutation(key, 2 * per)))
 
 
-@pytest.fixture(scope="module")
-def dataset():
+def _datasets():
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
     return ds_j, convert.dataset_from_numpy(ds_j, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def dataset():
+    return _datasets()
+
+
 @pytest.fixture(scope="module", params=sorted(POLICIES))
-def runs(request, dataset):
+def runs(request, tmp_path_factory):
+    """Both packages' runs of one base algorithm, built once per test run
+    and shared by the xdist workers (``tests/_shared_runs.py``)."""
     algo = request.param
-    ds_j, ds_t = dataset
+    return shared(request, tmp_path_factory, f"torch_algos_runs_{algo}",
+                  lambda: _build_runs(algo))
+
+
+def _build_runs(algo):
+    ds_j, ds_t = _datasets()
     cfg_j = jsession.SLAMConfig(backend="ref", base_algo=algo, prune=JPrune(**PRUNE),
                                 keyframe=JPolicy(**POLICIES[algo]), **CFG)
     cfg_t = tsession.SLAMConfig(base_algo=algo, prune=TPrune(**PRUNE),

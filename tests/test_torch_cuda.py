@@ -1,7 +1,9 @@
 """The port on a card: the CUDA kernels K1-K5 (K3's scan and merge)
 against their plain versions, the scheduled kernels K4/K5 against K1/K2 bit for bit, the
 ``kernel`` backend against the ``ref`` backend, the ``schedule`` session
-against the ``kernel`` one, and the default entry points.  Every test here is marked ``cuda`` and skips where
+against the ``kernel`` one, the default entry points, and the LM serving
+path (the ten architectures at reduced size against the port's CPU run, a
+decode step that reads nothing back, ``launch/serve.py``).  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.
 
 The file imports neither JAX nor ``repro``, so it runs on a machine that
@@ -1498,3 +1500,103 @@ def test_cuda_paged_partial_view_equals_flat_while_the_alive_rows_fit(dev, prune
             == [int(v) for f, v in zip(r_p.work._fields, r_p.work) if f != "frag_build_rows"]
         assert all(torch.equal(getattr(flat.g, k), getattr(paged.g, k))
                    for k in TG.PARAM_FIELDS + ("alive",)), t
+
+
+# ---------------------------------------------------------------------------
+# the LM scaffold's serving path (models/, launch/serve.py)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("gemma3-27b", "h2o-danube-1.8b", "llama3-405b", "llava-next-mistral-7b",
+            "phi4-mini-3.8b", "qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b",
+            "whisper-large-v3", "xlstm-125m", "zamba2-1.2b")
+
+
+def _lm_tree(tree, fn):
+    return {k: _lm_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _lm_setup(name):
+    """A reduced architecture's params drawn on the CPU, its smoke batch and
+    four decode tokens (numpy)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import synthetic_batch
+
+    cfg = get_arch(name).reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device="cpu")
+    batch = synthetic_batch(cfg, ShapeSpec("smoke", 32, 2, "prefill"), 0)
+    feed = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(4, 2, 1)).astype(np.int32)
+    return Model(cfg), params, batch, feed
+
+
+def _lm_run(model, params, batch, feed, device):
+    from repro_torch.launch.serve import device_batch
+
+    b = device_batch(batch, device)
+    logits, cache = model.prefill(params, b)
+    cache = model.pad_cache(cache, model.prompt_len(b) + len(feed) + 1)
+    out = [logits]
+    for tok in feed:
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(tok).to(device))
+        out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_cuda_lm_reduced_matches_cpu(dev, name):
+    """Prefill and four teacher-forced decode steps on the card against the
+    port's CPU run from the same params: 3e-2 / 7e-2, the reference's own
+    prefill and decode tolerances (whisper-large-v3's prefill 7e-2: cuBLAS
+    and MKL sum its bf16 GEMMs in other orders, and its six layers, each
+    attending over the whole memory, spread a flipped rounding to ~5e-2)."""
+    model, params, batch, feed = _lm_setup(name)
+    cpu = _lm_run(model, params, batch, feed, "cpu")
+    card = _lm_run(model, _lm_tree(params, lambda t: t.to(dev)), batch, feed, dev)
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        assert g.device.type == "cuda"
+        tol = 3e-2 if i == 0 and name != "whisper-large-v3" else 7e-2
+        _close(g.cpu(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_cuda_lm_decode_reads_nothing_back(dev, name):
+    """A decode step makes no host sync (no ``.item()``, no pageable copy):
+    under ``set_sync_debug_mode("error")`` it runs, and gives the same
+    logits and cache as the same step run normally."""
+    from repro_torch.launch.serve import device_batch
+
+    model, params, batch, feed = _lm_setup(name)
+    params = _lm_tree(params, lambda t: t.to(dev))
+    logits, cache = model.prefill(params, device_batch(batch, dev))
+    cache = model.pad_cache(cache, model.prompt_len(batch) + 3)
+    tok = torch.argmax(logits, dim=-1)
+    again = _lm_tree(cache, torch.clone)
+    want, want_cache = model.decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_cache = model.decode_step(params, again, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    flat = lambda t: [x for v in t.values() for x in (flat(v) if isinstance(v, dict) else [v])]
+    assert all(torch.equal(a, b) for a, b in zip(flat(got_cache), flat(want_cache)))
+
+
+def test_cuda_lm_serve_runs_on_the_card(dev):
+    from repro_torch.launch.serve import main
+
+    res = main(["--arch", "xlstm-125m", "--gen", "4"])
+    assert res.tokens.device.type == "cuda" and tuple(res.tokens.shape) == (2, 5)
+    assert bool(res.finite)
+
+
+def test_cuda_lm_serve_raises_without_a_card(dev, monkeypatch):
+    from repro_torch.launch.serve import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "xlstm-125m"])
