@@ -27,6 +27,17 @@ Run from the root of a checkout.  In order, it
    reduced size, card against the port's own CPU run (prefill, pad_cache
    and 4 teacher-forced decode steps), and the reference's
    decode-vs-forward invariant on the card for four of them;
+   ``[lm-train]``: the LM training path (``models/`` under autograd,
+   ``train/``, ``launch/train.py``; no ``pallas_call`` either):
+   phi4-mini-3.8b (8 x 4096 tokens) and zamba2-1.2b (4 x 4096) at full
+   width through ``launch/train.py``'s path, 5 AdamW steps on one repeated
+   batch (loss and gradient norm finite, the parameters moved, the loss
+   falling by 0.05, peak memory under 80 GB; ms per step, tokens/s and
+   model-FLOP share), phi4's step with its config's 8 microbatches against
+   the plain one, remat "none" against "block" at full width (bit for bit,
+   "block" lower in memory), the ten architectures' train steps at reduced
+   size card against CPU and a Trainer's checkpoint and resume on the card
+   (with ``profile``, one traced train step per full-width model);
 4. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
    card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
    fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
@@ -145,6 +156,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -2827,6 +2840,372 @@ def lm_profile(name, model, params, cache, tok) -> dict:
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches)
 
 
+# [lm-train]: the LM training path (models/ under autograd, train/optimizer.py,
+# train/trainer.py, train/checkpoint.py, launch/train.py).  It reaches no
+# pallas_call either, so it adds no kernel to the kernels line.
+LM_TRAIN_FULL = {"phi4-mini-3.8b": 8, "zamba2-1.2b": 4}  # batch at 4096 tokens
+LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4096, 5   # train_4k's sequence length; step 1 warms up
+LM_TRAIN_MB_CHECK = "phi4-mini-3.8b"     # one step with the config's microbatches
+LM_TRAIN_FALL = 0.05                     # loss fall over the steps (tests/test_models.py)
+LM_TRAIN_MB_TOL = dict(loss_rtol=2e-2, atol=3e-2)  # the reference's microbatch test
+LM_TRAIN_PEAK_LIMIT = 80e9               # bytes: the card's memory
+H100_BF16_DENSE = 989e12                 # the SXM part's dense bf16 FLOP/s (data sheet)
+LM_REMAT_LAYERS, LM_REMAT_BATCH = 4, 2   # phi4-mini at full width cut to 4 layers
+# The full-width microbatched step against the plain one, beyond the
+# reference's tolerances (which a first Adam step meets with any gradient:
+# it moves each element by about lr, m / sqrt(v) = +-1): the gradient norm,
+# and on a strided sample of every leaf the share of elements that moved in
+# either step whose moves differ in sign (a zero or wrong gradient gives
+# ~1; only gradients near zero flip between the sums, and the bf16 rounding
+# of the new value can keep one step's element in place).  Measured on an
+# H100 80GB HBM3 at 700 W: grad norm 1.98e-4 apart, 102 of 32767 moved
+# elements (3.1e-3).
+LM_TRAIN_MB_GNORM_RTOL = 2e-2
+LM_TRAIN_MB_SIGN_SHARE = 5e-2
+LM_TRAIN_SAMPLE = 4096                   # elements sampled from each leaf
+# The ten architectures at reduced size, card against the port's CPU run
+# from the same state.  The gradients of loss_fn leaf by leaf, to the bound
+# the CPU tests hold the port's to the reference's (relative L2 and cosine;
+# a leaf whose CPU gradient is under 1e-6 in norm is held below 1e-5): the
+# card sums its bf16 GEMMs and its atomics in other orders (worst measured
+# on an H100 80GB HBM3: 2.31e-2 / 0.999735, whisper-large-v3's).  Then one
+# train step: the loss and gradient norm (sums over every token and element) to
+# rtol 1e-2, the parameters to the reference's microbatch tolerance as a
+# sanity check (a first Adam step moves each element by about lr).
+LM_GRAD_BOUND = dict(rel=5e-2, cos=0.998)
+LM_TRAIN_CARD_TOL = dict(loss_rtol=1e-2, gnorm_rtol=1e-2, atol=3e-2)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
+def lm_sample(t):
+    """A strided sample of LM_TRAIN_SAMPLE elements across the leaf ``t``."""
+    flat = t.reshape(-1)
+    return flat[::max(1, flat.numel() // LM_TRAIN_SAMPLE)][:LM_TRAIN_SAMPLE].clone()
+
+
+def lm_grad_worst(got: dict, want: dict, bound: dict):
+    """Leaf by leaf, ``got``'s gradients against ``want``'s (the same paths):
+    (worst relative L2, worst cosine, the leaves outside ``bound``)."""
+    worst_rel, worst_cos, bad = 0.0, 1.0, []
+    for k, w in want.items():
+        wv, gv = w.double().reshape(-1), got[k].cpu().double().reshape(-1)
+        wn, gn = float(wv.norm()), float(gv.norm())
+        if wn < 1e-6:
+            if not gn < 1e-5:
+                bad.append((k, gn))
+            continue
+        rel = float((gv - wv).norm()) / wn
+        cos = float(gv @ wv) / (wn * gn) if gn > 0 else 0.0
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        if not (rel <= bound["rel"] and cos >= bound["cos"]):
+            bad.append((k, rel, cos))
+    return worst_rel, worst_cos, bad
+
+
+def lm_free(dev) -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
+def lm_train_full(dev, name, batch_size, profile=False) -> dict:
+    """``launch/train.py``'s path at full width (``--full --seq-len 4096
+    --batch B``, TrainerConfig's AdamW with clipping) on one repeated batch:
+    LM_TRAIN_STEPS steps, then for LM_TRAIN_MB_CHECK one step with the
+    config's microbatches from the same initial state."""
+    import dataclasses
+    import itertools
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.data import device_batch, synthetic_batch
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.trainer import make_train_step
+
+    args = launch_train.parse_args(["--arch", name, "--full", "--seq-len", str(LM_TRAIN_SEQ),
+                                    "--batch", str(batch_size), "--steps", "1"])
+    cfg = dataclasses.replace(get_arch(name), microbatches=1)
+    batch = synthetic_batch(cfg, ShapeSpec("train", LM_TRAIN_SEQ, batch_size, "train"), 0)
+    lm_free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = launch_train.build(args, itertools.repeat(batch))
+    require(trainer.device.type == "cuda", f"[lm-train] {name}: the trainer is not on the card")
+    state = trainer.init_state()
+    leaves = tree_paths(state["params"])
+    n_params = sum(t.numel() for t in leaves.values())
+    require(all(t.device.type == "cuda" for t in leaves.values()),
+            f"[lm-train] {name}: params off the card")
+    sample = {k: lm_sample(t) for k, t in leaves.items()}
+    del leaves  # the step writes new leaves; these would keep the old ones
+    state = trainer.run(state=state)          # step 1, the warm-up
+    after_one = None
+    if name == LM_TRAIN_MB_CHECK:
+        after_one = {k: t.to("cpu") for k, t in tree_paths(state["params"]).items()}
+    trainer.tcfg.steps = LM_TRAIN_STEPS
+    state = trainer.run(state=state)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    require(len(hist) == LM_TRAIN_STEPS and all(map(math.isfinite, losses + gnorms)),
+            f"[lm-train] {name}: a loss or gradient norm is not finite: {losses} {gnorms}")
+    leaves = tree_paths(state["params"])
+    moved = {k: float((lm_sample(leaves[k]).float() - s.float()).abs().max())
+             for k, s in sample.items()}
+    # Every leaf but a norm's gain must move: a gain starts at 1.0, where an update
+    # of about lr = 1e-3 is below half a bf16 ulp (2**-8), so it may not.
+    still = [k for k, v in moved.items() if not v > 0]
+    require(all(k.split("/")[-1] in ("ln", "ln1", "ln2", "lnx", "final_ln") for k in still),
+            f"[lm-train] {name}: parameters did not move: {still}")
+    step_s = statistics.median(trainer.step_times[1:])
+    tokens = batch_size * LM_TRAIN_SEQ
+    mfu = 6 * n_params * tokens / (step_s * H100_BF16_DENSE)
+    out = dict(params=n_params, batch=batch_size, seq=LM_TRAIN_SEQ, losses=losses,
+               grad_norms=gnorms, step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in
+                                                                    trainer.step_times],
+               tokens_s=tokens / step_s, mfu=mfu, peak_bytes=peak)
+    log(f"[lm-train] {name} full width ({n_params / 1e9:.3f} B params) on {card_line()}, "
+        f"launch/train.py "
+        f"--full --seq-len {LM_TRAIN_SEQ} --batch {batch_size}, AdamW lr {trainer.tcfg.lr} "
+        f"decay {trainer.tcfg.weight_decay} clip {trainer.tcfg.clip_norm}, remat "
+        f"{cfg.remat}, one repeated batch: loss per step "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; grad norm "
+        + ", ".join(f"{v:.3f}" for v in gnorms)
+        + f"; {step_s * 1e3:.0f} ms per step (median of steps 2-{LM_TRAIN_STEPS}; all: "
+        + ", ".join(f"{t * 1e3:.0f}" for t in trainer.step_times)
+        + f" ms), {tokens / step_s:.0f} tokens/s, model-FLOP share {100 * mfu:.2f}% of "
+        f"989 TFLOP/s (6 N T), peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); "
+        f"{len(moved) - len(still)} of {len(moved)} leaves moved (not: {still})")
+    require(losses[0] - losses[-1] >= LM_TRAIN_FALL,
+            f"[lm-train] {name}: the loss fell by {losses[0] - losses[-1]:.4f} < {LM_TRAIN_FALL}")
+    require(peak < LM_TRAIN_PEAK_LIMIT, f"[lm-train] {name}: peak memory {peak / 1e9:.1f} GB")
+    if profile:
+        out["profile"] = lm_train_profile(name, trainer, state, batch)
+    del state, leaves
+    if after_one is not None:
+        lm_free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mb = get_arch(name).microbatches
+        fresh = trainer.init_state()
+        step = make_train_step(trainer.model, trainer.opt, mb, trainer.tcfg.grad_compression)
+        t0 = time.perf_counter()
+        metrics, params, _ = step(fresh["params"], fresh["opt"], device_batch(batch, dev))
+        loss_mb, gnorm_mb = float(metrics["loss"]), float(metrics["grad_norm"])
+        mb_s = time.perf_counter() - t0
+        worst = max(float((t.float() - after_one[k].to(dev).float()).abs().max())
+                    for k, t in tree_paths(params).items())
+        # the moves of the sampled elements in the 1- and the mb-microbatch step
+        flips = either = 0
+        for k, t in tree_paths(params).items():
+            d1 = torch.sign(lm_sample(after_one[k]).float() - sample[k].cpu().float())
+            dm = torch.sign(lm_sample(t).cpu().float() - sample[k].cpu().float())
+            either += int(((d1 != 0) | (dm != 0)).sum())
+            flips += int((d1 != dm).sum())
+        sign_share = flips / max(either, 1)
+        dg = abs(gnorm_mb - gnorms[0]) / abs(gnorms[0])
+        mb_peak = torch.cuda.max_memory_allocated(dev)
+        ok = (abs(loss_mb - losses[0]) <= LM_TRAIN_MB_TOL["loss_rtol"] * abs(losses[0])
+              and worst <= LM_TRAIN_MB_TOL["atol"] and dg <= LM_TRAIN_MB_GNORM_RTOL
+              and either > 0 and sign_share <= LM_TRAIN_MB_SIGN_SHARE)
+        out.update(mb=mb, mb_loss=loss_mb, mb_param_max_abs=worst, mb_gnorm_rel=dg,
+                   mb_sign_share=sign_share, mb_step_ms=mb_s * 1e3, mb_peak_bytes=mb_peak)
+        log(f"[lm-train] {name} one step with the config's {mb} microbatches of "
+            f"{batch_size // mb} x {LM_TRAIN_SEQ} from the same initial state: loss "
+            f"{loss_mb:.4f} against {losses[0]:.4f} in one batch (rtol "
+            f"{LM_TRAIN_MB_TOL['loss_rtol']}), parameters max |d| {worst:.3e} (atol "
+            f"{LM_TRAIN_MB_TOL['atol']}), grad norm {gnorm_mb:.4f} against {gnorms[0]:.4f} "
+            f"(rel {dg:.2e}, rtol {LM_TRAIN_MB_GNORM_RTOL}), moves of opposite or one-sided "
+            f"sign {flips} of {either} sampled elements that moved ({sign_share:.3e}, bound "
+            f"{LM_TRAIN_MB_SIGN_SHARE}), {mb_s * 1e3:.0f} ms, peak {mb_peak / 2**30:.2f} GiB"
+            + ("" if ok else "  FAIL"))
+        require(ok, f"[lm-train] {name}: the microbatched step disagrees with the plain one")
+        del params, fresh, after_one
+    del sample
+    del trainer
+    lm_free(dev)
+    return out
+
+
+def lm_train_profile(name, trainer, state, batch) -> dict:
+    """One traced full-width train step: the device's busy share and the
+    top device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.data import device_batch
+
+    b = device_batch(batch, trainer.device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics, params, opt = trainer.step_fn(state["params"], state["opt"], b)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    state.update(params=params, opt=opt)
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    log(f"[lm-train-profile] {name} one full-width train step: wall {wall_ms:.0f} ms under "
+        f"the profiler, kernels busy {busy_ms:.0f} ms ({100 * busy_ms / wall_ms:.0f}% busy), "
+        f"{launches} kernel launches")
+    log(events.table(sort_by="self_cuda_time_total", row_limit=15))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches)
+
+
+def lm_train_remat(dev) -> dict:
+    """phi4-mini at full width cut to LM_REMAT_LAYERS layers: loss and
+    gradients under remat "none" and "block" (equal bit for bit), and each
+    one's peak memory above the parameters ("block" must be below)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import device_batch, synthetic_batch
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b"), num_layers=LM_REMAT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    batch = device_batch(synthetic_batch(
+        cfg, ShapeSpec("train", LM_TRAIN_SEQ, LM_REMAT_BATCH, "train"), 0), dev)
+    runs, peaks = {}, {}
+    for mode in ("none", "block"):
+        lm_free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        runs[mode] = loss_and_grads(Model(dataclasses.replace(cfg, remat=mode)), params, batch)
+        torch.cuda.synchronize(dev)
+        peaks[mode] = torch.cuda.max_memory_allocated(dev) - base
+    ga, gb = tree_paths(runs["none"][1]), tree_paths(runs["block"][1])
+    equal = torch.equal(runs["none"][0], runs["block"][0]) and all(
+        torch.equal(ga[k], gb[k]) for k in ga)
+    log(f"[lm-train] remat at full width, phi4-mini cut to {LM_REMAT_LAYERS} layers, "
+        f"{LM_REMAT_BATCH} x {LM_TRAIN_SEQ}: loss and all {len(ga)} gradients of \"none\" and "
+        f"\"block\" equal bit for bit: {equal}; peak above the parameters \"none\" "
+        f"{peaks['none'] / 2**30:.2f} GiB, \"block\" {peaks['block'] / 2**30:.2f} GiB")
+    require(equal, "[lm-train] remat \"block\" differs from \"none\" on the card")
+    require(peaks["block"] < peaks["none"], "[lm-train] remat \"block\" does not save memory")
+    del params, runs, ga, gb
+    lm_free(dev)
+    return {"equal": equal, "peak_none": peaks["none"], "peak_block": peaks["block"]}
+
+
+def lm_train_reduced(dev) -> dict:
+    """The ten architectures at reduced size, card against the port's CPU
+    run from the same state: loss_fn's gradients leaf by leaf, then one
+    train step (TrainerConfig's AdamW with clipping); then a 4-step Trainer
+    run on the card against 2 steps, a checkpoint, a resume and 2 more."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.data import data_iterator, device_batch, synthetic_batch
+    from repro_torch.train.optimizer import Adam, tree_paths
+    from repro_torch.train.trainer import (
+        Trainer, TrainerConfig, loss_and_grads, make_train_step)
+
+    shape = ShapeSpec("lm", seq_len=32, global_batch=2, kind="train")
+    tc = TrainerConfig()
+    out, failed = {}, []
+    for name in list_archs():
+        cfg = get_arch(name).reduced()
+        opt = Adam(lr=tc.lr, weight_decay=tc.weight_decay, clip_norm=tc.clip_norm)
+        model = Model(cfg)
+        step = make_train_step(model, opt)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        p_cpu = init_params(cfg, gen, device="cpu")
+        p_dev = lm_tree(p_cpu, lambda t: t.to(dev))
+        res, grads = {}, {}
+        for d, params in (("cpu", p_cpu), ("card", p_dev)):
+            where = "cpu" if d == "cpu" else dev
+            batch = device_batch(synthetic_batch(cfg, shape, 0), where)
+            grads[d] = tree_paths(loss_and_grads(model, params, batch)[1])
+            m, p, _ = step(params, opt.init(params), batch)
+            res[d] = (float(m["loss"]), float(m["grad_norm"]), tree_paths(p))
+        require(all(t.device.type == "cuda" for t in res["card"][2].values()),
+                f"[lm-train] {name}: a parameter of the card's step is off the card")
+        g_rel, g_cos, g_bad = lm_grad_worst(grads["card"], grads["cpu"], LM_GRAD_BOUND)
+        (lc, gc_, pc), (lg, gg, pg) = res["cpu"], res["card"]
+        dl, dg = abs(lg - lc) / abs(lc), abs(gg - gc_) / abs(gc_)
+        dp = max(max_err(pg[k].cpu(), pc[k]) for k in pc)
+        ok = (not g_bad and dl <= LM_TRAIN_CARD_TOL["loss_rtol"]
+              and dg <= LM_TRAIN_CARD_TOL["gnorm_rtol"] and dp <= LM_TRAIN_CARD_TOL["atol"])
+        out[name] = dict(grad_rel=g_rel, grad_cos=g_cos, loss_rel=dl, gnorm_rel=dg,
+                         param_max_abs=dp)
+        log(f"[lm-train] {name} reduced, card vs CPU: loss_fn gradients of {len(grads['cpu'])} "
+            f"leaves worst relative L2 {g_rel:.2e}, worst cosine {g_cos:.6f} (bound {LM_GRAD_BOUND}"
+            + (f"; outside: {g_bad}" if g_bad else "") + f"); one train step: loss "
+            f"{lg:.5f} / {lc:.5f} (rel {dl:.1e}), grad norm {gg:.4f} / {gc_:.4f} (rel "
+            f"{dg:.1e}), parameters max |d| {dp:.2e} (tol {LM_TRAIN_CARD_TOL})"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            failed.append(name)
+    require(not failed, f"[lm-train] the card's gradients or train step differ from the "
+                        f"CPU's: {failed}")
+    cfg = get_arch("xlstm-125m").reduced()
+
+    def trainer(ckpt, steps, ckpt_every, start=0):
+        tcfg = TrainerConfig(steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt, lr=1e-3)
+        return Trainer(cfg, tcfg, data_iterator(cfg, shape, seed=0, start_step=start))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        end_a = trainer(f"{tmp}/a", 4, 10).run()
+        trainer(f"{tmp}/b", 2, 2).run()
+        restored = ckpt_lib.restore(f"{tmp}/b")
+        resumed = trainer(f"{tmp}/b", 4, 10, start=2)
+        end_b = resumed.run()
+        pa, pb = tree_paths(end_a["params"]), tree_paths(end_b["params"])
+        on_card = all(t.device.type == "cuda" for t in tree_paths(restored["params"]).values())
+        equal = all(torch.equal(pa[k], pb[k]) for k in pa) and all(
+            torch.equal(a, b) for a, b in zip(tree_paths(end_a["opt"].mu).values(),
+                                              tree_paths(end_b["opt"].mu).values()))
+        log(f"[lm-train] Trainer on the card (xlstm-125m reduced): 4 steps against 2, a "
+            f"checkpoint (step {restored['step']}, restored onto the card: {on_card}), a resume "
+            f"from it and 2 more ({[h['step'] for h in resumed.history]}): parameters and "
+            f"moments equal bit for bit: {equal}; checkpoints {sorted(os.listdir(f'{tmp}/b'))}")
+        require(on_card and equal and ckpt_lib.latest_step(f"{tmp}/b") == 4,
+                "[lm-train] the resumed Trainer run differs from the straight one")
+    return out
+
+
+def phase_lm_train(dev, profile=False) -> dict:
+    """The LM training path on the card: phi4-mini-3.8b and zamba2-1.2b at
+    full width through launch/train.py's path, remat "none" against
+    "block" at full width, then the ten architectures at reduced size
+    against the port's CPU run and the Trainer's checkpoint and resume."""
+    t0 = time.perf_counter()
+    out = {name: lm_train_full(dev, name, b, profile) for name, b in LM_TRAIN_FULL.items()}
+    t1 = time.perf_counter()
+    out["remat"] = lm_train_remat(dev)
+    t2 = time.perf_counter()
+    out["reduced"] = lm_train_reduced(dev)
+    log(f"[lm-train] done in {time.perf_counter() - t0:.1f} s (full width {t1 - t0:.1f} s, "
+        f"remat {t2 - t1:.1f} s, reduced and Trainer {time.perf_counter() - t2:.1f} s)")
+    return out
+
+
 def main(argv) -> int:
     if argv not in ([], ["profile"]):
         print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
@@ -2843,10 +3222,7 @@ def main(argv) -> int:
     sys.path[:0] = [str(SRC), str(TESTS)]
     import repro_torch  # noqa: F401  (sets the precision flags)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda", 0)
     log(f"[env] torch {torch.__version__} (CUDA {torch.version.cuda}), python "
         f"{sys.version.split()[0]}, card: {card}")
@@ -2854,6 +3230,7 @@ def main(argv) -> int:
     t_all = time.perf_counter()
     phase_build()
     phase_lm(dev, profile=argv == ["profile"])
+    phase_lm_train(dev, profile=argv == ["profile"])
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
     ds = make_scene(dev)

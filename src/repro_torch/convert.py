@@ -172,3 +172,21 @@ def lm_cache_from_numpy(tree, device=None) -> dict:
     out = _tree(tree, resolve_device(device))
     out["len"] = out["len"].to(torch.int32).reshape(())
     return out
+
+
+def lm_adam_from_numpy(src, device=None) -> AdamState:
+    """The reference's ``AdamState`` over an LM tree (``jax.device_get`` of
+    it: ``step``, and ``mu`` / ``nu`` as nested dicts of numpy arrays) as
+    the port's, bf16 moments bit for bit; ``step`` a () int32 tensor."""
+    dev = resolve_device(device)
+    return AdamState(step=_leaf(src.step, dev).to(torch.int32).reshape(()),
+                     mu=_tree(src.mu, dev), nu=_tree(src.nu, dev))
+
+
+def lm_train_state_from_numpy(state, device=None) -> dict:
+    """A train state ``{"params", "opt": AdamState, "step"}`` of the
+    reference's ``Trainer`` (after ``jax.device_get``) as the port's."""
+    dev = resolve_device(device)
+    return {"params": lm_params_from_numpy(state["params"], dev),
+            "opt": lm_adam_from_numpy(state["opt"], dev),
+            "step": int(state["step"])}

@@ -14,14 +14,13 @@ import argparse
 import time
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models.lm import Model, init_params
-from repro_torch.train.data import synthetic_batch
+from repro_torch.train.data import device_batch, synthetic_batch
 
 
 class Served(NamedTuple):
@@ -30,11 +29,6 @@ class Served(NamedTuple):
     finite: torch.Tensor       # () bool: every logit of the run was finite
     prefill_s: float           # prefill + pad_cache, host clock to a device sync
     decode_s: float            # the gen decode steps, host clock to a device sync
-
-
-def device_batch(batch: dict, device) -> dict:
-    """``synthetic_batch``'s numpy arrays as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 def _sync(dev: torch.device) -> None:

@@ -15,8 +15,33 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch._device import constant
 
 NEG_INF = -1e30
+
+
+def at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)``: at a tie the gradient splits half and half
+    between ``x`` and the constant, as JAX's ``max`` does (``torch.clamp``
+    would pass all of it to ``x``).  The values are ``clamp``'s."""
+    return torch.maximum(x, constant(lo, x.dtype, x.device))
+
+
+def at_most(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """``jnp.minimum(x, hi)``, with JAX's gradient at a tie (see
+    :func:`at_least`)."""
+    return torch.minimum(x, constant(hi, x.dtype, x.device))
+
+
+def checkpointed(fn, *args):
+    """``jax.checkpoint(fn)(*args)``: keep only the inputs for the
+    backward and run ``fn`` again there.  Nothing here draws random numbers,
+    so no RNG state is stashed.  Without autograd it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -112,7 +137,7 @@ def blockwise_attention(
         acc = acc * corr[..., None] + pv
         m = m_new
 
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = acc / at_least(l[..., None], 1e-30)
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
@@ -161,8 +186,10 @@ def chunked_cross_entropy(
     chunk: int = 512,
 ) -> torch.Tensor:
     """Sequence-chunked softmax cross-entropy: never holds the full (B, S, V)
-    logits, only one chunk's (B, C, V).  Forward value only; the training
-    slice adds the reference's per-chunk checkpoint for the backward."""
+    logits.  Each chunk is checkpointed, as the reference's
+    ``@jax.checkpoint`` scan body is: the forward keeps only the chunk's
+    inputs and the backward recomputes its (B, C, V) float32 logits, so a
+    backward holds one chunk's at a time."""
     b, s, d = x.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -172,11 +199,15 @@ def chunked_cross_entropy(
         mask = F.pad(mask, (0, pad))
     n = x.shape[1] // chunk
     head = head.to(x.dtype)
+
+    def body(xc, lc, mc):
+        logits = (xc @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return torch.sum((lse - picked) * mc)
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
-        logits = (x[:, sl] @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
-        total = total + torch.sum((lse - picked) * mask[:, sl])
+        total = total + checkpointed(body, x[:, sl], labels[:, sl], mask[:, sl])
     return total / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,8 +1,10 @@
 """Unified LM model covering all 10 assigned architectures.
 
-The port of ``repro.models.lm``, forward only (serving and ``loss_fn``'s
-value).  A model is a sequence of **block groups**; each group is either a
-stack of identical layers (params stacked on a leading L dim, as in the
+The port of ``repro.models.lm``: serving (prefill and ring-cache decode)
+and training (``loss_fn`` under autograd, with the reference's remat as
+``torch.utils.checkpoint``, see :func:`scan_group`).  A model is a
+sequence of **block groups**; each group is either a stack of identical
+layers (params stacked on a leading L dim, as in the
 reference, so both packages hold the same tree) or a single block (zamba2's
 *shared* attention block, stored once and applied at several depths; each
 application has its own KV-cache slot).
@@ -37,6 +39,7 @@ consumed.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, NamedTuple
 
 import torch
@@ -47,7 +50,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    at_least,
     blockwise_attention,
+    checkpointed,
     chunked_cross_entropy,
     decode_attention,
     rmsnorm,
@@ -350,7 +355,7 @@ def _mlstm_seq(x, p, cfg: ArchConfig):
     v_aug = torch.cat([v, torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)], -1)
     out, st = ssm_lib.chunked_gla(q, k, v_aug, log_f, chunk=min(256, s))
     num, den = out[..., :hd], out[..., hd:]
-    y = num / torch.clamp(torch.abs(den), min=1.0)
+    y = num / at_least(torch.abs(den), 1.0)
     y = y.reshape(b, s, di).to(BF16) * silu(z)
     return _residual(x, y @ p["w_down"]), st
 
@@ -395,23 +400,69 @@ def _stack(ys: list):
     return torch.stack(ys)
 
 
-def scan_group(x, stacked, body, layers: int, remat=None, extra_xs=None):
+def _remat_group_size(n: int) -> int:
+    """Largest divisor of n <= ~1.5*sqrt(n) (sqrt-memory double remat)."""
+    target = max(int(math.sqrt(n) * 1.5), 1)
+    best = 1
+    for g in range(1, n + 1):
+        if n % g == 0 and g <= target:
+            best = g
+    return best
+
+
+def _remat_on(remat) -> bool:
+    return bool(remat) and remat != "none"
+
+
+def _unstack(stacked: Dict[str, torch.Tensor], layers: int) -> list:
+    """Per-layer views of a stacked group, one ``unbind`` per leaf: its
+    backward stacks the layers' gradients once, where indexing each layer
+    would add a zero-filled full-size gradient per layer."""
+    cols = {k: v.unbind(0) for k, v in stacked.items()}
+    return [{k: c[l] for k, c in cols.items()} for l in range(layers)]
+
+
+def scan_group(x, stacked, body, layers: int, remat, extra_xs=None):
     """Apply ``body(x, layer_params, extra) -> (x, y)`` over the stacked
     layers in order; returns x and the ys stacked on a leading L axis.
 
-    ``remat`` is read and ignored: a forward keeps no activations for a
-    backward.  The training slice brings the reference's remat as
-    ``torch.utils.checkpoint``."""
-    del remat
+    remat, as the reference's: "none" keeps every layer's activations for
+    the backward; "group" checkpoints groups of ``_remat_group_size(L)``
+    layers; "block" (the default) also checkpoints each layer inside its
+    group, so a backward holds the group boundaries, one group's layer
+    boundaries and one layer's activations.  With a single group both
+    checkpoint each layer.  Values are the same in every mode."""
+    use_remat = _remat_on(remat)
     if extra_xs is None:
         extra_xs = (0,) * layers
     if layers == 1:
         return body(x, stacked, extra_xs[0])
+    per_layer = _unstack(stacked, layers)
+
+    def step(xc, l):
+        xc, y = body(xc, per_layer[l], extra_xs[l])
+        return xc.to(BF16), y  # the layer boundary: a carry, stored rounded
+
+    def run(xc, lo, hi, layer_step):
+        ys = []
+        for l in range(lo, hi):
+            xc, y = layer_step(xc, l)
+            ys.append(y)
+        return xc, ys
+
+    def checkpointed_step(xc, l):
+        return checkpointed(step, xc, l)
+
+    g = _remat_group_size(layers) if use_remat else layers
+    n_outer = layers // g
+    if not use_remat or n_outer <= 1:
+        x, ys = run(x, 0, layers, checkpointed_step if use_remat else step)
+        return x, _stack(ys)
+    layer_step = step if remat == "group" else checkpointed_step
     ys = []
-    for l in range(layers):
-        x, y = body(x, _layer(stacked, l), extra_xs[l])
-        x = x.to(BF16)  # the layer boundary: a carry, stored rounded
-        ys.append(y)
+    for o in range(n_outer):
+        x, yo = checkpointed(run, x, o * g, (o + 1) * g, layer_step)
+        ys += yo
     return x, _stack(ys)
 
 
@@ -459,7 +510,6 @@ def _decode_mamba_stack(x, p, cache, cfg: ArchConfig):
     d_in, ds = 2 * d, cfg.ssm_state
     h = d_in // MAMBA_HD
     x = x.to(BF16)  # the loop's first carry too (the prefill's takes it as given)
-    x = x.to(BF16)  # the loop's first carry too (the prefill's takes it as given)
     for l in range(cache["state"].shape[0]):
         lp = _layer(p, l)
         xn = _norm(x, lp["ln"], cfg)[:, 0, :]           # (B,d)
@@ -501,7 +551,7 @@ def _decode_mlstm_stack(x, p, cache, cfg: ArchConfig):
         v_aug = torch.cat([v, torch.ones((b, h, 1), dtype=v.dtype, device=v.device)], -1)
         out, st = ssm_lib.gla_decode_step(q, k, v_aug, log_f, cache["state"][l])
         num, den = out[..., :hd], out[..., hd:]
-        y = num / torch.clamp(torch.abs(den), min=1.0)
+        y = num / at_least(torch.abs(den), 1.0)
         y = y.reshape(b, di).to(BF16) * silu(z)
         x = _residual(x, (y @ lp["w_down"])[:, None, :]).to(BF16)
         cache["state"][l].copy_(st)
@@ -585,8 +635,15 @@ class Model:
                 if want_cache:
                     caches[g.ckey] = {"state": ys[0], "conv": ys[1]}
             elif g.kind == "shared_attn":
-                x, (k, v) = _attn_seq(x, p, cfg, g.meta["window"], kv_chunk)
-                x = _mlp_seq(x, p, cfg)
+                def block(xc, p=p, w=g.meta["window"]):
+                    out, kvp = _attn_seq(xc, p, cfg, w, kv_chunk)
+                    return _mlp_seq(out, p, cfg), kvp
+
+                # The reference leaves this single block to its compiler; here
+                # each application is checkpointed under remat, or zamba2's
+                # four would keep ~16 GiB of attention internals each at
+                # 4 x 4096 tokens.  The values are the same.
+                x, (k, v) = checkpointed(block, x) if _remat_on(remat) else block(x)
                 if want_cache:
                     caches[g.ckey] = {"k": k, "v": v}
             elif g.kind == "mlstm":
@@ -649,8 +706,9 @@ class Model:
     # ---------------- public entry points ----------------
 
     def loss_fn(self, params, batch) -> torch.Tensor:
-        """The training loss's forward value (next-token cross-entropy plus
-        0.01 x the MoE load-balancing loss)."""
+        """The training loss: next-token cross-entropy plus 0.01 x the MoE
+        load-balancing loss.  Differentiable in ``params`` (autograd; the
+        layer groups remat as ``cfg.remat`` says)."""
         cfg = self.cfg
         memory = self._encode(params, batch["frames"]) if cfg.family == "encdec" else None
         x = self._embed_inputs(params, batch)

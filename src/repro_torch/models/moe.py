@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import at_least, silu
 
 
 def moe_capacity(seq_len: int, num_experts: int, top_k: int, factor: float) -> int:
@@ -85,7 +85,7 @@ def moe_ffn(
     logits = x.float() @ router_w.float()                        # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, expert_ids = _top_k(probs, top_k)                    # (B,S,k)
-    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    gate_w = gate_w / at_least(gate_w.sum(-1, keepdim=True), 1e-9)
 
     flat_ids = expert_ids.reshape(b, s * top_k)
     flat_w = gate_w.reshape(b, s * top_k)

@@ -18,6 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import at_least, at_most
+
 
 def chunked_gla(
     q: torch.Tensor,          # (B, S, H, dk)
@@ -53,7 +55,7 @@ def chunked_gla(
         # intra-chunk: scores_ij = exp(A_i - A_j) q_i.k_j for j <= i
         qk = torch.einsum("blhd,bmhd->bhlm", qc, kc)
         decay = cum[:, :, None, :] - cum[:, None, :, :]      # (B,L,M,H) A_i - A_j
-        decay = torch.exp(torch.clamp(decay, max=0.0)).permute(0, 3, 1, 2)
+        decay = torch.exp(at_most(decay, 0.0)).permute(0, 3, 1, 2)
         scores = qk * decay * causal[None, None]
         y_intra = torch.einsum("bhlm,bmhv->blhv", scores, vc)
         # inter-chunk: exp(A_i) q_i^T S_prev
@@ -131,7 +133,7 @@ def slstm_scan(
         cf = torch.exp(log_f + m - m_new)
         c = cf * c + ci * z
         n = cf * n + ci
-        h_prev = o * c / torch.clamp(n, min=1.0)
+        h_prev = o * c / at_least(n, 1.0)
         m = m_new
         hs.append(h_prev)
     return torch.stack(hs, dim=1), (c, n, m, h_prev)  # (B,S,H,hd), state

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
@@ -49,3 +50,8 @@ def data_iterator(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,
     while True:
         yield synthetic_batch(cfg, shape, step, seed)
         step += 1
+
+
+def device_batch(batch: dict, device) -> dict:
+    """A batch's numpy arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}

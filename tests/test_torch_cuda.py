@@ -3,7 +3,10 @@ against their plain versions, the scheduled kernels K4/K5 against K1/K2 bit for 
 ``kernel`` backend against the ``ref`` backend, the ``schedule`` session
 against the ``kernel`` one, the default entry points, and the LM serving
 path (the ten architectures at reduced size against the port's CPU run, a
-decode step that reads nothing back, ``launch/serve.py``).  Every test here is marked ``cuda`` and skips where
+decode step that reads nothing back, ``launch/serve.py``) and the LM
+training path (a train step of each architecture against the CPU's, the
+remat modes bit for bit, the Trainer's checkpoint and resume,
+``launch/train.py``).  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.
 
 The file imports neither JAX nor ``repro``, so it runs on a machine that
@@ -1600,3 +1603,121 @@ def test_cuda_lm_serve_raises_without_a_card(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "xlstm-125m"])
+
+
+# ---------------------------------------------------------------------------
+# LM training: train/optimizer.py, train/trainer.py, train/checkpoint.py,
+# launch/train.py on the card.
+# ---------------------------------------------------------------------------
+
+
+# loss_fn's gradients card against CPU, leaf by leaf: the bound the CPU
+# tests hold the port's gradients to the reference's (relative L2 and
+# cosine; a leaf whose CPU gradient is under 1e-6 in norm held below 1e-5).
+# Worst measured on an H100 with chip_smoke.py's [lm-train] inputs: 2.31e-2
+# / 0.999735 (whisper-large-v3).
+LM_GRAD_BOUND = dict(rel=5e-2, cos=0.998)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_cuda_lm_train_step_matches_cpu(dev, name):
+    """loss_fn's gradients and one train step (AdamW with clipping) on the
+    card against the port's CPU run from the same state: the gradients leaf
+    by leaf to LM_GRAD_BOUND; the loss and gradient norm rtol 1e-2; the
+    parameters atol 3e-2 (the reference's microbatch tolerance, a sanity
+    check only: a first Adam step moves each element by about lr whatever
+    the gradient)."""
+    from repro_torch.train.data import device_batch
+    from repro_torch.train.optimizer import Adam, tree_paths
+    from repro_torch.train.trainer import loss_and_grads, make_train_step
+
+    model, params, batch, _ = _lm_setup(name)
+    opt = Adam(lr=3e-4, weight_decay=0.01, clip_norm=1.0)
+    step = make_train_step(model, opt)
+    out, grads = {}, {}
+    for d in ("cpu", dev):
+        p = _lm_tree(params, lambda t: t.to(d))
+        b = device_batch(batch, d)
+        grads[str(d)] = tree_paths(loss_and_grads(model, p, b)[1])
+        m, p, st = step(p, opt.init(p), b)
+        out[str(d)] = (float(m["loss"]), float(m["grad_norm"]), tree_paths(p), st)
+    for k, w in grads["cpu"].items():
+        g = grads[str(dev)][k]
+        assert g.device.type == "cuda" and g.dtype == w.dtype, k
+        wv, gv = w.double().reshape(-1), g.cpu().double().reshape(-1)
+        if float(wv.norm()) < 1e-6:
+            assert float(gv.norm()) < 1e-5, k
+            continue
+        rel = float((gv - wv).norm() / wv.norm())
+        cos = float(gv @ wv / (gv.norm() * wv.norm()))
+        assert rel <= LM_GRAD_BOUND["rel"] and cos >= LM_GRAD_BOUND["cos"], (k, rel, cos)
+    (lc, gc_, pc, _), (lg, gg, pg, sg) = out["cpu"], out[str(dev)]
+    assert all(t.device.type == "cuda" for t in pg.values()) and sg.step.device.type == "cuda"
+    assert abs(lg - lc) <= 1e-2 * abs(lc) and abs(gg - gc_) <= 1e-2 * abs(gc_)
+    for k in pc:
+        _close(pg[k].cpu().float(), pc[k].float(), atol=3e-2)
+
+
+def test_cuda_lm_remat_modes_equal_bit_for_bit(dev):
+    import dataclasses
+
+    from repro_torch.train.data import device_batch
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.trainer import loss_and_grads
+
+    model, params, batch, _ = _lm_setup("phi4-mini-3.8b")
+    params = _lm_tree(params, lambda t: t.to(dev))
+    b = device_batch(batch, dev)
+    runs = {m: loss_and_grads(type(model)(dataclasses.replace(model.cfg, remat=m)), params, b)
+            for m in ("none", "group", "block")}
+    for m in ("group", "block"):
+        assert torch.equal(runs[m][0], runs["none"][0])
+        ga, gb = tree_paths(runs[m][1]), tree_paths(runs["none"][1])
+        assert all(torch.equal(ga[k], gb[k]) for k in gb)
+
+
+def test_cuda_lm_trainer_checkpoint_and_resume(dev, tmp_path):
+    """A Trainer on the card by default: 4 straight steps equal 2 steps, a
+    checkpoint restored onto the card, a resume and 2 more, bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import data_iterator
+    from repro_torch.train.optimizer import tree_paths
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("xlstm-125m").reduced()
+    shape = ShapeSpec("smoke", 32, 2, "train")
+
+    def trainer(d, steps, every, start=0):
+        return Trainer(cfg, TrainerConfig(steps=steps, ckpt_every=every, ckpt_dir=str(d),
+                                          lr=1e-3),
+                       data_iterator(cfg, shape, seed=0, start_step=start))
+
+    end_a = trainer(tmp_path / "a", 4, 10).run()
+    trainer(tmp_path / "b", 2, 2).run()
+    back = ckpt.restore(str(tmp_path / "b"))
+    assert back["step"] == 2 and all(t.device.type == "cuda"
+                                     for t in tree_paths(back["params"]).values())
+    end_b = trainer(tmp_path / "b", 4, 10, start=2).run()
+    pa, pb = tree_paths(end_a["params"]), tree_paths(end_b["params"])
+    assert all(pa[k].device.type == "cuda" and torch.equal(pa[k], pb[k]) for k in pa)
+    assert torch.equal(end_a["opt"].step, end_b["opt"].step)
+
+
+def test_cuda_lm_launch_train_runs_on_the_card(dev, capsys):
+    from repro_torch.launch.train import main
+
+    tr = main(["--arch", "zamba2-1.2b", "--steps", "2", "--seq-len", "32", "--batch", "2",
+               "--log-every", "1"])
+    assert tr.device.type == "cuda" and len(tr.history) == 2
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    assert "done: 2 steps" in capsys.readouterr().out
+
+
+def test_cuda_lm_launch_train_raises_without_a_card(dev, monkeypatch):
+    from repro_torch.launch.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "xlstm-125m", "--steps", "1"])
