@@ -38,6 +38,24 @@ Run from the root of a checkout.  In order, it
    "block" lower in memory), the ten architectures' train steps at reduced
    size card against CPU and a Trainer's checkpoint and resume on the card
    (with ``profile``, one traced train step per full-width model);
+   ``[dist]``: the distributed layer (``launch/mesh.py``, ``distributed/``)
+   on a one-rank NCCL process group: a 1x1 ("data", "model") mesh,
+   phi4-mini-3.8b's ``param_specs`` and ``cache_specs`` at full width on
+   ``meta`` tensors, its real parameters and a prefill cache distributed
+   onto the mesh (``shard_tree``), ``[lm]``'s phi4 prefill on its
+   parameters replicated on the mesh (``shard_tree`` of the pure-DP specs)
+   and replicated DTensor inputs with ``ctx`` set on that mesh
+   (every ``constrain_batch`` in the model redistributing its activation)
+   against the plain prefill with ``ctx`` unset (bit for bit), and
+   ``pipeline_apply`` at S=1, M=6 on (8, 4096) bf16 microbatches against
+   the sequential stack, forward and gradients; ``[roofline]``:
+   ``analysis/roofline.py``'s rows of phi4's and zamba2's full-width train
+   steps and phi4's prefill and decode step, FLOPs and bytes counted over
+   one extra, untimed call of each (in ``[lm]`` and ``[lm-train]``), the
+   train steps' times from ``[lm-train]``'s medians and the serving calls'
+   from the medians of 10 calls each, timed alone, with one traced call of
+   each (kernels busy against wall), printed as ``analysis/report.py``'s table with each row's counted-FLOP
+   and 6 N T shares of the bf16 peak;
 4. holds K1, K2, K4 and K5 against their plain PyTorch versions on the
    card at the slice's shapes (1200 tiles of a 640x480 frame, K=256
    fragments per tile, B=1 and B=4 stacked views), K4 and K5 gathered back
@@ -2763,6 +2781,9 @@ def phase_lm(dev, profile=False):
         require(okp and okd, f"[lm] {name}: decode disagrees with the forward at full width")
         if profile:
             out[name]["profile"] = lm_profile(name, model, params, cache, tok)
+        if name in LM_ROOFLINE_SERVE:
+            out[name]["counts"] = lm_serve_counts(model, params, batch)
+            out[name]["times"] = lm_serve_times(name, model, params, batch)
         del params, cache, runs, leaves, logits, logits2
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -2812,6 +2833,83 @@ def phase_lm(dev, profile=False):
     return out
 
 
+def lm_serve_counts(model, params, batch) -> dict:
+    """FLOPs and bytes (``analysis.roofline.count_step``) of one untimed
+    prefill as ``serve`` runs it (prefill and ``pad_cache``) and of one of
+    its decode steps (``decode_step`` and the greedy pick)."""
+    import torch
+    from repro_torch.analysis.roofline import count_step
+
+    t0 = time.perf_counter()
+
+    def prefill():
+        logits, cache = model.prefill(params, batch)
+        return logits, model.pad_cache(cache, model.prompt_len(batch) + LM_GEN + 1)
+
+    pre = count_step(prefill)
+    logits, cache = pre.pop("out")
+
+    def decode(cache, toks):
+        logits, cache = model.decode_step(params, cache, toks)
+        return torch.argmax(logits, dim=-1), cache
+
+    dec = count_step(decode, cache, torch.argmax(logits, dim=-1))
+    toks, _ = dec.pop("out")
+    require(bool(torch.isfinite(logits).all()) and toks.shape == (batch["tokens"].shape[0], 1),
+            "[roofline] a counted serving call went wrong")
+    return {"prefill": pre, "decode": dec, "count_s": time.perf_counter() - t0}
+
+
+def lm_serve_times(name, model, params, batch) -> dict:
+    """The roofline rows' serving times: the median wall time of
+    ``LM_ROOFLINE_REPS`` prefills (as ``serve`` runs them) and of as many
+    decode steps, each call synchronized alone, then one of each traced:
+    its kernels' busy time against its wall time says whether the card or
+    the host bounds the call."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def prefill():
+        logits, cache = model.prefill(params, batch)
+        return logits, model.pad_cache(cache, model.prompt_len(batch) + LM_GEN + 1)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    pre = [timed(prefill)[0] for _ in range(LM_ROOFLINE_REPS)]
+    logits, cache = prefill()
+    tok = torch.argmax(logits, dim=-1)
+    dec = []
+    for _ in range(LM_ROOFLINE_REPS):
+        t, (logits, cache) = timed(model.decode_step, params, cache, tok)
+        dec.append(t)
+    out = {"prefill_s": statistics.median(pre), "decode_s": statistics.median(dec)}
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for what, fn in (("prefill", prefill), ("decode", lambda: model.decode_step(params, cache, tok))):
+        with profile(activities=activities):   # the tracer's own start-up
+            timed(fn)
+        with profile(activities=activities) as prof:
+            wall = timed(fn)[0]
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        out[what + "_trace"] = dict(wall_s=wall, busy_s=busy)
+    log(f"[roofline] {name} serving times, {LM_ROOFLINE_REPS} calls each, synchronized alone: "
+        f"prefill median {out['prefill_s'] * 1e3:.2f} ms (min {min(pre) * 1e3:.2f}, max "
+        f"{max(pre) * 1e3:.2f}), decode step median {out['decode_s'] * 1e3:.3f} ms (min "
+        f"{min(dec) * 1e3:.3f}, max {max(dec) * 1e3:.3f}); traced: " + "; ".join(
+            f"{w} wall {t['wall_s'] * 1e3:.2f} ms, kernels busy {t['busy_s'] * 1e3:.2f} ms, "
+            f"device idle {100 * (1 - t['busy_s'] / t['wall_s']):.0f}%"
+            for w, t in ((w, out[w + "_trace"]) for w in ("prefill", "decode"))))
+    return out
+
+
 def lm_profile(name, model, params, cache, tok) -> dict:
     """One traced full-width decode step: its host launch calls, the
     device's busy and idle time, and the top device operations."""
@@ -2849,7 +2947,8 @@ LM_TRAIN_MB_CHECK = "phi4-mini-3.8b"     # one step with the config's microbatch
 LM_TRAIN_FALL = 0.05                     # loss fall over the steps (tests/test_models.py)
 LM_TRAIN_MB_TOL = dict(loss_rtol=2e-2, atol=3e-2)  # the reference's microbatch test
 LM_TRAIN_PEAK_LIMIT = 80e9               # bytes: the card's memory
-H100_BF16_DENSE = 989e12                 # the SXM part's dense bf16 FLOP/s (data sheet)
+LM_ROOFLINE_SERVE = ("phi4-mini-3.8b",)  # [lm]'s models whose prefill and decode are counted
+LM_ROOFLINE_REPS = 10                    # and timed again, call by call, for their rows
 LM_REMAT_LAYERS, LM_REMAT_BATCH = 4, 2   # phi4-mini at full width cut to 4 layers
 # The full-width microbatched step against the plain one, beyond the
 # reference's tolerances (which a first Adam step meets with any gradient:
@@ -2918,6 +3017,12 @@ def lm_free(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def lm_train_shape(batch_size: int):
+    from repro_torch.configs.base import ShapeSpec
+
+    return ShapeSpec(f"train_{batch_size}x{LM_TRAIN_SEQ}", LM_TRAIN_SEQ, batch_size, "train")
+
+
 def lm_train_full(dev, name, batch_size, profile=False) -> dict:
     """``launch/train.py``'s path at full width (``--full --seq-len 4096
     --batch B``, TrainerConfig's AdamW with clipping) on one repeated batch:
@@ -2934,6 +3039,7 @@ def lm_train_full(dev, name, batch_size, profile=False) -> dict:
     from repro_torch.train.data import device_batch, synthetic_batch
     from repro_torch.train.optimizer import tree_paths
     from repro_torch.train.trainer import make_train_step
+    from repro_torch.analysis import roofline
 
     args = launch_train.parse_args(["--arch", name, "--full", "--seq-len", str(LM_TRAIN_SEQ),
                                     "--batch", str(batch_size), "--steps", "1"])
@@ -2973,7 +3079,7 @@ def lm_train_full(dev, name, batch_size, profile=False) -> dict:
             f"[lm-train] {name}: parameters did not move: {still}")
     step_s = statistics.median(trainer.step_times[1:])
     tokens = batch_size * LM_TRAIN_SEQ
-    mfu = 6 * n_params * tokens / (step_s * H100_BF16_DENSE)
+    mfu = roofline.peak_share(roofline.model_flops(cfg, lm_train_shape(batch_size)), step_s)
     out = dict(params=n_params, batch=batch_size, seq=LM_TRAIN_SEQ, losses=losses,
                grad_norms=gnorms, step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in
                                                                     trainer.step_times],
@@ -2988,14 +3094,23 @@ def lm_train_full(dev, name, batch_size, profile=False) -> dict:
         + f"; {step_s * 1e3:.0f} ms per step (median of steps 2-{LM_TRAIN_STEPS}; all: "
         + ", ".join(f"{t * 1e3:.0f}" for t in trainer.step_times)
         + f" ms), {tokens / step_s:.0f} tokens/s, model-FLOP share {100 * mfu:.2f}% of "
-        f"989 TFLOP/s (6 N T), peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); "
+        f"989 TFLOP/s (analysis.roofline: 6 N T, N = the config's "
+        f"{cfg.active_param_count() / 1e9:.3f} B), peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); "
         f"{len(moved) - len(still)} of {len(moved)} leaves moved (not: {still})")
     require(losses[0] - losses[-1] >= LM_TRAIN_FALL,
             f"[lm-train] {name}: the loss fell by {losses[0] - losses[-1]:.4f} < {LM_TRAIN_FALL}")
     require(peak < LM_TRAIN_PEAK_LIMIT, f"[lm-train] {name}: peak memory {peak / 1e9:.1f} GB")
     if profile:
         out["profile"] = lm_train_profile(name, trainer, state, batch)
-    del state, leaves
+    del leaves
+    # [roofline]: one more step, untimed, under the FLOP and byte counters
+    t0 = time.perf_counter()
+    counts = roofline.count_step(trainer.step_fn, state.pop("params"), state.pop("opt"),
+                                 device_batch(batch, dev))
+    metrics = counts.pop("out")[0]
+    require(math.isfinite(float(metrics["loss"])), f"[roofline] {name}: the counted step's loss")
+    out["counts"] = dict(counts, count_s=time.perf_counter() - t0)
+    del state, metrics
     if after_one is not None:
         lm_free(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3206,6 +3321,242 @@ def phase_lm_train(dev, profile=False) -> dict:
     return out
 
 
+# [dist]: the distributed layer on one card.  The S=1 pipeline runs its M
+# microbatches one at a time (bf16 products of 8 rows) and accumulates the
+# weight gradient in float32 over them; the sequential stack runs all 48
+# rows in one product, whose bf16 output cuBLAS may round another way:
+# forward within 4 bf16 ulps at 1, gradients within relative L2 1e-2.
+DIST_ARCH = "phi4-mini-3.8b"
+DIST_PIPE_M, DIST_PIPE_MB, DIST_PIPE_D = 6, 8, 4096
+DIST_PIPE_FWD_ATOL, DIST_PIPE_GRAD_REL = 4 * 2.0 ** -8, 1e-2
+
+
+def rel_l2(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+def phase_dist(dev) -> dict:
+    """``launch/mesh.py`` and ``distributed/`` on a one-rank NCCL process
+    group, started from a ``FileStore`` in a temporary directory and
+    destroyed at the end of the phase."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    require(not dist.is_initialized(), "[dist] a process group is already up")
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            out = dist_checks(dev)
+        finally:
+            dist.destroy_process_group()
+    log(f"[dist] done in {time.perf_counter() - t0:.1f} s (process group destroyed)")
+    return out
+
+
+def dist_checks(dev) -> dict:
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.distributed.pipeline_parallel import pipeline_apply
+    from repro_torch.launch.mesh import axis_size, dp_axes, make_mesh
+    from repro_torch.launch.serve import device_batch
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import tree_map, tree_paths
+
+    out = {}
+    mesh = make_mesh((1, 1), ("data", "model"))
+    require(mesh.device_mesh is not None and mesh.device_type == dev.type,
+            "[dist] the 1x1 mesh carries no DeviceMesh on the card")
+    cfg = get_arch(DIST_ARCH)
+    model = Model(cfg)
+    cache_len = LM_PROMPT + LM_GEN + 1
+    meta = init_params(cfg, torch.Generator(), device="meta")
+    pspecs = sharding.param_specs(cfg, meta, mesh)
+    cspecs = sharding.cache_specs(
+        cfg, model.cache_struct(LM_SERVE_BATCH, cache_len, device="meta"), mesh)
+    flat_p, flat_c = tree_paths(pspecs), tree_paths(cspecs)
+    n_sh = sum(any(a is not None for a in v) for v in flat_p.values())
+    log(f"[dist] {mesh.devices.shape} ('data', 'model') mesh on a one-rank NCCL group "
+        f"({mesh.device_mesh}); {DIST_ARCH} at full width on meta: {len(flat_p)} parameter "
+        f"specs, {n_sh} sharded (wq {flat_p['layers/wq']}, embed {flat_p['embed']}), "
+        f"{len(flat_c)} cache specs (k "
+        f"{next(v for k, v in flat_c.items() if k.endswith('/k'))})")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    t1 = time.perf_counter()
+    sharded = sharding.shard_tree(params, mesh, pspecs)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t1
+    want, got = tree_paths(params), tree_paths(sharded)
+    bad = [k for k, t in got.items()
+           if not (isinstance(t, DTensor)
+                   and t.placements == sharding.placements(mesh.axis_names, flat_p[k])
+                   and torch.equal(t.to_local(), want[k]))]
+    require(not bad, f"[dist] shard_tree: leaves not the specs' DTensors of the input: {bad}")
+    batch = device_batch(synthetic_batch(
+        cfg, ShapeSpec("serve", LM_PROMPT, LM_SERVE_BATCH, "prefill"), 0), dev)
+    logits_u, cache_u = model.prefill(params, batch)
+    dp = dp_axes(mesh)
+    # the parameters as pure data parallelism lays them out (replicated):
+    # with the heads sharded on "model" beside the batch on "data", the
+    # attention's einsum would flatten two sharded dims, which DTensor
+    # refuses (ROADMAP 13d)
+    replicated = sharding.shard_tree(
+        params, mesh, sharding.param_specs(dataclasses.replace(cfg, pure_dp=True), meta, mesh))
+    dbatch = {k: distribute_tensor(v, mesh.device_mesh, [Replicate(), Replicate()])
+              for k, v in batch.items()}
+    seen, constrain_batch = [], ctx.constrain_batch
+
+    def spy(x):
+        y = constrain_batch(x)
+        seen.append(tuple(str(p) for p in y.placements) if isinstance(y, DTensor) else None)
+        return y
+
+    ctx.constrain_batch = spy
+    # the sequence axis stays unset: DTensor cannot flatten a (B, S, d)
+    # activation sharded on S for a product (ROADMAP 13d)
+    ctx.set_dp_axes(dp, math.prod(axis_size(mesh, a) for a in dp))
+    ctx.set_model_axis("model", axis_size(mesh, "model"))
+    try:
+        # ops on tensors the model makes itself (positions, masks) take
+        # them as replicated
+        with implicit_replication():
+            logits_s, cache_s = model.prefill(replicated, dbatch)
+    finally:
+        ctx.constrain_batch = constrain_batch
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+    con = (sorted(set(map(str, seen))), len(seen))
+    require(isinstance(logits_s, DTensor), "[dist] the prefill on DTensors gave a plain tensor")
+    logits_s = logits_s.full_tensor()
+    cache_s = tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, cache_s)
+    cu, cs = tree_paths(cache_u), tree_paths(cache_s)
+    d_logits = max_err(logits_s, logits_u)
+    d_cache = max(max_err(cs[k].float(), cu[k].float()) for k in cu)
+    padded = model.pad_cache(cache_u, cache_len)
+    sc = tree_paths(sharding.shard_tree(padded, mesh, cspecs))
+    d_sc = max(max_err(t.to_local().float(), v.float()) for t, v in zip(
+        sc.values(), tree_paths(padded).values()))
+    n_params = sum(t.numel() for t in want.values())
+    log(f"[dist] shard_tree of {len(got)} parameter leaves ({n_params / 1e9:.3f} B) in "
+        f"{shard_s:.2f} s, each the specs' DTensor equal to its input; {DIST_ARCH} prefill "
+        f"{LM_SERVE_BATCH} x {LM_PROMPT} on its parameters replicated on the mesh (pure-DP "
+        f"specs) and replicated DTensor inputs, ctx "
+        f"set on the mesh (dp {dp}, model 'model'), against plain tensors with "
+        f"ctx unset: max |d| logits {d_logits:.1e}, cache {d_cache:.1e}; {con[1]} "
+        f"constrain_batch calls in the model, output placements {con[0]}; the padded cache "
+        f"distributed on its cache_specs, max |d| {d_sc:.1e}")
+    require(d_logits == 0 and d_cache == 0 and d_sc == 0,
+            "[dist] the prefill on DTensors differs from the plain one, or a distributed "
+            "tensor changed")
+    require(con[1] > 0 and con[0] == [str(("S(0)", "R"))],
+            f"[dist] constrain_batch calls in the model and their placements: {con}")
+    out.update(specs=len(flat_p), sharded=n_sh, shard_s=shard_s, d_logits=d_logits,
+               d_cache=d_cache, d_cache_sharded=d_sc, constrain=con)
+    del params, sharded, replicated, got, want, logits_u, cache_u, logits_s, cache_s, padded, sc
+    del cu, cs, dbatch
+    lm_free(dev)
+
+    # pipeline_apply at S=1 against the sequential stack
+    pmesh = make_mesh((1,), ("stage",))
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    shape = (DIST_PIPE_M, DIST_PIPE_MB, DIST_PIPE_D)
+    x0 = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    w0 = (torch.randn((1, DIST_PIPE_D, DIST_PIPE_D), generator=g, device=dev)
+          / DIST_PIPE_D ** 0.5).to(torch.bfloat16)
+    cot = torch.randn(shape, generator=g, device=dev)
+
+    def stage_fn(p, xb):
+        return torch.tanh(xb @ p["w"])
+
+    res = {}
+    for how in ("pipeline", "stack"):
+        w = w0.clone().requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = (pipeline_apply(stage_fn, {"w": w}, x, pmesh) if how == "pipeline"
+             else stage_fn({"w": w[0]}, x))
+        (y.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+        res[how] = (y.detach(), x.grad, w.grad, time.perf_counter() - t1)
+    (yp, gxp, gwp, tp), (ys, gxs, gws, ts) = res["pipeline"], res["stack"]
+    d_fwd = max_err(yp.float(), ys.float())
+    r_gx, r_gw = rel_l2(gxp, gxs), rel_l2(gwp, gws)
+    log(f"[dist] pipeline_apply S=1, M={DIST_PIPE_M}, microbatches ({DIST_PIPE_MB}, "
+        f"{DIST_PIPE_D}) bf16, stage tanh(x @ W) with W ({DIST_PIPE_D}, {DIST_PIPE_D}): "
+        f"forward max |d| {d_fwd:.2e} against the sequential stack (atol "
+        f"{DIST_PIPE_FWD_ATOL:.2e}), gradients x max |d| {max_err(gxp.float(), gxs.float()):.2e} "
+        f"(rel L2 {r_gx:.2e}), W max |d| {max_err(gwp.float(), gws.float()):.2e} (rel L2 "
+        f"{r_gw:.2e}; bound {DIST_PIPE_GRAD_REL}); forward and backward {tp * 1e3:.1f} ms "
+        f"(stack {ts * 1e3:.1f} ms, first calls)")
+    require(bool(torch.isfinite(yp.float()).all()) and d_fwd <= DIST_PIPE_FWD_ATOL
+            and r_gx <= DIST_PIPE_GRAD_REL and r_gw <= DIST_PIPE_GRAD_REL,
+            "[dist] the S=1 pipeline disagrees with the sequential stack")
+    out.update(pipe_fwd=d_fwd, pipe_gx_rel=r_gx, pipe_gw_rel=r_gw)
+    return out
+
+
+def phase_roofline(lm_out: dict, train_out: dict, card: str) -> list:
+    """The roofline rows of the counted LM steps: each one's counted FLOPs
+    and bytes (``count_step``, over one extra, untimed call) beside its
+    measured median time."""
+    from repro_torch.analysis import report, roofline
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+
+    cases = []
+    for name, batch_size in LM_TRAIN_FULL.items():
+        r = train_out[name]
+        cases.append((name, lm_train_shape(batch_size), r["counts"], r["step_ms"] / 1e3,
+                       r["peak_bytes"], r["counts"]["count_s"]))
+    for name in LM_ROOFLINE_SERVE:
+        r = lm_out[name]
+        c = r["counts"]
+        cases.append((name, ShapeSpec(f"prefill_{LM_SERVE_BATCH}x{LM_PROMPT}", LM_PROMPT,
+                                      LM_SERVE_BATCH, "prefill"),
+                      c["prefill"], r["times"]["prefill_s"], r["peak_bytes"], c["count_s"]))
+        cases.append((name, ShapeSpec(f"decode_{LM_SERVE_BATCH}x{LM_PROMPT + LM_GEN + 1}",
+                                      LM_PROMPT + LM_GEN + 1, LM_SERVE_BATCH, "decode"),
+                      c["decode"], r["times"]["decode_s"], r["peak_bytes"], 0.0))
+    rows = []
+    for name, shape, counts, step_s, peak, count_s in cases:
+        cfg = get_arch(name)
+        rf = roofline.from_counts(cfg, shape, report.MESH, 1, counts, peak)
+        rows.append({"arch": rf.arch, "shape": rf.shape, "mesh": rf.mesh, "ok": True,
+                     "roofline": rf.row(), "memory": {"peak_gb": peak / 1e9},
+                     "step_s": step_s})
+        log(f"[roofline] {name} {shape.name} on {card}: measured {step_s * 1e3:.2f} ms; "
+            f"counted {counts['flops']:.4e} FLOPs "
+            f"({100 * roofline.peak_share(counts['flops'], step_s):.2f}% of the bf16 peak in "
+            f"the measured time) and {counts['bytes']:.4e} bytes; 6 N T (2 N T) "
+            f"{rf.model_flops:.4e} ({100 * roofline.peak_share(rf.model_flops, step_s):.2f}%); "
+            f"t_compute {rf.t_compute * 1e3:.3f} ms, t_memory {rf.t_memory * 1e3:.3f} ms, "
+            f"bottleneck {rf.bottleneck}, flops_ratio {rf.flops_ratio:.3f}; counted in "
+            f"{count_s:.1f} s")
+        require(counts["flops"] > 0 and counts["bytes"] > 0 and 0 < rf.flops_ratio
+                and step_s > 0, f"[roofline] {name} {shape.name}: an empty count")
+    table = report.roofline_table({(r["arch"], r["shape"], r["mesh"]): r for r in rows})
+    log("[roofline] analysis/report.py's table (one H100, " + card + "):\n" + table)
+    require(len(rows) == 4, "[roofline] not four rows")
+    return rows
+
+
 def main(argv) -> int:
     if argv not in ([], ["profile"]):
         print("usage: python3 chip_smoke.py [profile]", file=sys.stderr)
@@ -3229,8 +3580,10 @@ def main(argv) -> int:
 
     t_all = time.perf_counter()
     phase_build()
-    phase_lm(dev, profile=argv == ["profile"])
-    phase_lm_train(dev, profile=argv == ["profile"])
+    lm_out = phase_lm(dev, profile=argv == ["profile"])
+    train_out = phase_lm_train(dev, profile=argv == ["profile"])
+    phase_dist(dev)
+    phase_roofline(lm_out, train_out, card)
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)
     ds = make_scene(dev)

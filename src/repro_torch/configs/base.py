@@ -51,9 +51,9 @@ class ArchConfig:
     subquadratic: bool = False  # eligible for long_500k
     source: str = ""            # provenance note
     # --- distribution policy knobs (hillclimbable) ---
-    # Kept for parity with the reference; the one-card serving path reads
-    # none of fsdp / pure_dp / fsdp_experts / seq_parallel / remat /
-    # microbatches (the training and distributed slices will).
+    # The sharding rules (distributed/sharding.py) read fsdp / pure_dp /
+    # fsdp_experts; the training path reads remat and microbatches;
+    # seq_parallel is for the caller that sets distributed/ctx.py's axes.
     fsdp: bool = True           # shard param storage over the data axis too
     pure_dp: bool = False       # small archs: model axis joins data (DP-256;
                                 # TP would shard 4 heads 16 ways = replication

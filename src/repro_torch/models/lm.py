@@ -23,9 +23,7 @@ Group kinds:
 Parameters and caches are dicts of tensors whose keys and stacked shapes
 are the reference's; the functions take them explicitly
 (``Model(cfg).prefill(params, batch)``), and run on the device their
-inputs are on.  On one card the reference's ``ctx.constrain_batch`` is an
-identity, so the port drops those calls (the distributed slice brings
-``ctx``).
+inputs are on.
 
 Decode caches are fixed-size rings: slot = pos % T, valid length
 min(pos+1, T). ``cache["len"]`` is a () int32 tensor on the cache's device
@@ -47,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
@@ -440,7 +439,7 @@ def scan_group(x, stacked, body, layers: int, remat, extra_xs=None):
     per_layer = _unstack(stacked, layers)
 
     def step(xc, l):
-        xc, y = body(xc, per_layer[l], extra_xs[l])
+        xc, y = body(ctx.constrain_batch(xc), per_layer[l], extra_xs[l])
         return xc.to(BF16), y  # the layer boundary: a carry, stored rounded
 
     def run(xc, lo, hi, layer_step):
@@ -680,7 +679,7 @@ class Model:
         x = params["embed"][batch["tokens"]].to(BF16)
         if cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(BF16), x], dim=1)
-        return x
+        return ctx.constrain_batch(x)
 
     def _encode(self, params, frames):
         cfg = self.cfg

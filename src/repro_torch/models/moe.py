@@ -13,9 +13,7 @@ Shapes (per batch row, S tokens, E experts, top-k):
   expert compute: einsum (B, E, C, d) x (E, d, f).
 
 The reference's out-of-range writes (``mode="drop"`` into expert row E and
-token row S) land here in one spare row that is then cut off.  On one card
-``ctx.constrain_moe_dispatch`` is an identity; the port drops those calls
-(the distributed slice brings ``ctx``).
+token row S) land here in one spare row that is then cut off.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models.layers import at_least, silu
 
 
@@ -98,10 +97,12 @@ def moe_ffn(
     xe = torch.gather(x, 1, safe_tok.reshape(b, e * c, 1).expand(b, e * c, d))
     xe = xe.reshape(b, e, c, d)
     xe = torch.where(present[..., None], xe, 0.0)
+    xe = ctx.constrain_moe_dispatch(xe)
 
     hdn = silu(torch.einsum("becd,edf->becf", xe, w_gate)) * torch.einsum(
         "becd,edf->becf", xe, w_up)
     ye = torch.einsum("becf,efd->becd", hdn, w_down)             # (B,E,C,d)
+    ye = ctx.constrain_moe_dispatch(ye)
 
     w_of = torch.gather(flat_w, 1, torch.where(present, dest, 0).reshape(b, e * c))
     w_of = (w_of.reshape(b, e, c) * present).to(ye.dtype)

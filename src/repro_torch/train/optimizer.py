@@ -167,17 +167,23 @@ class Adam:
         """``update`` then ``apply_updates``, leaf by leaf and bit for bit
         the same, written over the old leaves: ``params``, ``state.mu`` and
         ``state.nu`` are updated in place (their dicts, not their tensors)
-        and ``grads`` is emptied.  Returns (params, state, the gradients'
+        and ``grads`` is consumed (each gradient leaves its dict once its
+        leaf's update is computed).  Returns (params, state, the gradients'
         ``global_norm``).
 
-        A failure once the first leaf is reached raises
-        :class:`UpdateInterrupted`: some leaves then hold the new step and
-        the others the old one, so the state must not be saved."""
+        A failure before the first leaf is written raises as it came, with
+        ``params``, the moments and ``grads`` whole, so the caller may save
+        the state.  A failure after it raises :class:`UpdateInterrupted`:
+        some leaves then hold the new step and the others the old one, so
+        the state must not be saved."""
         gnorm = global_norm(grads)
         step, *scalars = self._scalars(grads, state, gnorm)
+        written = []
         try:
-            _apply_walk(self._leaf, scalars, grads, state.mu, state.nu, params)
+            _apply_walk(self._leaf, scalars, grads, state.mu, state.nu, params, written)
         except Exception as e:
+            if not written:
+                raise
             raise UpdateInterrupted(
                 "the update failed part way: parameters and moments are partly "
                 "written") from e
@@ -203,16 +209,20 @@ class UpdateInterrupted(RuntimeError):
     """:meth:`Adam.update_apply` failed after it began writing leaves."""
 
 
-def _apply_walk(leaf, scalars, g, m, v, p):
+def _apply_walk(leaf, scalars, g, m, v, p, written: list):
     """``Adam.update_apply``'s walk: each leaf's new moments and parameter
-    written over the old ones, its gradient popped."""
+    written over the old ones.  A gradient is popped only once its leaf's
+    update is computed, and ``written`` gains an entry at the first write,
+    so a failure before it leaves every tree whole."""
     for k in list(g):
-        gk = g.pop(k)
-        if isinstance(gk, dict):
-            _apply_walk(leaf, scalars, gk, m[k], v[k], p[k])
+        if isinstance(g[k], dict):
+            _apply_walk(leaf, scalars, g[k], m[k], v[k], p[k], written)
+            del g[k]
             continue
-        m[k], v[k], u = leaf(gk, m[k], v[k], p[k], *scalars)
-        del gk
+        mk, vk, u = leaf(g[k], m[k], v[k], p[k], *scalars)
+        del g[k]
+        written.append(k)
+        m[k], v[k] = mk, vk
         p[k] = p[k] + u.to(p[k].dtype)
 
 

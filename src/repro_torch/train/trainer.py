@@ -10,10 +10,10 @@ given (``Adam.update_apply`` writes each new leaf over the old one).
 
 ``Trainer`` is the loop: periodic, final and emergency checkpoints
 (``train/checkpoint.py``, the reference's format; no emergency checkpoint
-when the in-place update itself failed, which leaves the state half
-written), crash resume from the latest checkpoint, a straggler watchdog
-(an EMA of step wall time; steps slower than ``straggler_factor`` x the
-EMA are counted) and ``history``.
+when the in-place update failed after writing a leaf, which leaves the
+state half written), crash resume from the latest checkpoint, a
+straggler watchdog (an EMA of step wall time; steps slower than
+``straggler_factor`` x the EMA are counted) and ``history``.
 It runs on the card unless the caller asks for the CPU.
 """
 

@@ -334,7 +334,7 @@ def test_monogs_keyframes_and_factor_one_downsampling_match():
 def _port_files():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "_kernel_inputs.py",
-        REPO / "tests" / "_session_state.py",
+        REPO / "tests" / "_session_state.py", REPO / "tests" / "_dist_ranks.py",
         *sorted((REPO / "tools").glob("*.py"))]
 
 

@@ -1721,3 +1721,212 @@ def test_cuda_lm_launch_train_raises_without_a_card(dev, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "xlstm-125m", "--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer and the roofline counts on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_one_rank(dev, tmp_path):
+    """A one-rank NCCL process group from a FileStore under ``tmp_path``,
+    destroyed after the test (the card tests run in one process)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_dist_mesh_and_shard_tree_on_one_rank(dev, nccl_one_rank):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import init_params
+    from repro_torch.train.optimizer import tree_paths
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    assert mesh.device_type == "cuda" and mesh.device_mesh is not None
+    assert tuple(mesh.device_mesh.mesh_dim_names) == ("data", "model")
+    cfg = get_arch("llama3-405b").reduced()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    specs = sharding.param_specs(cfg, params, mesh)
+    got = tree_paths(sharding.shard_tree(params, mesh, specs))
+    flat_s = tree_paths(specs)
+    for k, t in tree_paths(params).items():
+        d = got[k]
+        assert isinstance(d, DTensor) and d.to_local().device.type == "cuda"
+        assert d.placements == sharding.placements(mesh.axis_names, flat_s[k])
+        assert torch.equal(d.to_local(), t) and torch.equal(d.full_tensor(), t)
+
+
+def test_cuda_pipeline_one_stage_matches_the_stack(dev):
+    """S=1 on the card, no process group: forward and gradients of the
+    sequential stack, microbatch by microbatch."""
+    from repro_torch.distributed.pipeline_parallel import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1,), ("stage",))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    w0 = torch.randn((1, 64, 64), generator=g, device=dev) / 8
+    x0 = torch.randn((6, 8, 64), generator=g, device=dev)
+    cot = torch.randn((6, 8, 64), generator=g, device=dev)
+    res = []
+    for how in ("pipeline", "stack"):
+        w, x = w0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+        if how == "pipeline":
+            y = pipeline_apply(lambda p, xb: torch.tanh(xb @ p["w"]), {"w": w}, x, mesh)
+        else:
+            y = torch.stack([torch.tanh(x[m] @ w[0]) for m in range(6)])
+        (y * cot).sum().backward()
+        res.append((y.detach(), x.grad, w.grad))
+    (yp, gxp, gwp), (ys, gxs, gws) = res
+    assert yp.device.type == "cuda"
+    assert torch.equal(yp, ys) and torch.equal(gxp, gxs)
+    torch.testing.assert_close(gwp, gws, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_cuda_lm_ctx_set_equals_unset_bit_for_bit(dev, name):
+    """``ctx`` set (dp, model and sequence axes) against unset on the card's
+    plain tensors: prefill logits and cache, the loss and its gradients
+    bit for bit.  This shows the calls are there and leave a plain tensor
+    alone; ``test_cuda_lm_ctx_on_dtensors_equals_plain`` runs them on DTensors."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import device_batch, synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = get_arch(name).reduced()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    model = Model(cfg)
+    batch = device_batch(synthetic_batch(cfg, ShapeSpec("smoke", 32, 2, "train"), 0), dev)
+
+    def outputs():
+        logits, cache = model.prefill(params, batch)
+        loss, grads = loss_and_grads(model, params, batch)
+        return [logits, loss, *tree_leaves(grads), *tree_leaves(cache)]
+
+    unset = outputs()
+    ctx.set_dp_axes(("data",), 2)
+    ctx.set_model_axis("model", 2)
+    ctx.set_seq_axis("model", 2)
+    try:
+        got = outputs()
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    assert len(got) == len(unset)
+    assert all(torch.equal(a, b) for a, b in zip(got, unset))
+
+
+# The families that run on DTensors under the card's PyTorch: the MoE
+# dispatch, xLSTM's log_sigmoid backward and a zamba2 unsqueeze have no
+# sharding rule there (ROADMAP 13d).
+DTENSOR_ARCHS = ("gemma3-27b", "h2o-danube-1.8b", "llama3-405b", "llava-next-mistral-7b",
+                 "phi4-mini-3.8b", "whisper-large-v3")
+
+
+@pytest.mark.parametrize("name", DTENSOR_ARCHS)
+def test_cuda_lm_ctx_on_dtensors_equals_plain(dev, nccl_one_rank, name):
+    """The parameters ``shard_tree``'d onto the 1x1 mesh as pure data
+    parallelism lays them out (replicated) and the inputs replicated
+    DTensors, ``ctx``'s data and model axes set: every ``constrain_batch``
+    in prefill and in loss_fn (under remat, and its backward)
+    redistributes its activation to (Shard(0), Replicate()), and logits,
+    cache, loss and gradients equal the plain run's bit for bit.  Heads
+    sharded on "model" beside the batch on "data", and the sequence axis,
+    cannot run on DTensors yet (ROADMAP 13d)."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import device_batch, synthetic_batch
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import loss_and_grads
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = get_arch(name).reduced()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    model = Model(cfg)
+    batch = device_batch(synthetic_batch(cfg, ShapeSpec("smoke", 32, 2, "train"), 0), dev)
+
+    def outputs(p, b):
+        logits, cache = model.prefill(p, b)
+        loss, grads = loss_and_grads(model, p, b)
+        return [logits, loss, *tree_leaves(grads), *tree_leaves(cache)]
+
+    plain = outputs(params, batch)
+    pure_dp = dataclasses.replace(cfg, pure_dp=True)
+    sharded = sharding.shard_tree(params, mesh, sharding.param_specs(pure_dp, params, mesh))
+    dbatch = {k: distribute_tensor(v, mesh.device_mesh, [Replicate(), Replicate()])
+              for k, v in batch.items()}
+    seen, constrain_batch = [], ctx.constrain_batch
+
+    def spy(x):
+        y = constrain_batch(x)
+        seen.append(tuple(str(p) for p in y.placements) if isinstance(y, DTensor) else None)
+        return y
+
+    ctx.constrain_batch = spy
+    ctx.set_dp_axes(("data",), 1)
+    ctx.set_model_axis("model", 1)
+    try:
+        with implicit_replication():
+            got = outputs(sharded, dbatch)
+    finally:
+        ctx.constrain_batch = constrain_batch
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+    assert seen and set(seen) == {("S(0)", "R")}
+    assert isinstance(got[0], DTensor) and got[0].to_local().device.type == "cuda"
+    assert len(got) == len(plain)
+    assert all(torch.equal(a.full_tensor() if isinstance(a, DTensor) else a, b)
+               for a, b in zip(got, plain))
+
+
+def test_cuda_count_step_counts_the_backward_on_the_card(dev):
+    """``count_step`` of a reduced train step's gradients counts on the card
+    what it counts on the CPU: the backward runs on the engine's device
+    threads, which the counting modes must reach."""
+    import dataclasses
+
+    from repro_torch.analysis.roofline import count_step
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.lm import Model, init_params
+    from repro_torch.train.data import device_batch, synthetic_batch
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(), remat="block")
+    counts = {}
+    for where in ("cpu", dev):
+        gen = torch.Generator(device=where)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device=where)
+        batch = device_batch(synthetic_batch(cfg, ShapeSpec("smoke", 32, 2, "train"), 0), where)
+        counts[str(where)] = count_step(loss_and_grads, Model(cfg), params, batch)
+    cpu, card = counts["cpu"], counts[str(dev)]
+    assert card["flops"] == cpu["flops"] > 0
+    assert card["bytes"] > 0

@@ -464,6 +464,59 @@ def test_trainer_saves_nothing_when_the_update_fails_part_way(tmp_path, monkeypa
     assert _same(back["params"], whole["params"]) and _same(back["opt"][".mu"], whole["opt"].mu)
 
 
+def test_trainer_emergency_checkpoint_when_the_first_leaf_fails(tmp_path, monkeypatch):
+    """A failure in the update's first leaf, before anything is written,
+    raises as it came; the Trainer then saves the whole state under the
+    step it stands at, as the reference saves on any failure of a step,
+    and that checkpoint loads and equals the state of a run one step long."""
+    tr = _trainer(tmp_path / "ck", steps=4, ckpt_every=100)
+    n_leaves = len(TO.tree_leaves(tr.init_state(device="meta")["params"]))
+    calls = {"n": 0}
+    real = TO.Adam._leaf
+
+    def leaf(self, *args):
+        calls["n"] += 1
+        if calls["n"] == n_leaves + 1:          # step 2's first leaf
+            raise RuntimeError("injected out of memory")
+        return real(self, *args)
+
+    monkeypatch.setattr(TO.Adam, "_leaf", leaf)
+    with pytest.raises(RuntimeError, match="injected") as err:
+        tr.run()
+    monkeypatch.undo()
+    assert not isinstance(err.value, TO.UpdateInterrupted)
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000001"]
+    whole = _trainer(tmp_path / "ref", steps=1, ckpt_every=100).run()
+    back = tckpt.restore(str(tmp_path / "ck"), device="cpu")
+    assert back["step"] == 1 and torch.equal(back["opt"][".step"], whole["opt"].step)
+    assert _same(back["params"], whole["params"])
+    assert _same(back["opt"][".mu"], whole["opt"].mu)
+    assert _same(back["opt"][".nu"], whole["opt"].nu)
+
+
+def test_update_apply_first_leaf_failure_leaves_every_tree_whole(monkeypatch):
+    """``update_apply`` failing at its first leaf writes nothing: the
+    parameters, both moments and the gradient tree are as they were."""
+    opt = TO.Adam(lr=1e-2, weight_decay=0.01, clip_norm=1.0)
+    r = np.random.default_rng(3)
+    params = {"a": {"w": torch.from_numpy(r.normal(size=(3, 4)).astype(np.float32))},
+              "b": torch.from_numpy(r.normal(size=(5,)).astype(np.float32))}
+    grads = TO.tree_map(lambda p: torch.full_like(p, 0.5), params)
+    state = opt.update(grads, opt.init(params), params)[1]
+    before = (TO.tree_map(torch.clone, params), TO.tree_map(torch.clone, state.mu),
+              TO.tree_map(torch.clone, state.nu), TO.tree_map(torch.clone, grads))
+
+    def boom(self, *args):
+        raise RuntimeError("injected")
+
+    monkeypatch.setattr(TO.Adam, "_leaf", boom)
+    with pytest.raises(RuntimeError, match="injected") as err:
+        opt.update_apply(grads, state, params)
+    assert not isinstance(err.value, TO.UpdateInterrupted)
+    for got, want in zip((params, state.mu, state.nu, grads), before):
+        assert _same(got, want)
+
+
 def test_trainer_emergency_checkpoint_after_the_update(tmp_path):
     """A failure after the step returned (reading its metrics) saves the
     new state under the next step's number."""
