@@ -46,7 +46,13 @@ Run from the root of a checkout.  In order, it
    parameters replicated on the mesh (``shard_tree`` of the pure-DP specs)
    and replicated DTensor inputs with ``ctx`` set on that mesh
    (every ``constrain_batch`` in the model redistributing its activation)
-   against the plain prefill with ``ctx`` unset (bit for bit), and
+   against the plain prefill with ``ctx`` unset (bit for bit),
+   ``launch/dryrun.build_case``'s sharded steps on that mesh at full width
+   (phi4-mini-3.8b's train step, 2 microbatches of 1 x 1024, and
+   zamba2-1.2b's decode step, parameters on ``param_specs`` and the cache
+   on ``cache_specs``) against the same steps on plain tensors from the
+   same seed (max |d| 0 on loss, grad norm, parameters, logits and cache;
+   the median of 3 steps each way after an untimed one), and
    ``pipeline_apply`` at S=1, M=6 on (8, 4096) bf16 microbatches against
    the sequential stack, forward and gradients; ``[roofline]``:
    ``analysis/roofline.py``'s rows of phi4's and zamba2's full-width train
@@ -3329,6 +3335,13 @@ def phase_lm_train(dev, profile=False) -> dict:
 DIST_ARCH = "phi4-mini-3.8b"
 DIST_PIPE_M, DIST_PIPE_MB, DIST_PIPE_D = 6, 8, 4096
 DIST_PIPE_FWD_ATOL, DIST_PIPE_GRAD_REL = 4 * 2.0 ** -8, 1e-2
+# build_case's sharded steps at full width on the 1x1 mesh: phi4-mini's
+# train step (2 microbatches of 1 x 1024) and zamba2's decode step (4 rows
+# against a 512-slot cache), each run 1 + DIST_STEPS times on DTensors and
+# on plain tensors from the same seed, the first step untimed
+DIST_TRAIN_ARCH, DIST_TRAIN_SHAPE = "phi4-mini-3.8b", (1024, 2)
+DIST_DECODE_ARCH, DIST_DECODE_SHAPE = "zamba2-1.2b", (512, 4)
+DIST_STEPS = 3
 
 
 def rel_l2(got, want) -> float:
@@ -3470,6 +3483,8 @@ def dist_checks(dev) -> dict:
     del params, sharded, replicated, got, want, logits_u, cache_u, logits_s, cache_s, padded, sc
     del cu, cs, dbatch
     lm_free(dev)
+    out.update(dist_sharded_steps(dev, mesh))
+    lm_free(dev)
 
     # pipeline_apply at S=1 against the sequential stack
     pmesh = make_mesh((1,), ("stage",))
@@ -3509,6 +3524,121 @@ def dist_checks(dev) -> dict:
             and r_gx <= DIST_PIPE_GRAD_REL and r_gw <= DIST_PIPE_GRAD_REL,
             "[dist] the S=1 pipeline disagrees with the sequential stack")
     out.update(pipe_fwd=d_fwd, pipe_gx_rel=r_gx, pipe_gw_rel=r_gw)
+    return out
+
+
+def dist_timed(fn):
+    """(``fn()``'s value, its wall time in ms, the card synchronized on
+    both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, (time.perf_counter() - t0) * 1e3
+
+
+def dist_sharded_steps(dev, mesh) -> dict:
+    """``build_case``'s train step (phi4-mini) and decode step (zamba2) at
+    full width on the 1x1 mesh against the same step on plain tensors
+    drawn from the same seed: on one rank every redistribution is an
+    identity, so they must agree bit for bit."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import tree_paths
+
+    def clear_ctx():
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+
+    out, card = {}, card_line()
+    seq, rows = DIST_TRAIN_SHAPE
+    cfg = dataclasses.replace(get_arch(DIST_TRAIN_ARCH), microbatches=2)
+    shape = ShapeSpec("dist_train", seq, rows, "train")
+    try:
+        step, (params, opt_state, batch) = dryrun.build_case(cfg, shape, mesh)
+    finally:
+        clear_ctx()
+    runs = {}
+    for how in ("dtensor", "plain"):
+        if how == "plain":
+            params, opt_state = dryrun.abstract_state(cfg, True, dev, 0)
+            batch = {k: v.to_local() for k, v in batch.items()}
+        metrics, ms = [], []
+        for _ in range(1 + DIST_STEPS):
+            (m, params, opt_state), t = dist_timed(lambda: step(params, opt_state, batch))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            ms.append(t)
+        ms = ms[1:]
+        local = {k: (v.to_local() if how == "dtensor" else v)
+                 for k, v in tree_paths(params).items()}
+        runs[how] = dict(metrics=metrics, ms=ms, params=local,
+                         placements=sorted({str(tuple(v.placements)) for v in
+                                            tree_paths(params).values()}) if how == "dtensor"
+                         else None)
+        del params, opt_state
+        lm_free(dev)
+    sh, pl = runs["dtensor"], runs["plain"]
+    d_metrics = max(abs(a - b) for x, y in zip(sh["metrics"], pl["metrics"])
+                    for a, b in zip(x, y))
+    d_params = max(max_err(sh["params"][k].float(), v.float()) for k, v in pl["params"].items())
+    med_s, med_p = statistics.median(sh["ms"]), statistics.median(pl["ms"])
+    log(f"[dist] build_case train step, {DIST_TRAIN_ARCH} at full width, 2 microbatches of "
+        f"{rows // 2} x {seq}, AdamW lr 1e-4 with clipping, 1 + {DIST_STEPS} steps on DTensors "
+        f"(parameter placements {sh['placements']}) and on plain tensors from the same seed: "
+        f"loss / grad norm per step {sh['metrics']} against {pl['metrics']}, max |d| "
+        f"{d_metrics:.1e}; parameters after max |d| {d_params:.1e}; median step "
+        f"{med_s:.1f} ms on DTensors, {med_p:.1f} ms plain (steps {[round(t, 1) for t in sh['ms']]}"
+        f" / {[round(t, 1) for t in pl['ms']]} ms) on {card}")
+    require(d_metrics == 0 and d_params == 0,
+            f"[dist] the sharded train step differs from the plain one: metrics max |d| "
+            f"{d_metrics}, parameters max |d| {d_params}")
+    out.update(train_ms=med_s, train_plain_ms=med_p, train_d=max(d_metrics, d_params))
+    del runs, sh, pl
+    lm_free(dev)
+
+    seq, rows = DIST_DECODE_SHAPE
+    cfg = get_arch(DIST_DECODE_ARCH)
+    model = dryrun.Model(cfg)
+    try:
+        decode, (params, cache, tokens) = dryrun.build_case(
+            cfg, ShapeSpec("dist_decode", seq, rows, "decode"), mesh)
+    finally:
+        clear_ctx()
+    plain_params = {k: (v.to_local() if not isinstance(v, dict)
+                        else {n: t.to_local() for n, t in v.items()}) for k, v in params.items()}
+    plain_cache = model.cache_struct(rows, seq, device=dev)
+    plain_tokens = tokens.to_local()
+    d_logits, d_cache, ms_s, ms_p = 0.0, 0.0, [], []
+    for _ in range(1 + DIST_STEPS):
+        (ls, cache), ts = dist_timed(lambda: decode(params, cache, tokens))
+        (lp, plain_cache), tp = dist_timed(
+            lambda: model.decode_step(plain_params, plain_cache, plain_tokens))
+        ms_s.append(ts)
+        ms_p.append(tp)
+        d_logits = max(d_logits, max_err(ls.to_local().float(), lp.float()))
+        cs, cp = tree_paths(cache), tree_paths(plain_cache)
+        d_cache = max(d_cache, max(max_err(cs[k].to_local().float(), v.float())
+                                   for k, v in cp.items()))
+    ms_s, ms_p = ms_s[1:], ms_p[1:]
+    med_s, med_p = statistics.median(ms_s), statistics.median(ms_p)
+    log(f"[dist] build_case decode step, {DIST_DECODE_ARCH} at full width, {rows} rows against "
+        f"a {seq}-slot cache on its cache_specs, 1 + {DIST_STEPS} steps on DTensors and on "
+        f"plain tensors: logits max |d| {d_logits:.1e}, every cache leaf max |d| {d_cache:.1e}; "
+        f"median step {med_s:.2f} ms on DTensors, {med_p:.2f} ms plain (steps "
+        f"{[round(t, 2) for t in ms_s]} / {[round(t, 2) for t in ms_p]} ms) on {card}")
+    require(d_logits == 0 and d_cache == 0,
+            f"[dist] the sharded decode step differs from the plain one: logits max |d| "
+            f"{d_logits}, cache max |d| {d_cache}")
+    out.update(decode_ms=med_s, decode_plain_ms=med_p, decode_d=max(d_logits, d_cache))
     return out
 
 

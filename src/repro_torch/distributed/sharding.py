@@ -277,3 +277,11 @@ def shard_tree(tree: Any, mesh, specs: Any):
     ``jax.device_put(tree, NamedSharding(mesh, specs))``."""
     return _walk(lambda _, x, s: x if s is None else distribute(x, NamedSharding(mesh, s)),
                  tree, specs)
+
+
+def redistribute_tree(tree: Any, shardings: Any):
+    """Every DTensor leaf of ``tree`` redistributed onto its
+    :class:`NamedSharding` in ``shardings`` (a None leaves its leaf as it
+    is): ``jax.jit``'s ``out_shardings``."""
+    return _walk(lambda _, x, s: x if s is None else x.redistribute(
+        s.mesh.device_mesh, s.placements), tree, shardings)

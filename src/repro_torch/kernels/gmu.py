@@ -312,3 +312,17 @@ def segment_merge(vals: torch.Tensor, ids: torch.Tensor,
     merge."""
     return merge_views(vals.contiguous()[:, :, None], ids[None].to(torch.int32),
                        num_segments)[0]
+
+
+def scatter_operand_counts(ids: torch.Tensor, num_segments: int) -> dict:
+    """Instrumentation for the GMU ablation: how many scatter operands the
+    flat baseline and the merged path would issue (the reference's
+    ``gmu.scatter_operand_counts``).  It reads its three counts back to
+    the host."""
+    ok = ids >= 0
+    flat = int(torch.sum(ok))
+    sorted_ids = torch.sort(torch.where(ok, ids, num_segments)).values
+    uniq = int(torch.sum((sorted_ids[1:] != sorted_ids[:-1]) & (sorted_ids[1:] < num_segments)))
+    uniq += int(sorted_ids[0] < num_segments)
+    return {"flat_scatter_operands": flat, "merged_scatter_operands": 2 * uniq,
+            "unique_gaussians": uniq}

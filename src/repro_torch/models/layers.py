@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import constant
+from repro_torch.distributed import local
 
 NEG_INF = -1e30
 
@@ -210,4 +211,5 @@ def chunked_cross_entropy(
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
         total = total + checkpointed(body, x[:, sl], labels[:, sl], mask[:, sl])
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    # on local shards, the sums over every rank's batch rows
+    return local.psum_dp(total) / torch.clamp(local.psum_dp(torch.sum(mask)), min=1.0)

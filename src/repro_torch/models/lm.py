@@ -25,6 +25,14 @@ are the reference's; the functions take them explicitly
 (``Model(cfg).prefill(params, batch)``), and run on the device their
 inputs are on.
 
+On local shards (``models/sharded.py``, ``distributed/local.py``) the
+attention runs this rank's heads where ``wq`` holds only those (the keys
+and values its KV heads, or all of them where ``wk`` is whole), the SwiGLU
+its FFN columns and the MoE its experts; each ends in a sum over "model"
+of float32 partials, rounded once.  The other blocks run whole on every
+rank.  A block's branch follows from the shapes of the weights it is
+given, so plain tensors take the plain path.
+
 Decode caches are fixed-size rings: slot = pos % T, valid length
 min(pos+1, T). ``cache["len"]`` is a () int32 tensor on the cache's device
 and every ring write takes its slot as a tensor index, so a decode step
@@ -45,7 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, local
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
@@ -281,23 +289,77 @@ def _norm(x, w, cfg: ArchConfig) -> torch.Tensor:
     return rmsnorm(x, w, cfg.norm_eps).to(BF16)
 
 
-def _attn_seq(x, p, cfg: ArchConfig, window: int, kv_chunk, causal=True):
-    b, s, _ = x.shape
+def _row_parallel(y, w) -> torch.Tensor:
+    """``y @ w`` where ``w`` holds this rank's rows: float32 partial
+    products summed over "model", rounded once to ``y``'s dtype."""
+    return local.leave(y.float() @ w.float()).to(y.dtype)
+
+
+def _q_proj(xn, wq, cfg: ArchConfig):
+    """(queries (B, S, heads, hd), the input they were made from): all heads,
+    or this rank's where ``wq`` holds only those."""
+    b, s, _ = xn.shape
+    hd = cfg.head_dim_
+    hl = wq.shape[-1] // hd
+    xt = xn if hl == cfg.num_heads else local.enter(xn)
+    return (xt @ wq).reshape(b, s, hl, hd), xt
+
+
+def _kv_pick(wq, wk, cfg: ArchConfig):
+    """The slice of KV heads this rank's query heads read, where the queries
+    are split over "model" and ``wk`` is whole; else None."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if wq.shape[-1] == h * hd or wk.shape[-1] != kv * hd:
+        return None
+    lo, hi = local.local_block(h)
+    return slice(lo * kv // h, (hi - 1) * kv // h + 1)
+
+
+def _pick(k, sel):
+    """(B, T, KV, hd) keys or values: the heads ``sel`` (all for None)."""
+    return k if sel is None else local.enter(k)[:, :, sel]
+
+
+def _qkv(xn, mem, p, cfg: ArchConfig, pre: str = ""):
+    """q from ``xn`` (B, S, d), k and v from ``mem`` (B, T, d) (``xn`` itself
+    in self-attention), and the KV heads the queries read (:func:`_kv_pick`)."""
+    b, t = mem.shape[:2]
+    hd = cfg.head_dim_
+    wq, wk, wv = p[pre + "wq"], p[pre + "wk"], p[pre + "wv"]
+    q, xt = _q_proj(xn, wq, cfg)
+    kl = wk.shape[-1] // hd
+    if kl != cfg.num_kv_heads:          # this rank's KV heads
+        mem = xt if mem is xn else local.enter(mem)
+    k = (mem @ wk).reshape(b, t, kl, hd)
+    v = (mem @ wv).reshape(b, t, kl, hd)
+    return q, k, v, _kv_pick(wq, wk, cfg)
+
+
+def _out(o, w, cfg: ArchConfig) -> torch.Tensor:
+    """(B, S, heads, hd) attention outputs through the output projection."""
+    b, s, hl, hd = o.shape
+    o = o.reshape(b, s, hl * hd)
+    return o @ w if hl == cfg.num_heads else _row_parallel(o, w)
+
+
+def _attn_seq(x, p, cfg: ArchConfig, window: int, kv_chunk, causal=True):
+    s = x.shape[1]
     xn = _norm(x, p["ln1"], cfg)
-    q = (xn @ p["wq"]).reshape(b, s, h, hd)
-    k = (xn @ p["wk"]).reshape(b, s, kv, hd)
-    v = (xn @ p["wv"]).reshape(b, s, kv, hd)
+    q, k, v, sel = _qkv(xn, xn, p, cfg)
     pos = torch.arange(s, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    o = blockwise_attention(q, k, v, causal=causal, window=window, kv_chunk=kv_chunk)
-    return _residual(x, o.reshape(b, s, h * hd) @ p["wo"]), (k, v)
+    o = blockwise_attention(q, _pick(k, sel), _pick(v, sel), causal=causal, window=window,
+                            kv_chunk=kv_chunk)
+    return _residual(x, _out(o, p["wo"], cfg)), (k, v)
 
 
 def _mlp_seq(x, p, cfg: ArchConfig):
     xn = _norm(x, p["ln2"], cfg)
-    return _residual(x, swiglu(xn, p["wg"], p["wu"], p["wd"]))
+    if p["wg"].shape[-1] == (cfg.d_ff or 4 * cfg.d_model):
+        return _residual(x, swiglu(xn, p["wg"], p["wu"], p["wd"]))
+    xt = local.enter(xn)                # this rank's FFN columns
+    return _residual(x, _row_parallel(silu(xt @ p["wg"]) * (xt @ p["wu"]), p["wd"]))
 
 
 def _moe_seq(x, p, cfg: ArchConfig):
@@ -371,14 +433,11 @@ def _slstm_seq(x, p, cfg: ArchConfig):
 
 
 def _cross_seq(x, p, memory, cfg: ArchConfig, kv_chunk):
-    b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     xn = _norm(x, p["lnx"], cfg)
-    q = (xn @ p["xwq"]).reshape(b, s, h, hd)
-    k = (memory @ p["xwk"]).reshape(b, memory.shape[1], kv, hd)
-    v = (memory @ p["xwv"]).reshape(b, memory.shape[1], kv, hd)
-    o = blockwise_attention(q, k, v, causal=False, window=0, kv_chunk=kv_chunk)
-    return _residual(x, o.reshape(b, s, h * hd) @ p["xwo"]), (k, v)
+    q, k, v, sel = _qkv(xn, memory, p, cfg, "x")
+    o = blockwise_attention(q, _pick(k, sel), _pick(v, sel), causal=False, window=0,
+                            kv_chunk=kv_chunk)
+    return _residual(x, _out(o, p["xwo"], cfg)), (k, v)
 
 
 # --------------------------------------------------------------------------
@@ -473,12 +532,9 @@ def _attn_step(x, p, k_cache, v_cache, pos, window, cfg: ArchConfig):
     """One-token attention against a ring cache. x (B,1,d); pos a () int32
     tensor. Writes the token's k and v into slot pos % T of the caches."""
     b = x.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     t = k_cache.shape[1]
     xn = _norm(x, p["ln1"], cfg)
-    q = (xn @ p["wq"]).reshape(b, 1, h, hd)
-    k = (xn @ p["wk"]).reshape(b, 1, kv, hd)
-    v = (xn @ p["wv"]).reshape(b, 1, kv, hd)
+    q, k, v, sel = _qkv(xn, xn, p, cfg)
     posv = pos.expand(b, 1)
     q = rope(q, posv, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_theta)
@@ -488,8 +544,8 @@ def _attn_step(x, p, k_cache, v_cache, pos, window, cfg: ArchConfig):
     eff_len = torch.clamp(pos + 1, max=t)
     # Linear (full-length) caches apply the sliding-window mask; ring caches
     # (t <= window, e.g. zamba2 at 500k) ARE the window — no mask needed.
-    o = decode_attention(q, k_cache, v_cache, eff_len, window=window)
-    return _residual(x, o.reshape(b, 1, h * hd) @ p["wo"])
+    o = decode_attention(q, _pick(k_cache, sel), _pick(v_cache, sel), eff_len, window=window)
+    return _residual(x, _out(o, p["wo"], cfg))
 
 
 def _decode_attn_stack(x, p, cache, pos, windows, cfg: ArchConfig, moe: bool):
@@ -570,17 +626,16 @@ def _decode_slstm(x, p, cache, cfg: ArchConfig):
 
 
 def _decode_encdec_stack(x, p, cache, pos, cfg: ArchConfig):
-    b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim_
     x = x.to(BF16)  # the loop's first carry too (the prefill's takes it as given)
     for l in range(cache["k"].shape[0]):
         lp = _layer(p, l)
         xk, xv = cache["xk"][l], cache["xv"][l]
         x = _attn_step(x, lp, cache["k"][l], cache["v"][l], pos, 0, cfg)
         xn = _norm(x, lp["lnx"], cfg)
-        q = (xn @ lp["xwq"]).reshape(b, 1, h, hd)
-        o = decode_attention(q, xk, xv, xk.shape[1])
-        x = _residual(x, o.reshape(b, 1, h * hd) @ lp["xwo"])
+        q, _ = _q_proj(xn, lp["xwq"], cfg)
+        sel = _kv_pick(lp["xwq"], lp["xwk"], cfg)
+        o = decode_attention(q, _pick(xk, sel), _pick(xv, sel), xk.shape[1])
+        x = _residual(x, _out(o, lp["xwo"], cfg))
         x = _mlp_seq(x, lp, cfg).to(BF16)
     return x, cache
 

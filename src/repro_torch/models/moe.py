@@ -14,6 +14,13 @@ Shapes (per batch row, S tokens, E experts, top-k):
 
 The reference's out-of-range writes (``mode="drop"`` into expert row E and
 token row S) land here in one spare row that is then cut off.
+
+On local shards (``distributed/local.py``) with the expert weights split
+over "model" (EP), every rank routes its batch rows to all E experts, as on
+one rank, and then dispatches, computes and combines only its own experts'
+slots; the combined rows, partial sums in float32, are summed over "model"
+and rounded once.  The load-balancing loss's means run over every rank's
+batch rows.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, local
 from repro_torch.models.layers import at_least, silu
 
 
@@ -89,6 +96,12 @@ def moe_ffn(
     flat_ids = expert_ids.reshape(b, s * top_k)
     flat_w = gate_w.reshape(b, s * top_k)
     dest = _dispatch_row(flat_ids, flat_w, e, c).long()         # (B,E,C)
+    ep = w_gate.shape[0] != e       # this rank's experts only
+    if ep:
+        lo, hi = local.local_block(e)
+        dest, e = dest[:, lo:hi], hi - lo
+        # the gathered rows and weights feed this rank's experts only
+        x, flat_w = local.enter(x), local.enter(flat_w)
 
     token_of = torch.div(dest, top_k, rounding_mode="floor")    # source token
     present = dest >= 0
@@ -108,14 +121,16 @@ def moe_ffn(
     w_of = (w_of.reshape(b, e, c) * present).to(ye.dtype)
 
     # scatter-add back to tokens; the spare token row S takes empty slots
-    out = torch.zeros((b, s + 1, d), dtype=ye.dtype, device=dev)
+    out = torch.zeros((b, s + 1, d), dtype=torch.float32 if ep else ye.dtype, device=dev)
     scatter_tok = torch.where(present, token_of, s).reshape(b, e * c)
     contrib = (ye * w_of[..., None]).reshape(b, e * c, d)
-    out.scatter_add_(1, scatter_tok[..., None].expand(b, e * c, d), contrib)
+    out.scatter_add_(1, scatter_tok[..., None].expand(b, e * c, d), contrib.to(out.dtype))
     out = out[:, :s]
+    if ep:
+        out, e = local.leave(out), router_w.shape[1]
 
     # Switch-style load-balancing auxiliary loss.
-    me = probs.mean(dim=(0, 1))                                  # mean router prob
-    assign = F.one_hot(expert_ids, e).sum(2).float().mean(dim=(0, 1)) / top_k
+    me = local.batch_mean(probs, (0, 1))                         # mean router prob
+    assign = local.batch_mean(F.one_hot(expert_ids, e).sum(2).float(), (0, 1)) / top_k
     aux = e * torch.sum(me * assign)
     return out.to(x.dtype), aux.float()

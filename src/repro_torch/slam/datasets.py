@@ -37,6 +37,11 @@ from repro_torch.core.sorting import make_tile_grid
 
 SCENES: tuple = ("room0", "room1", "hall0", "desk0", "stairs0", "corridor0")
 
+
+def registered_scenes() -> tuple:
+    return SCENES
+
+
 _OFFSET = {"room0": 0.0, "room1": 0.35, "hall0": -0.3}
 _ARC = {"room0": 0.9, "room1": 1.2, "hall0": 0.7}
 

@@ -8,6 +8,20 @@ its cross-replica reduction).  The gradients come from autograd through
 ``Model.loss_fn``; a step consumes the parameters and optimizer state it is
 given (``Adam.update_apply`` writes each new leaf over the old one).
 
+On DTensor parameters (a sharded step, ``launch/dryrun.build_case``) the
+parameters are put in their compute layout once a step (``models/
+sharded.py``: FSDP dims gathered, so a rank holds its share of every
+leaf for the whole step), each microbatch's gradients come from the
+model run on every rank's local shards and are then synced explicitly: each leaf's local
+gradient, a partial sum over the batch axes, is cast to its wire dtype and
+redistributed to ``grad_specs``, so on an FSDP leaf the sync is a
+reduce-scatter onto the leaf's shard.  The wire dtype is bf16 with
+``grad_compression="bf16"`` (2 bytes an element, the reference's
+compression) and float32 without it.  The batch is split into microbatches
+by redistributing it to ``microbatch_specs``, so every microbatch stays
+sharded over the batch axes.  Adam then updates the DTensor leaves in
+place, clipping by the global norm of the whole sharded tree.
+
 ``Trainer`` is the loop: periodic, final and emergency checkpoints
 (``train/checkpoint.py``, the reference's format; no emergency checkpoint
 when the in-place update failed after writing a leaf, which leaves the
@@ -27,11 +41,20 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import local
+from repro_torch.distributed.sharding import placements
+from repro_torch.models import sharded
 from repro_torch.models.lm import BF16, Model, init_params
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import device_batch
 from repro_torch.train.optimizer import (
     Adam, UpdateInterrupted, tree_leaves, tree_map, tree_unflatten)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict):
@@ -48,39 +71,110 @@ def loss_and_grads(model: Model, params: dict, batch: dict):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def _sharded_grads(model: Model, call, params, batch, grad_specs, wire: torch.dtype):
+    """(the loss, gradients like ``params``) of one (micro)batch on DTensors,
+    the parameters' local tensors taken from ``call`` (``sharded.localize``,
+    once a step): local gradients synced in ``wire`` onto ``grad_specs``
+    (the parameters' own placements where None), in the parameters' dtypes."""
+    from torch.distributed.tensor import DTensor
+
+    rows = {k: v.to_local() for k, v in batch.items()}
+    with local.local_mode(call.mesh, call.dp, call.model_axis):
+        loss, grads = loss_and_grads(model, call.params, rows)
+    names = call.mesh.mesh_dim_names
+    specs = tree_map(lambda p: p.placements, params) if grad_specs is None else \
+        tree_map(lambda s: placements(names, s), grad_specs)
+
+    def sync(g, layout, p, target):
+        g = DTensor.from_local(g.to(wire), call.mesh, sharded.grad_layout(call, layout),
+                               run_check=False, shape=p.shape, stride=p.stride())
+        return g.redistribute(call.mesh, target).to(p.dtype)
+
+    return loss, tree_map(sync, grads, call.layouts, params, specs)
+
+
+def _split_batch(batch: dict, mb: int, microbatch_specs) -> list:
+    """The mb microbatches of a DTensor batch: (B, ...) -> (mb, B/mb, ...),
+    redistributed to ``microbatch_specs`` (the batch axes on dim 1) where
+    given, then one microbatch at a time."""
+    out = {}
+    for k, v in batch.items():
+        v = v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
+        if microbatch_specs is not None:
+            v = v.redistribute(v.device_mesh,
+                               placements(v.device_mesh.mesh_dim_names, microbatch_specs[k]))
+        out[k] = v
+    return [{k: v[i] for k, v in out.items()} for i in range(mb)]
+
+
 def make_train_step(model: Model, opt, microbatches: int = 1,
-                    grad_compression: str = "none"):
+                    grad_compression: str = "none", microbatch_specs=None, grad_specs=None):
     """Returns step(params, opt_state, batch) -> (metrics, params,
     opt_state); ``metrics`` holds the () float32 ``loss`` and ``grad_norm``
-    on the device.  The step consumes ``params`` and ``opt_state``."""
+    on the device.  The step consumes ``params`` and ``opt_state``.
+
+    On DTensors (see the module's docstring) ``microbatch_specs`` are the
+    split batch's specs, (mb, B/mb, ...) with the batch axes on dim 1, and
+    ``grad_specs`` the specs each microbatch's gradients are synced onto:
+    the reference's two sharding constraints."""
 
     def compress(g):
         if grad_compression == "bf16":
             return tree_map(lambda a: a.to(BF16), g)
         return g
 
-    def step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, grads = loss_and_grads(model, params, batch)
-            grads = compress(grads)
-        else:
-            mb = microbatches
-            batches = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
-                       for k, v in batch.items()}
-            # accumulated in the parameters' dtype, as the reference's
-            # zeros_like(params) carry
-            grads = tree_map(torch.zeros_like, params)
-            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            for i in range(mb):
-                l, g = loss_and_grads(model, params, {k: v[i] for k, v in batches.items()})
-                tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, compress(g))
-                loss = loss + l
-                del g
-            loss = loss / mb
-            tree_map(lambda g: g.div_(mb), grads)
-        params, opt_state, gnorm = opt.update_apply(grads, opt_state, params)
-        return {"loss": loss, "grad_norm": gnorm}, params, opt_state
+    def grads_of(params, batch):
+        """The step's (loss, gradients): averaged over the microbatches,
+        each compressed as ``grad_compression`` says."""
+        if _is_dtensor(batch["tokens"]):
+            wire = BF16 if grad_compression == "bf16" else torch.float32
+            call = sharded.localize(model.cfg, params, batch)
 
+            def one(b):
+                return _sharded_grads(model, call, params, b, grad_specs, wire)
+
+            parts = [batch] if microbatches == 1 else \
+                _split_batch(batch, microbatches, microbatch_specs)
+        else:
+            def one(b):
+                return loss_and_grads(model, params, b)
+
+            mb = microbatches
+            split = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:]) for k, v in batch.items()}
+            parts = [batch] if mb == 1 else [{k: v[i] for k, v in split.items()} for i in range(mb)]
+        if microbatches == 1:
+            loss, grads = one(parts[0])
+            return loss, compress(grads)
+        # accumulated in the parameters' dtype, as the reference's
+        # zeros_like(params) carry
+        grads = tree_map(torch.zeros_like, params)
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        for part in parts:
+            l, g = one(part)
+            tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, compress(g))
+            loss = loss + l
+            del g
+        loss = loss / microbatches
+        tree_map(lambda g: g.div_(microbatches), grads)
+        return loss, grads
+
+    def apply(loss, grads, params, opt_state):
+        """The step's update from ``grads_of``'s output (``grads`` consumed)."""
+        if not _is_dtensor(tree_leaves(params)[0]):
+            params, opt_state, gnorm = opt.update_apply(grads, opt_state, params)
+            return {"loss": loss, "grad_norm": gnorm}, params, opt_state
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        # Adam's scalars are plain tensors: on DTensor leaves they are replicated
+        with implicit_replication():
+            params, opt_state, gnorm = opt.update_apply(grads, opt_state, params)
+        return {"loss": loss, "grad_norm": gnorm.full_tensor()}, params, opt_state
+
+    def step(params, opt_state, batch):
+        return apply(*grads_of(params, batch), params, opt_state)
+
+    # its two halves, for a caller that reads the gradients in between
+    step.grads, step.apply = grads_of, apply
     return step
 
 
@@ -99,10 +193,13 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, data_iter, device=None):
+    def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig, data_iter, mesh=None,
+                 shardings=None, device=None):
+        # ``mesh`` is kept and ``shardings`` taken and unused, as in the reference
         self.cfg = cfg
         self.tcfg = tcfg
         self.data_iter = data_iter
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = Model(cfg)
         self.opt = Adam(lr=tcfg.lr, weight_decay=tcfg.weight_decay,

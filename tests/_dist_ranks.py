@@ -1,7 +1,10 @@
 """One CPU rank of the gloo group that ``tests/test_torch_distributed.py``
-starts: eight of these run every distributed case of the port (meshes,
-``shard_tree``, ``ctx`` on DTensors and inside the model on them, elastic checkpoint restore,
-``pipeline_apply``) and each pickles what it saw for the tests to check.
+and ``tests/test_torch_sharded.py`` share (:func:`spawn`, started once per
+test run): eight of these run every distributed case of the port (meshes,
+``shard_tree``, ``ctx`` on DTensors and inside the model on them, elastic
+checkpoint restore, ``pipeline_apply``, ``launch/dryrun.build_case``'s
+sharded train, prefill and decode steps, the gradient sync's bytes) and
+each pickles what it saw for the tests to check, with each case's seconds.
 
     python -m _dist_ranks RANK WORLD STORE_FILE OUT_DIR INPUTS_NPZ
 
@@ -13,7 +16,9 @@ torch and the port only.
 import os
 import pickle
 import sys
+import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -246,8 +251,230 @@ def case_pipeline(inputs, out_dir):
     return res
 
 
+# ``launch/dryrun.build_case`` on the (2, 4) mesh: the reference's mini
+# dry-run (train, and prefill and decode at its decode shape) and the train
+# step of the other seven architectures, every family's sharding roles once
+DRYRUN_FULL = ("qwen3-moe-30b-a3b", "zamba2-1.2b", "whisper-large-v3")
+DRYRUN_TRAIN = ("llama3-405b", "gemma3-27b", "llava-next-mistral-7b", "phi4-mini-3.8b",
+                "h2o-danube-1.8b", "qwen3-moe-235b-a22b", "xlstm-125m")
+DRYRUN_TRAIN_SHAPE = ShapeSpec("t", 64, 8, "train")
+DRYRUN_DECODE_SHAPE = ShapeSpec("d", 64, 8, "decode")
+
+
+def dryrun_cfg(name):
+    import dataclasses
+
+    return dataclasses.replace(get_arch(name).reduced(), microbatches=2)
+
+
+def _gathered(tree, keep: bool):
+    """Each DTensor leaf's whole value as float32 numpy (every rank takes
+    part in the gathers; only rank 0 keeps them when ``keep`` is False)."""
+    return tree_map(lambda t: (lambda a: a if keep else None)(_np(t.full_tensor())), tree)
+
+
+def _placed(tree):
+    return {k: tuple(str(p) for p in t.placements) for k, t in tree_paths(tree).items()}
+
+
+def _local_bytes(tree):
+    return {k: t.to_local().numel() * t.element_size() for k, t in tree_paths(tree).items()}
+
+
+def _dryrun_train(name, mesh, keep):
+    from repro_torch.launch.dryrun import build_case
+
+    cfg = dryrun_cfg(name)
+    try:
+        step, (params, opt_state, batch) = build_case(cfg, DRYRUN_TRAIN_SHAPE, mesh)
+        # the inputs' fingerprint: the tests draw them again from the seed
+        res = dict(input_sums={k: float(t.full_tensor().double().sum())
+                               for k, t in tree_paths(params).items()},
+                   batch=_gathered(batch, keep),
+                   param_placements=_placed(params), param_bytes=_local_bytes(params),
+                   mu_bytes=_local_bytes(opt_state.mu), nu_bytes=_local_bytes(opt_state.nu),
+                   batch_placements=_placed(batch))
+        # the step in its two halves, reading the gradients in between
+        loss, grads = step.grads(params, batch)
+        res.update(grads=_gathered(grads, keep),
+                   grad_placements=_placed(grads),
+                   grad_dtypes={k: str(t.dtype) for k, t in tree_paths(grads).items()})
+        metrics, params, opt_state = step.apply(loss, grads, params, opt_state)
+        res.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   params=_gathered(params, keep), after_placements=_placed(params),
+                   opt_step=int(opt_state.step.full_tensor()))
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    return res
+
+
+def case_dryrun(inputs, out_dir):
+    """``build_case``'s steps; rank 0 keeps the gathered values, the other
+    ranks their placements and local sizes."""
+    from repro_torch.launch.dryrun import build_case
+
+    keep = dist.get_rank() == 0
+    mesh = M.make_mesh((2, 4), ("data", "model"), device="cpu")
+    res = {}
+    for name in DRYRUN_FULL + DRYRUN_TRAIN:
+        res[name] = {"train": _dryrun_train(name, mesh, keep)}
+    for name in DRYRUN_FULL:
+        cfg = dryrun_cfg(name)
+        try:
+            shape = ShapeSpec("d", DRYRUN_DECODE_SHAPE.seq_len,
+                              DRYRUN_DECODE_SHAPE.global_batch, "prefill")
+            fn, (params, batch) = build_case(cfg, shape, mesh)
+            logits, cache = fn(params, batch)
+            res[name]["prefill"] = dict(batch=_gathered(batch, keep),
+                                        logits=_gathered(logits, keep),
+                                        cache=_gathered(cache, keep),
+                                        logits_placements=tuple(map(str, logits.placements)),
+                                        cache_placements=_placed(cache))
+            fn, (params, cache, tokens) = build_case(cfg, DRYRUN_DECODE_SHAPE, mesh)
+            steps = []
+            for _ in range(2):
+                logits, cache = fn(params, cache, tokens)
+                steps.append(dict(logits=_gathered(logits, keep), cache=_gathered(cache, keep),
+                                  cache_placements=_placed(cache)))
+                tokens = _next_tokens(logits, tokens)
+            res[name]["decode"] = dict(tokens=_gathered(tokens, keep), steps=steps)
+        finally:
+            ctx.set_dp_axes(None)
+            ctx.set_model_axis(None)
+            ctx.set_seq_axis(None)
+    return res
+
+
+def _next_tokens(logits, tokens):
+    """The greedy next tokens, as a DTensor laid out as ``tokens``."""
+    from torch.distributed.tensor import DTensor
+
+    nxt = torch.argmax(logits.to_local(), -1).to(torch.int32)
+    return DTensor.from_local(nxt, tokens.device_mesh, tokens.placements, run_check=False)
+
+
+_COLLECTIVES = ("all_reduce", "allreduce", "reduce_scatter", "all_gather", "allgather",
+                "all_to_all", "alltoall", "broadcast")
+
+
+class CommBytes:
+    """Counts the bytes each collective of ``torch.distributed`` takes in
+    (its input tensors), as the reference counts an HLO collective's
+    operand bytes: a ``TorchDispatchMode`` over the c10d ops."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace in ("_c10d_functional", "c10d") and any(
+                        c in func.__name__ for c in _COLLECTIVES):
+                    first = args[0]
+                    ts = first if isinstance(first, (list, tuple)) else [first]
+                    counter.ops.append((str(func), sum(
+                        t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))))
+                return func(*args, **(kwargs or {}))
+
+        self.ops, self.mode = [], Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def case_wire(inputs, out_dir):
+    """xlstm-125m at reduced size with ``fsdp=False`` on an (8,) data mesh,
+    batch (8, 32): the bytes of one step's collectives with
+    ``grad_compression="bf16"``, and of a copy of the step that casts after
+    the sync (each microbatch's gradients synced in float32)."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import build_case
+    from repro_torch.train import trainer as T
+    from repro_torch.train.optimizer import Adam
+
+    mesh = M.make_mesh((8,), ("data",), device="cpu")
+    cfg = dataclasses.replace(get_arch("xlstm-125m").reduced(), fsdp=False)
+    res = {}
+    try:
+        for what in ("bf16", "cast_after_sync"):
+            _, (params, opt_state, batch) = build_case(cfg, ShapeSpec("w", 32, 8, "train"), mesh)
+            step = T.make_train_step(T.Model(cfg), Adam(lr=1e-3), 1, grad_compression="bf16")
+            sync = T._sharded_grads
+            if what == "cast_after_sync":
+                T._sharded_grads = lambda m, c, p, b, specs, wire: sync(m, c, p, b, specs,
+                                                                        torch.float32)
+            try:
+                with CommBytes() as count:
+                    metrics, params, _ = step(params, opt_state, batch)
+            finally:
+                T._sharded_grads = sync
+            res[what] = dict(ops=count.ops, loss=float(metrics["loss"]),
+                             param_bytes=sum(t.numel() * t.element_size()
+                                             for t in tree_leaves(params)))
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    return res
+
+
 CASES = {"meshes": case_meshes, "shard_tree": case_shard_tree, "ctx": case_ctx,
-         "ctx_model": case_ctx_model, "elastic": case_elastic, "pipeline": case_pipeline}
+         "ctx_model": case_ctx_model, "elastic": case_elastic, "pipeline": case_pipeline,
+         "dryrun": case_dryrun, "wire": case_wire}
+
+
+WORLD = 8
+PIPE_S, PIPE_M, PIPE_D, PIPE_MB = 4, 6, 16, 8
+REPO = Path(__file__).resolve().parent.parent
+
+
+def inputs() -> dict:
+    r = np.random.default_rng(0)
+    return dict(
+        w=(r.normal(size=(PIPE_S, PIPE_D, PIPE_D)) * 0.3).astype(np.float32),
+        x=r.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32),
+        cot=r.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32),
+        act=r.normal(size=(8, 16, 32)).astype(np.float32),
+        dispatch=r.normal(size=(4, 8, 3, 16)).astype(np.float32),
+        big=r.normal(size=(512, 512)).astype(np.float32))
+
+
+def spawn(where: Path) -> list:
+    """Starts the ``WORLD`` ranks in ``where`` (from a test process, which
+    never joins the group) and returns what each one saw."""
+    import subprocess
+
+    where.mkdir(parents=True, exist_ok=True)
+    np.savez(where / "inputs.npz", **inputs())
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO / "tests")]))
+    procs = []
+    for rank in range(WORLD):
+        log = open(where / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "_dist_ranks", str(rank), str(WORLD),
+             str(where / "store"), str(where), str(where / "inputs.npz")],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    assert not bad, "\n".join((where / f"rank{r}.log").read_text()[-3000:] for r in bad)
+    return [pickle.loads((where / f"rank{r}.pkl").read_bytes()) for r in range(WORLD)]
 
 
 def main(argv):
@@ -256,14 +483,16 @@ def main(argv):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
-    res = {}
+    res = {"seconds": {}}
     try:
         for name, case in CASES.items():
+            t0 = time.perf_counter()
             try:
                 res[name] = case(inputs, out_dir)
             except Exception:
                 res[name] = {"error": traceback.format_exc()}
             dist.barrier()
+            res["seconds"][name] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

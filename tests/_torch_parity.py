@@ -27,6 +27,19 @@ def first_cpu_exp_spent():
     torch.exp(torch.linspace(-40.0, 0.0, 20480))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread for a module's torch work.  The tier-1 command
+    runs six pytest-xdist workers; at torch's default of one thread per
+    core each worker's parallel ops contend with the others' (five port
+    files took 215 s at the default and 123 s at one thread, six workers on
+    eight cores).  Modules import this fixture to take it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def grad_atol(ref_grad) -> float:
     return max(3e-6, 3e-5 * float(np.max(np.abs(np.asarray(ref_grad)))))
 

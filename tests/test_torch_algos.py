@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from _shared_runs import shared
+from _shared_runs import Builds
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import lie as jlie
 from repro.core.keyframes import KeyframePolicy as JPolicy
 from repro.core.pruning import PruneConfig as JPrune
@@ -56,35 +57,87 @@ def dataset():
     return _datasets()
 
 
-@pytest.fixture(scope="module", params=sorted(POLICIES))
-def runs(request, tmp_path_factory):
-    """Both packages' runs of one base algorithm, built once per test run
-    and shared by the xdist workers (``tests/_shared_runs.py``)."""
-    algo = request.param
-    return shared(request, tmp_path_factory, f"torch_algos_runs_{algo}",
-                  lambda: _build_runs(algo))
+def _cfg_t(algo):
+    return tsession.SLAMConfig(base_algo=algo, prune=TPrune(**PRUNE),
+                               keyframe=TPolicy(**POLICIES[algo]), **CFG)
 
 
-def _build_runs(algo):
+def _build_data(_):
     ds_j, ds_t = _datasets()
-    cfg_j = jsession.SLAMConfig(backend="ref", base_algo=algo, prune=JPrune(**PRUNE),
-                                keyframe=JPolicy(**POLICIES[algo]), **CFG)
-    cfg_t = tsession.SLAMConfig(base_algo=algo, prune=TPrune(**PRUNE),
-                                keyframe=TPolicy(**POLICIES[algo]), **CFG)
-    sess = jsession.session_init(ds_j, cfg_j, seed=SEED)
-    states, steps = [jax.device_get(sess)], []
-    for idx in range(1, FRAMES):
-        sess, res = jsession.session_step(sess, ds_j.frames[idx])
-        states.append(jax.device_get(sess))
-        steps.append(jax.device_get(res))
-    res_j = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
-    perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
-    res_t = tsession.run_sequence(ds_t, cfg_t, device="cpu", seed=SEED, perms=perms)
-    return dict(algo=algo, ds_t=ds_t, cfg_t=cfg_t, states=states, steps=steps,
-                res_j=res_j, res_t=res_t, perms=perms)
+    per = _cfg_t("splatam").densify_per_kf      # the config's default, as every algo's
+    return dict(ds_j=ds_j, ds_t=ds_t, perms={i: _jax_perm(i, per) for i in range(1, FRAMES)})
+
+
+def _build_ref(algo):
+    def build(runs):
+        """The reference's run of ``algo``: its state after every frame and
+        its results."""
+        ds_j = runs["ds_j"]
+        cfg_j = jsession.SLAMConfig(backend="ref", base_algo=algo, prune=JPrune(**PRUNE),
+                                    keyframe=JPolicy(**POLICIES[algo]), **CFG)
+        sess = jsession.session_init(ds_j, cfg_j, seed=SEED)
+        states, steps = [jax.device_get(sess)], []
+        for idx in range(1, FRAMES):
+            sess, res = jsession.session_step(sess, ds_j.frames[idx])
+            states.append(jax.device_get(sess))
+            steps.append(jax.device_get(res))
+        res_j = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
+        return {f"states_{algo}": states, f"steps_{algo}": steps, f"res_j_{algo}": res_j}
+
+    return build
+
+
+def _build_port(algo):
+    def build(runs):
+        """The port's run of ``algo``, fed the reference's densify picks."""
+        return {f"res_t_{algo}": tsession.run_sequence(runs["ds_t"], _cfg_t(algo), device="cpu",
+                                                       seed=SEED, perms=runs["perms"])}
+
+    return build
+
+
+class _AlgoRuns:
+    """One base algorithm's view of the module's builds: ``runs["steps"]``
+    is ``builds["steps_<algo>"]``."""
+
+    def __init__(self, builds, algo):
+        self.builds, self.algo, self.cfg_t = builds, algo, _cfg_t(algo)
+
+    def prefetch(self):
+        """Both runs of this algorithm, the one no other worker is making
+        first."""
+        self.builds.prefetch(f"ref_{self.algo}", f"port_{self.algo}")
+
+    def __getitem__(self, key):
+        if key == "algo":
+            return self.algo
+        if key == "cfg_t":
+            return self.cfg_t
+        if key in ("ds_t", "perms"):
+            return self.builds[key]
+        return self.builds[f"{key}_{self.algo}"]
+
+
+@pytest.fixture(scope="module")
+def builds(request, tmp_path_factory):
+    """The inputs, and each base algorithm's reference run and port run,
+    each built once per test run (``tests/_shared_runs.py``) and apart, so
+    several workers build them at once."""
+    parts = {"data": (("ds_j", "ds_t", "perms"), _build_data)}
+    for algo in POLICIES:
+        parts[f"ref_{algo}"] = ((f"states_{algo}", f"steps_{algo}", f"res_j_{algo}"),
+                                _build_ref(algo))
+        parts[f"port_{algo}"] = ((f"res_t_{algo}",), _build_port(algo))
+    return Builds(request, tmp_path_factory, "torch_algos", parts)
+
+
+@pytest.fixture(scope="module", params=sorted(POLICIES))
+def runs(request, builds):
+    return _AlgoRuns(builds, request.param)
 
 
 def test_keyframes_and_alive_over_a_run_match(runs):
+    runs.prefetch()
     flags = [bool(s.is_kf) for s in runs["steps"]]
     res_t, res_j = runs["res_t"], runs["res_j"]
     assert len(res_t.keyframe_psnr) == len(res_j.keyframe_psnr) == 1 + sum(flags)

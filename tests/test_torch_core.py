@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_grads_close, jx, np_, th, tiny_cloud
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core import lie as jlie
 from repro.core import losses as jlosses

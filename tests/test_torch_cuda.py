@@ -1834,9 +1834,10 @@ def test_cuda_lm_ctx_set_equals_unset_bit_for_bit(dev, name):
     assert all(torch.equal(a, b) for a, b in zip(got, unset))
 
 
-# The families that run on DTensors under the card's PyTorch: the MoE
-# dispatch, xLSTM's log_sigmoid backward and a zamba2 unsqueeze have no
-# sharding rule there (ROADMAP 13d).
+# The families whose plain model runs on replicated DTensors under the
+# card's PyTorch: the MoE dispatch, xLSTM's log_sigmoid backward and a
+# zamba2 unsqueeze have no sharding rule there, which is why a sharded call
+# runs the model on local shards (models/sharded.py).
 DTENSOR_ARCHS = ("gemma3-27b", "h2o-danube-1.8b", "llama3-405b", "llava-next-mistral-7b",
                  "phi4-mini-3.8b", "whisper-large-v3")
 
@@ -1848,9 +1849,9 @@ def test_cuda_lm_ctx_on_dtensors_equals_plain(dev, nccl_one_rank, name):
     DTensors, ``ctx``'s data and model axes set: every ``constrain_batch``
     in prefill and in loss_fn (under remat, and its backward)
     redistributes its activation to (Shard(0), Replicate()), and logits,
-    cache, loss and gradients equal the plain run's bit for bit.  Heads
-    sharded on "model" beside the batch on "data", and the sequence axis,
-    cannot run on DTensors yet (ROADMAP 13d)."""
+    cache, loss and gradients equal the plain run's bit for bit.  The
+    parameters on their own specs run through ``models/sharded.py``'s
+    local map instead (``test_cuda_build_case_*``)."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
@@ -1904,6 +1905,84 @@ def test_cuda_lm_ctx_on_dtensors_equals_plain(dev, nccl_one_rank, name):
     assert len(got) == len(plain)
     assert all(torch.equal(a.full_tensor() if isinstance(a, DTensor) else a, b)
                for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_cuda_build_case_train_step_equals_plain_on_one_rank(dev, nccl_one_rank, name):
+    """``build_case``'s sharded train step (2 microbatches, the specs'
+    placements, AdamW with clipping) on the 1x1 mesh against the same
+    step on plain tensors from the same seed: loss, grad norm and every
+    parameter bit for bit, each parameter leaving on its spec."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import tree_paths
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_arch(name).reduced(), microbatches=2)
+    try:
+        step, (params, opt_state, batch) = dryrun.build_case(
+            cfg, ShapeSpec("t", 64, 8, "train"), mesh)
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    specs = tree_paths(sharding.param_specs(cfg, params, mesh))
+    m_s, p_s, _ = step(params, opt_state, batch)
+    plain, opt_plain = dryrun.abstract_state(cfg, True, dev, 0)
+    m_p, p_p, _ = step(plain, opt_plain, {k: v.to_local() for k, v in batch.items()})
+    assert float(m_s["loss"]) == float(m_p["loss"])
+    assert float(m_s["grad_norm"]) == float(m_p["grad_norm"])
+    for k, t in tree_paths(p_p).items():
+        got = tree_paths(p_s)[k]
+        assert isinstance(got, DTensor) and got.to_local().device.type == "cuda"
+        assert got.placements == sharding.placements(mesh.axis_names, specs[k])
+        assert torch.equal(got.to_local(), t), k
+
+
+@pytest.mark.parametrize("name", ("qwen3-moe-30b-a3b", "zamba2-1.2b", "whisper-large-v3"))
+def test_cuda_build_case_decode_step_equals_plain_on_one_rank(dev, nccl_one_rank, name):
+    """``build_case``'s prefill and two decode steps at (64, 8) on the 1x1
+    mesh (the cache on ``cache_specs``) against the plain ones: logits
+    and every cache leaf bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import tree_paths
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = get_arch(name).reduced()
+    model = dryrun.Model(cfg)
+    try:
+        prefill, (params, batch) = dryrun.build_case(cfg, ShapeSpec("d", 64, 8, "prefill"), mesh)
+        decode, (_, cache, tokens) = dryrun.build_case(cfg, ShapeSpec("d", 64, 8, "decode"),
+                                                       mesh)
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    plain = {k: (v.to_local() if not isinstance(v, dict) else
+                 {n: t.to_local() for n, t in v.items()}) for k, v in params.items()}
+    logits, caches = prefill(params, batch)
+    want, want_caches = model.prefill(plain, {k: v.to_local() for k, v in batch.items()})
+    assert torch.equal(logits.to_local(), want)
+    for k, v in tree_paths(want_caches).items():
+        assert torch.equal(tree_paths(caches)[k].to_local(), v), k
+    plain_cache = model.cache_struct(8, 64, device=dev)
+    plain_tokens = tokens.to_local()
+    for _ in range(2):
+        logits, cache = decode(params, cache, tokens)
+        want, plain_cache = model.decode_step(plain, plain_cache, plain_tokens)
+        assert torch.equal(logits.to_local(), want)
+        for k, v in tree_paths(plain_cache).items():
+            assert torch.equal(tree_paths(cache)[k].to_local(), v), k
 
 
 def test_cuda_count_step_counts_the_backward_on_the_card(dev):

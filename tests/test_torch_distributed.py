@@ -23,11 +23,6 @@ no process group is ever started in a test process.
 
 import dataclasses
 import functools
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -37,6 +32,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+from _dist_ranks import PIPE_M, PIPE_S, WORLD, spawn
+from _dist_ranks import inputs as _pipe_inputs
 from _shared_runs import shared
 from repro import configs as jconfigs
 from repro.configs import base as jbase
@@ -52,7 +49,6 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import lm as TLM
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
-REPO = Path(__file__).resolve().parent.parent
 ARCHS = jconfigs.list_archs()
 # the reference's production meshes and its tests' meshes
 MESHES = {"16x16": ((16, 16), ("data", "model")),
@@ -60,8 +56,6 @@ MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x4": ((2, 4), ("data", "model")),
           "8": ((8,), ("data",))}
 TOGGLES = ("default", "fsdp", "pure_dp")
-WORLD = 8
-PIPE_S, PIPE_M, PIPE_D, PIPE_MB = 4, 6, 16, 8
 PIPE_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -326,47 +320,10 @@ def test_ctx_calls_leave_every_lm_output_bit_for_bit(name, monkeypatch):
 # eight gloo ranks
 # ---------------------------------------------------------------------------
 
-def _pipe_inputs():
-    r = np.random.default_rng(0)
-    return dict(
-        w=(r.normal(size=(PIPE_S, PIPE_D, PIPE_D)) * 0.3).astype(np.float32),
-        x=r.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32),
-        cot=r.normal(size=(PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32),
-        act=r.normal(size=(8, 16, 32)).astype(np.float32),
-        dispatch=r.normal(size=(4, 8, 3, 16)).astype(np.float32),
-        big=r.normal(size=(512, 512)).astype(np.float32))
-
-
-def _spawn_ranks(where: Path) -> list:
-    where.mkdir(parents=True, exist_ok=True)
-    np.savez(where / "inputs.npz", **_pipe_inputs())
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO / "tests")]))
-    procs = []
-    for rank in range(WORLD):
-        log = open(where / f"rank{rank}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, "-m", "_dist_ranks", str(rank), str(WORLD),
-             str(where / "store"), str(where), str(where / "inputs.npz")],
-            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log))
-    try:
-        for p, _ in procs:
-            p.wait(timeout=300)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
-    assert not bad, "\n".join((where / f"rank{r}.log").read_text()[-3000:] for r in bad)
-    return [pickle.loads((where / f"rank{r}.pkl").read_bytes()) for r in range(WORLD)]
-
-
 @pytest.fixture(scope="module")
 def ranks(request, tmp_path_factory):
     return shared(request, tmp_path_factory, "torch_dist_ranks",
-                  lambda: _spawn_ranks(tmp_path_factory.mktemp("gloo")))
+                  lambda: spawn(tmp_path_factory.mktemp("gloo")))
 
 
 def _case(ranks, name) -> list:

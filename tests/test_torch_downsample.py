@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import downsample as jds
 from repro_torch.core import downsample as tds
 

@@ -13,6 +13,7 @@ import torch
 
 from _kernel_inputs import merge_case_ids
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.kernels import gmu as jgmu
 from repro_torch.core.schedule import build_schedule
 from repro_torch.kernels import gmu as tgmu
@@ -99,3 +100,16 @@ def test_merge_views_equals_one_view_merges_on_both_backends(views):
                 jx(np_(grads[b * tiles:(b + 1) * tiles].transpose(1, 2).reshape(-1, 10))),
                 jx(np_(ids[b].reshape(-1))), n)
             np.testing.assert_allclose(np_(merged[b]), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("seed,n,segments", [(0, 1, 8), (1, 300, 64), (2, 2048, 2048),
+                                             (3, 700, 5)])
+def test_scatter_operand_counts_match_the_reference(seed, n, segments):
+    """``fig17_breakdown``'s GMU operand counts on seeded ids with padding
+    (-1), repeats and, in the first case, a single entry."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, segments, size=n).astype(np.int32)
+    if seed == 3:
+        ids[:] = -1
+    want = jgmu.scatter_operand_counts(jx(ids), segments)
+    assert tgmu.scatter_operand_counts(th(ids), segments) == want

@@ -19,6 +19,7 @@ import torch
 from _kernel_inputs import random_attrs
 from _torch_parity import DEPTH_TOL, FWD_ATOL, FWD_RTOL, grad_atol, jx, np_, th
 from _torch_parity import first_cpu_exp_spent  # noqa: F401  (autouse fixture)
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core.sorting import make_tile_grid as jgrid
 from repro.kernels import gmu as jgmu
 from repro.kernels.tile_render import tile_render_fwd as j_fwd

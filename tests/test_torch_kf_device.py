@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from _session_state import same_bits, same_session, tree_tensors
-from _shared_runs import shared
+from _shared_runs import Builds
 from repro.core.keyframes import KeyframePolicy as JPolicy
 from repro.slam import session as jsession
 from repro.slam.datasets import make_dataset as jmake_dataset
@@ -202,28 +202,38 @@ def test_fused_equals_eager_with_device_decisions(algo):
     assert int(s_f.kf_total) == 1 + sum(flags)
 
 
-def _reference_runs():
-    """The reference's room0, the port's copy of it, and the reference's
-    run of each policy on it."""
+def _data(_):
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=48, width=64,
                          num_gaussians=400, frag_capacity=48)
-    out = {"ds_t": convert.dataset_from_numpy(ds_j, device="cpu")}
-    for algo, policy in POLICIES.items():
+    return dict(ds_j=ds_j, ds_t=convert.dataset_from_numpy(ds_j, device="cpu"))
+
+
+def _reference_run(algo):
+    def build(refs):
+        """The reference's run of ``algo``'s policy on room0."""
+        ds_j = refs["ds_j"]
         cfg_j = jsession.SLAMConfig(backend="ref", scan_unroll=1, base_algo=algo,
-                                    keyframe=JPolicy(**policy), **BASE)
+                                    keyframe=JPolicy(**POLICIES[algo]), **BASE)
         sess = jsession.session_init(ds_j, cfg_j, seed=SEED)
         flags = []
         for idx in range(1, FRAMES):
             sess, res = jsession.session_step(sess, ds_j.frames[idx])
             flags.append(bool(jax.device_get(res.is_kf)))
         res = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
-        out[algo] = dict(flags=flags, psnr=res.keyframe_psnr, alive=res.alive_per_frame)
-    return out
+        return {algo: dict(flags=flags, psnr=res.keyframe_psnr, alive=res.alive_per_frame)}
+
+    return build
 
 
 @pytest.fixture(scope="module")
 def references(request, tmp_path_factory):
-    return shared(request, tmp_path_factory, "torch_kf_device_refs", _reference_runs)
+    """The reference's room0 in the port's form and its run of each policy,
+    each built once per test run (``tests/_shared_runs.py``) and apart, so
+    two workers build the two runs at once."""
+    parts = {"data": (("ds_j", "ds_t"), _data)}
+    for algo in POLICIES:
+        parts[f"ref_{algo}"] = ((algo,), _reference_run(algo))
+    return Builds(request, tmp_path_factory, "torch_kf_device", parts)
 
 
 def _jax_perm(idx, per):

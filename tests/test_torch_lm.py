@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _shared_runs import shared
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro.configs import base as jbase
 from repro.models import lm as JLM

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.models import layers as JL
 from repro.models import moe as JM
 from repro.models import ssm as JS

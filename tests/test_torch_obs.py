@@ -10,6 +10,7 @@ import json
 import numpy as np
 import pytest
 
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro import obs as jobs
 from repro_torch import obs as tobs
 

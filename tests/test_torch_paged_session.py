@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from _shared_runs import shared
+from _shared_runs import Builds
 from _torch_parity import np_
 from repro.core.keyframes import KeyframePolicy as JPolicy
 from repro.core.pruning import PruneConfig as JPrune
@@ -174,30 +174,37 @@ def _build_small(states):
 
 class _Runs:
     """The module's runs, each built on first use and once per test run
-    (``_shared_runs``), so different workers can build different runs at
-    the same time: ``runs["ds_t"]`` / ``runs["perms"]``, and
+    (``_shared_runs.Builds``), so different workers can build different runs
+    at the same time: ``runs["ds_t"]`` / ``runs["perms"]``, and
     ``runs["flat"]`` / ``runs["paged"]`` (the reference's and the port's
-    run of that config); ``runs.ref(name)`` is the reference's alone."""
+    run of that config); ``runs.ref(name)`` is the reference's alone;
+    ``runs.prefetch(*names)`` builds the named configs' runs, those no other
+    worker is building first."""
 
     def __init__(self, request, tmp_path_factory):
-        self._args, self._memo = (request, tmp_path_factory), {}
-
-    def _get(self, key, build):
-        if key not in self._memo:
-            self._memo[key] = shared(*self._args, f"torch_paged_session_{key}", build)
-        return self._memo[key]
+        parts = {"data": (("ds_t", "perms"), lambda _: _build_data())}
+        for name in ("flat", "paged"):
+            parts[f"ref_{name}"] = ((), lambda _, name=name: _build_ref(name))
+        for name in ("flat", "paged"):
+            parts[f"port_{name}"] = ((), lambda b, name=name: _build_port(name, b.build("data")))
+        # last, in the order a waiting worker makes them: it reads a reference run
+        parts["small"] = (("small",), lambda b: {"small": _build_small(
+            b.build("ref_paged")["states"])})
+        self.builds = Builds(request, tmp_path_factory, "torch_paged_session", parts)
 
     def ref(self, name):
-        return self._get(f"ref_{name}", lambda: _build_ref(name))
+        return self.builds.build(f"ref_{name}")
 
     def small(self):
-        return self._get("small", lambda: _build_small(self.ref("paged")["states"]))
+        return self.builds["small"]
+
+    def prefetch(self, *names):
+        self.builds.prefetch(*(f"{part}_{n}" for n in names for part in ("ref", "port")))
 
     def __getitem__(self, key):
         if key in ("ds_t", "perms"):
-            return self._get("data", _build_data)[key]
-        data = self._get("data", _build_data)
-        return {**self.ref(key), **self._get(f"port_{key}", lambda: _build_port(key, data))}
+            return self.builds[key]
+        return {**self.ref(key), **self.builds.build(f"port_{key}")}
 
 
 @pytest.fixture(scope="module")
@@ -218,6 +225,7 @@ def test_paged_equals_flat_in_each_package(runs):
     working set, so paged runs the flat step bit for bit in both packages,
     sweeping 1536 rows per build instead of 4096; the port's paged run
     counts the flat run's dispatches, syncs and replays at every step."""
+    runs.prefetch("flat", "paged")
     flat, paged = runs["flat"], runs["paged"]
     for res in ("res_j", "res_t"):
         assert np.array_equal(np.stack(flat[res].est_w2c), np.stack(paged[res].est_w2c))
@@ -237,6 +245,7 @@ def test_bench_gates_hold_in_both_packages(runs):
     5% + 2 cm of flat's.  Its fourth gate, one dispatch per frame-step for
     paged and flat alike, reads here as paged counting what flat counts
     (``test_paged_equals_flat_in_each_package``)."""
+    runs.prefetch("flat", "paged")
     flat, paged = runs["flat"], runs["paged"]
     for steps, res in (("steps", "res_j"), ("steps_t", "res_t")):
         late = sum(_rows(flat[steps])[-3:]) / sum(_rows(paged[steps])[-3:])
@@ -258,6 +267,7 @@ def test_whole_runs_agree_until_they_part(runs, name):
     PSNR is held within 0.2 dB (0.12 dB measured; 4e-6 dB from a shared
     state, ``test_one_step_from_carried_state``).  After frame 3 both
     packages lose the track (ATE > 20 cm)."""
+    runs.prefetch(name)
     r = runs[name]
     res_j, res_t = r["res_j"], r["res_t"]
     assert [s.is_kf for s in r["steps_t"]] == [bool(s.is_kf) for s in r["steps"]]

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core import pruning as jp
 from repro_torch import convert

@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from _shared_runs import shared
+from _shared_runs import Builds
 from _torch_parity import np_
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core.downsample import DownsampleConfig as JDown
 from repro.core.downsample import side_factor as jside_factor
 from repro.core.keyframes import KeyframePolicy as JPolicy
@@ -64,14 +65,19 @@ def _run_port(ds_t, cfg_t, perms):
     return sess, steps, factors, res
 
 
-@pytest.fixture(scope="module")
-def runs(request, tmp_path_factory):
-    return shared(request, tmp_path_factory, "torch_rtgs_session_runs", _build_runs)
-
-
-def _build_runs():
+def _build_data(_):
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
+    cfg_t = _cfg_t()
+    perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
+    return dict(ds_j=ds_j, ds_t=convert.dataset_from_numpy(ds_j, device="cpu"),
+                cfg_t=cfg_t, perms=perms)
+
+
+def _build_ref(runs):
+    """The reference's run: its state after every frame, its steps and
+    factors, and its results."""
+    ds_j = runs["ds_j"]
     cfg_j = jsession.SLAMConfig(backend="ref", keyframe=JPolicy(interval=INTERVAL),
                                 prune=JPrune(**PRUNE),
                                 downsample=JDown(enabled=True), **CFG)
@@ -85,17 +91,27 @@ def _build_runs():
         factors.append(f)
         last = idx if bool(res.is_kf) else last
     res_j = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
+    return dict(states=states, steps=steps, factors=factors, res_j=res_j)
 
-    ds_t = convert.dataset_from_numpy(ds_j, device="cpu")
-    cfg_t = _cfg_t()
-    perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
-    sess_t, steps_t, factors_t, res_t = _run_port(ds_t, cfg_t, perms)
-    return dict(ds_t=ds_t, cfg_t=cfg_t, states=states, steps=steps,
-                factors=factors, res_j=res_j, steps_t=steps_t,
-                factors_t=factors_t, res_t=res_t, perms=perms)
+
+def _build_port(runs):
+    _, steps_t, factors_t, res_t = _run_port(runs["ds_t"], runs["cfg_t"], runs["perms"])
+    return dict(steps_t=steps_t, factors_t=factors_t, res_t=res_t)
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """The inputs, the reference's run and the port's, each built once per
+    test run (``tests/_shared_runs.py``) and apart, so two workers build
+    the two runs at once."""
+    return Builds(request, tmp_path_factory, "torch_rtgs_session", {
+        "data": (("ds_j", "ds_t", "cfg_t", "perms"), _build_data),
+        "ref": (("states", "steps", "factors", "res_j"), _build_ref),
+        "port": (("steps_t", "factors_t", "res_t"), _build_port)})
 
 
 def test_factors_keyframes_fired_alive_and_removed_match(runs):
+    runs.prefetch("ref", "port")
     assert runs["factors"] == [4, 2, 1, 4, 2]
     assert runs["factors_t"] == runs["factors"]
     assert [s.is_kf for s in runs["steps_t"]] == [bool(s.is_kf) for s in runs["steps"]]
@@ -190,6 +206,7 @@ def test_whole_run_centres_match(runs):
     ``ref`` and ``kernel`` backends stay within 5e-7 m of each other over
     the same run, and one step from a shared state agrees within 1e-4
     (``test_one_step_from_carried_state``)."""
+    runs.prefetch("ref", "port")
     res_j, res_t = runs["res_j"], runs["res_t"]
 
     def centres(poses):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.slam import datasets as jdatasets
 from repro_torch.slam import datasets as tdatasets
 
@@ -141,3 +142,9 @@ def test_desk_tile_loads_are_more_skewed_than_the_room():
         count = build_fragment_lists(proj, make_tile_grid(96, 128), 4096).count
         ratio[name] = float(count.max()) / float(count.double().mean())
     assert ratio["desk0"] > ratio["room0"], ratio
+
+
+def test_registered_scenes_match_the_reference():
+    """The scene registry ``bench_sessions`` and ``bench_serve`` list."""
+    assert tdatasets.registered_scenes() == jdatasets.registered_scenes()
+    assert tdatasets.registered_scenes() is tdatasets.SCENES

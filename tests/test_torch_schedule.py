@@ -23,6 +23,7 @@ from _torch_parity import (
     tiny_cloud,
 )
 from _torch_parity import first_cpu_exp_spent  # noqa: F401  (autouse fixture)
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core import schedule as jsched
 from repro.core.camera import Camera as JCamera

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jx, np_, th
+from _shared_runs import Builds
+from _torch_parity import jx, np_, one_cpu_thread, th  # noqa: F401 (autouse)
 from repro.core import gaussians as JG
 from repro.core.keyframes import KeyframePolicy as JPolicy
 from repro.slam import engine as jengine
@@ -29,11 +30,8 @@ ENGINE_CFG = dict(iters_track=3, iters_map=6, capacity=1024, frag_capacity=48,
                   map_window=2, map_rebuild_stride=3, backend="schedule")
 
 
-@pytest.fixture(scope="module")
-def engine_runs():
-    """One tracking phase and one mapping phase (stride rebuilds included)
-    of each package's engine on the schedule backend, from the same seeded
-    map."""
+def _setup():
+    """Both packages' seeded map and stage on the schedule backend."""
     ds_j = jmake_dataset("room0", num_frames=3, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
     # scan_unroll=1 keeps the reference's scans rolled: it compiles faster.
@@ -47,7 +45,12 @@ def engine_runs():
     g_t = convert.field_from_numpy(jax.device_get(g_j), device="cpu")
     masked_t = torch.zeros((cfg_t.capacity,), dtype=torch.bool)
     st_t = tengine._Stage(ds_t.intrinsics, cfg_t, torch.device("cpu"))
+    return ds_j, cfg_j, cfg_t, g_j, masked_j, st_j, ds_t, g_t, masked_t, st_t
 
+
+def _build_track(_):
+    """One tracking phase of each package's engine."""
+    ds_j, _, _, g_j, masked_j, st_j, ds_t, g_t, masked_t, st_t = _setup()
     f1 = ds_j.frames[1]
     base = np.asarray(ds_j.frames[0].w2c_gt)
     frags_j = st_j.build(g_j, masked_j, jx(base))
@@ -58,7 +61,14 @@ def engine_runs():
     xi_t, work_tt, losses_tt, _ = st_t._track_scan_noprune(
         g_t, masked_t, th(base), ds_t.frames[1].rgb, ds_t.frames[1].depth,
         tmetrics.device_work_zero())
+    return dict(track=jax.device_get((xi_j, work_tj, losses_tj)) + (xi_t, work_tt, losses_tt))
 
+
+def _build_map(_):
+    """One mapping phase (stride rebuilds included) of each package's
+    engine."""
+    ds_j, cfg_j, cfg_t, g_j, masked_j, st_j, _, g_t, masked_t, st_t = _setup()
+    f1 = ds_j.frames[1]
     kf = [ds_j.frames[0], f1]
     kf_w2c = np.stack([np.asarray(f.w2c_gt) for f in kf])
     kf_rgb = np.stack([np.asarray(f.rgb) for f in kf])
@@ -71,9 +81,18 @@ def engine_runs():
     _, _, work_mt, losses_mt, image_t = st_t._map_scan_masked(
         g_t, masked_t, opt_t, th(kf_w2c), th(kf_rgb), th(kf_depth), 2,
         tmetrics.device_work_zero())
-    return dict(track=(xi_j, work_tj, losses_tj, xi_t, work_tt, losses_tt),
-                map=(work_mj, losses_mj, image_j, work_mt, losses_mt, image_t),
+    return dict(map=jax.device_get((work_mj, losses_mj, image_j)) + (work_mt, losses_mt, image_t),
                 rgb=np.asarray(f1.rgb))
+
+
+@pytest.fixture(scope="module")
+def engine_runs(request, tmp_path_factory):
+    """One tracking phase and one mapping phase (stride rebuilds included)
+    of each package's engine on the schedule backend, from the same seeded
+    map: each built once per test run (``tests/_shared_runs.py``) and
+    apart, so two workers build them at once."""
+    return Builds(request, tmp_path_factory, "torch_schedule_engine", {
+        "track": (("track",), _build_track), "map": (("map", "rgb"), _build_map)})
 
 
 def _assert_work_equal(work_j, work_t):

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from _shared_runs import shared
+from _shared_runs import Builds
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core.camera import Intrinsics as JIntr
 from repro.core.keyframes import KeyframePolicy as JPolicy
@@ -38,16 +39,19 @@ def _jax_perm(idx, per):
     return torch.as_tensor(np.array(jax.random.permutation(key, 2 * per)))
 
 
-@pytest.fixture(scope="module")
-def runs(request, tmp_path_factory):
-    return shared(request, tmp_path_factory, "torch_session_runs", _build_runs)
-
-
-def _build_runs():
+def _build_data(_):
     ds_j = jmake_dataset("room0", num_frames=FRAMES, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
-    cfg_j = jsession.SLAMConfig(backend="ref", keyframe=JPolicy(interval=2), **CFG)
     cfg_t = tsession.SLAMConfig(keyframe=TPolicy(interval=2), **CFG)
+    perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
+    return dict(ds_j=ds_j, ds_t=convert.dataset_from_numpy(ds_j, device="cpu"),
+                cfg_t=cfg_t, perms=perms)
+
+
+def _build_ref(runs):
+    """The reference's run: its state after every frame and its results."""
+    ds_j = runs["ds_j"]
+    cfg_j = jsession.SLAMConfig(backend="ref", keyframe=JPolicy(interval=2), **CFG)
     sess = jsession.session_init(ds_j, cfg_j, seed=SEED)
     states, steps = [jax.device_get(sess)], []
     for idx in range(1, FRAMES):
@@ -55,20 +59,34 @@ def _build_runs():
         states.append(jax.device_get(sess))
         steps.append(jax.device_get(res))
     res_j = jsession.session_finalize(sess, gt_w2c=[f.w2c_gt for f in ds_j.frames])
+    return dict(states=states, steps=steps, res_j=res_j)
 
-    ds_t = convert.dataset_from_numpy(ds_j, device="cpu")
-    perms = {i: _jax_perm(i, cfg_t.densify_per_kf) for i in range(1, FRAMES)}
-    sess_t = tsession.session_init(ds_t, cfg_t, seed=SEED, device="cpu")
+
+def _build_port(runs):
+    """The port's run, fed the reference's densify permutations."""
+    ds_t, perms = runs["ds_t"], runs["perms"]
+    sess_t = tsession.session_init(ds_t, runs["cfg_t"], seed=SEED, device="cpu")
     steps_t = []
     for idx in range(1, FRAMES):
         sess_t, r = tsession.session_step(sess_t, ds_t.frames[idx], perm=perms[idx])
         steps_t.append(r)
     res_t = tsession.session_finalize(sess_t, gt_w2c=[f.w2c_gt for f in ds_t.frames])
-    return dict(ds_j=ds_j, ds_t=ds_t, cfg_t=cfg_t, states=states, steps=steps,
-                res_j=res_j, steps_t=steps_t, res_t=res_t, perms=perms)
+    return dict(steps_t=steps_t, res_t=res_t)
+
+
+@pytest.fixture(scope="module")
+def runs(request, tmp_path_factory):
+    """The inputs, the reference's run and the port's, each built once per
+    test run (``tests/_shared_runs.py``) and apart, so two workers build
+    the two runs at once."""
+    return Builds(request, tmp_path_factory, "torch_session", {
+        "data": (("ds_j", "ds_t", "cfg_t", "perms"), _build_data),
+        "ref": (("states", "steps", "res_j"), _build_ref),
+        "port": (("steps_t", "res_t"), _build_port)})
 
 
 def test_keyframe_flags_match(runs):
+    runs.prefetch("ref", "port")
     flags_j = [bool(s.is_kf) for s in runs["steps"]]
     assert flags_j == [s.is_kf for s in runs["steps_t"]]
     assert flags_j == [False, True, False, True, False]
@@ -109,6 +127,7 @@ def test_six_frame_run_matches(runs):
     6 mm per mapping phase, and later tracking follows the moved map.  One
     step from a shared state (``test_one_step_from_carried_state``) agrees
     within 1e-4."""
+    runs.prefetch("ref", "port")
     res_j, res_t = runs["res_j"], runs["res_t"]
 
     def centres(poses):
@@ -126,6 +145,7 @@ def test_work_counters_match(runs):
     """Run totals of the work counters equal the reference's; the fragment
     total follows the poses and maps (see above), within 1% (0.5%
     measured)."""
+    runs.prefetch("ref", "port")
     w_j, w_t = runs["res_j"].work, runs["res_t"].work
     for f in ("pixels", "gaussians_iters", "iterations", "frames",
               "unstable_gaussians", "skipped_fragments", "densify_dropped",

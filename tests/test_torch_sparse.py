@@ -22,6 +22,7 @@ from _torch_parity import (
     DEPTH_TOL, FWD_ATOL, FWD_RTOL, jx, np_, th, tiny_cloud,
 )
 from _torch_parity import first_cpu_exp_spent  # noqa: F401  (autouse fixture)
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core import pruning as jpruning
 from repro.core import sorting as jsort

@@ -26,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from _shared_runs import shared
 from _torch_parity import jx, np_, th
+from _torch_parity import one_cpu_thread  # noqa: F401  (autouse fixture)
 from repro.core import gaussians as JG
 from repro.core.keyframes import KeyframePolicy as JPolicy
 from repro.core.pruning import PruneConfig as JPrune
@@ -61,10 +63,14 @@ def _port_map(g_t, ds_t, masked, window, n_valid, stable, backend="kernel"):
 
 
 @pytest.fixture(scope="module")
-def map_phase():
+def map_phase(request, tmp_path_factory):
     """The reference's and the port's mapping phase from one seeded map,
     frames 0 and 1 in the ring's first two slots and frame 2 in its
-    invalid third."""
+    invalid third, built once per test run (``tests/_shared_runs.py``)."""
+    return shared(request, tmp_path_factory, "torch_sparse_session_map_phase", _build_map_phase)
+
+
+def _build_map_phase():
     ds_j = jmake_dataset("room0", num_frames=3, height=64, width=64,
                          num_gaussians=400, frag_capacity=48)
     cfg_j = jsession.SLAMConfig(keyframe=JPolicy(interval=2), scan_unroll=1,

@@ -6,7 +6,9 @@
 
 Runs ``chip_smoke.phase_lm`` and ``phase_lm_train`` (whose full-width
 models also count one untimed call each), then ``phase_dist`` (a one-rank
-NCCL group: the mesh, the sharding rules, ``ctx`` and the S=1 pipeline) and
+NCCL group: the mesh, the sharding rules, ``ctx``, ``build_case``'s sharded
+train and decode steps at full width against the plain ones, and the S=1
+pipeline) and
 ``phase_roofline`` (the counted rows and ``analysis/report.py``'s table),
 with their prints and requirements; ``dist`` runs ``phase_dist`` only.
 Any failed requirement raises, and the script exits non-zero.
