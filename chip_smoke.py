@@ -331,15 +331,21 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-KERNEL_SYMBOLS = {"K1": "tile_render_fwd_kernel", "K2": "tile_render_bwd_kernel",
-                  "K4": "tile_render_fwd_sched_kernel",
+KERNEL_SYMBOLS = {"K2": "tile_render_bwd_kernel",
                   "K5": "tile_render_bwd_sched_kernel",
+                  # K1 and K4 at each cluster size (blocks per tile or pair)
+                  **{f"K{k} cluster {c}": f"{sym}ILi{c}E"
+                     for k, sym in ((1, "tile_render_fwd_kernel"),
+                                    (4, "tile_render_fwd_sched_kernel"))
+                     for c in (1, 2)},
                   # K3 at the main path's width (G = 10 columns)
                   "K3 merge pass 1": "k3_totalsILb1ELi10E",
                   "K3 merge pass 2": "k3_rowsILb1ELi10E",
                   "K3 scan pass 1": "k3_totalsILb0ELi10E",
                   "K3 scan pass 2": "k3_rowsILb0ELi10E"}
-NO_SPILLS = ("K2", "K5", "K3 merge pass 1", "K3 merge pass 2")  # the main path's
+NO_SPILLS = ("K2", "K5", "K3 merge pass 1", "K3 merge pass 2",  # the main path's
+             *(f"K{k} cluster {c}" for k in (1, 4) for c in (1, 2)))
+PTXAS_USAGE: dict = {}  # KERNEL_SYMBOLS key -> (registers, spill stores, spill loads)
 
 
 def ptxas_usage(report: str) -> dict:
@@ -367,6 +373,14 @@ def phase_build():
     _build.build_all(force=True)
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    from repro_torch.kernels import tile_render as tr
+    sh = tr.fwd_launch_shape(1, K, CHUNK, "cuda")
+    log(f"[build] K1 / K4 launch shapes: a cluster of {tr.FWD_SPLIT} blocks of "
+        f"{tr.FWD_THREADS // tr.FWD_SPLIT} threads per tile (K1) or pair of slots (K4) "
+        f"below {tr.FWD_SPLIT_BELOW} tiles (pairs) per SM, else one block of "
+        f"{tr.FWD_THREADS}; a thread a pixel; {sh['smem_bytes']} B of dynamic shared "
+        f"memory a block at K={K}, chunk {CHUNK} (at most {tr.FWD_WINDOW} fragments "
+        "staged)")
     usage = {}
     for name in _build.SOURCES:
         for line in _build.PTXAS_REPORT[name].splitlines():
@@ -377,6 +391,7 @@ def phase_build():
         found = [v for k, v in usage.items() if sym + "E" in k]
         require(len(found) == 1, f"ptxas reported no single {sym}: {sorted(usage)}")
         regs, st, ld = found[0]
+        PTXAS_USAGE[key] = found[0]
         log(f"[build] {key} {sym}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
         if key in NO_SPILLS:
@@ -408,6 +423,9 @@ def check_fwd(name, got, want, label):
         require(bool(torch.isfinite(g).all()), f"{name} {out} not finite ({label})")
         require(close(g, w_, tol, rtol),
                 f"{name} {out} disagrees with plain ({label}): max |d| {max_err(g, w_):.3g}")
+        # K1 and K4 keep the plain version's operation order: bit for bit.
+        require(torch.equal(g, w_), f"{name} {out} is not the plain version's bit for bit "
+                f"({label}): max |d| {max_err(g, w_):.3g}")
     return max(max_err(g, w_) for g, w_ in zip(got, want))
 
 
@@ -427,7 +445,7 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
     import numpy as np
     import torch
     from repro_torch.kernels.tile_render import (
-        raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
+        fwd_launch_shape, raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
         tile_render_fwd_sched, tile_render_fwd_sched_plain)
     from repro_torch.kernels.tile_render_bp import (
         REDUCE_GROUP, tile_render_bwd, tile_render_bwd_plain,
@@ -444,6 +462,17 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
                      label)
     for out, g4, g1 in zip(("color", "depth", "final_T", "stash"), got4, got):
         require(torch.equal(g4[inv], g1), f"K4 {out} gathered by inv is not K1's ({label})")
+    shapes = {"K1": fwd_launch_shape(attrs.shape[0], attrs.shape[2], CHUNK, attrs.device),
+              "K4": fwd_launch_shape(perm.shape[0] // 2, attrs.shape[2], CHUNK,
+                                     attrs.device)}
+    for name, sh in shapes.items():
+        regs, sst, sld = PTXAS_USAGE.get(f"{name} cluster {sh['cluster']}", (None,) * 3)
+        sh.update(registers=regs, spill_stores=sst, spill_loads=sld)
+        per = "tile" if name == "K1" else "pair of slots"
+        how = f"a cluster of {sh['cluster']} blocks" if sh["cluster"] > 1 else "one block"
+        log(f"[kernels] {label}: {name} launch: {how} per {per}, {sh['threads']} "
+            f"threads a block, {sh['smem_bytes']} B of dynamic shared memory, {regs} "
+            f"registers, spills {sst} / {sld} B")
     stash = got[3]
 
     r = np.random.default_rng(seed)
@@ -493,11 +522,15 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
         "K5": (lambda: tile_render_bwd_sched(*sargs, **kw),
                lambda: tile_render_bwd_sched_plain(*sargs, **kw), err5),
     }
+    # ms: CUDA events around 40 launches from the host; device_ms: CUDA-graph
+    # replays, the kernel alone (on the 70-tile grid a launch from the host
+    # takes longer than K1 itself).
     out = {}
     for name, (kernel, plain, err) in calls.items():
         b, by = bounds[name]
-        out[name] = dict(max_abs_err=err, ms=cuda_ms(kernel, 40),
-                         plain_ms=cuda_ms(plain, 2), bound_ms=b, bound_by=by)
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(kernel, 40), device_ms=graph_ms(kernel),
+                         plain_ms=cuda_ms(plain, 2), bound_ms=b, bound_by=by,
+                         launch=shapes.get(name))
     frag_skip, group_skip = warp_skips(stash, count, CHUNK, REDUCE_GROUP)
     log(f"[kernels] {label}: {n_ran} of {n_trips} chunks below the trip count ran, "
         f"{100 * saturated:.1f}% of tiles saturated; K4 == K1 and K5 == K2 bitwise "
@@ -507,7 +540,8 @@ def raster_suite(dev, grid, attrs, count, views, label, seed):
     for name, o in out.items():
         rate = (f", {bwd_bytes / o['ms'] / 1e6:.0f} GB/s of the backward's bytes"
                 if name in ("K2", "K5") else "")
-        log(f"[kernels] {label}: {name} {o['ms']:.3f} ms (plain {o['plain_ms']:.1f} ms, "
+        log(f"[kernels] {label}: {name} {o['ms']:.4f} ms launched from the host, "
+            f"{o['device_ms']:.4f} ms of device time (plain {o['plain_ms']:.1f} ms, "
             f"bound {o['bound_ms']:.3f} ms by {o['bound_by']}, max |d| "
             f"{o['max_abs_err']:.2e}{rate})")
     return out, got2
@@ -3791,7 +3825,9 @@ def main(argv) -> int:
                      "*_real keys: B=1 packed attrs of a ground-truth view; "
                      f"*_f2 / *_f4: a ground-truth view of the {W}x{RTGS_H} scene at "
                      "factor 2 (280 tiles) / 4 (70 tiles); *_desk0 / *_stairs0 / "
-                     f"*_corridor0: frame 3's ground-truth view of that scene at {W}x{H}",
+                     f"*_corridor0: frame 3's ground-truth view of that scene at {W}x{H}; "
+                     "ms: CUDA events around 40 launches from the host; device_ms: "
+                     "device time from CUDA-graph replays",
             "ms_b4": b4["ms"], "plain_ms_b4": b4["plain_ms"],
             "bound_ms_b4": b4["bound_ms"],
             "ms_real": rv["ms"], "plain_ms_real": rv["plain_ms"],
@@ -3800,6 +3836,15 @@ def main(argv) -> int:
             "ms_f4": f4["ms"], "plain_ms_f4": f4["plain_ms"], "bound_ms_f4": f4["bound_ms"],
             **{f"{k}_{n}": o[k] for n, o in sc.items() for k in ("ms", "plain_ms", "bound_ms")},
         }
+        by_shape = (("", b1), ("_b4", b4), ("_real", rv), ("_f2", f2), ("_f4", f4),
+                    *((f"_{n}", o) for n, o in sc.items()))
+        # ms is CUDA events around 40 launches from the host; device_ms the
+        # kernel's time from CUDA-graph replays
+        row.update({f"device_ms{s}": o["device_ms"] for s, o in by_shape})
+        if key in ("K1", "K4"):
+            # threads, blocks per tile or pair (the cluster), shared memory,
+            # registers and spills, at each shape's launch
+            row.update({f"launch{s}": o["launch"] for s, o in by_shape})
         if key == "K1":
             # kernel_norb's backward re-runs K1: the whole backward's device
             # time with and without that re-run, B=1 and B=4 ground-truth views.

@@ -3,14 +3,18 @@
 K1 replaces ``repro/kernels/tile_render.py::tile_render_fwd`` (Pallas,
 ``pallas_call`` at line 175), K4 its WSU-scheduled form
 ``tile_render_fwd_sched`` (``pallas_call`` at line 280).  Both kernels are
-in ``csrc/tile_render.cu`` and share one per-tile device function: K1 runs
-one 256-thread block per 16x16 tile, K4 one block per balanced pair of
-schedule slots, each slot's chunk loop bounded by its trips, outputs in
-slot order.  The chunk's attributes are staged in shared memory and the
-chunk skip is a block vote.  On the H100 both are bound by bytes — at the
-slice's shapes each view writes a 315 MB stash against ~78M ``exp``
-evaluations — so the stash stores are fully coalesced and written exactly
-once (see the source note in the ``.cu`` file).
+in ``csrc/tile_render.cu`` and share one per-tile device function.  A
+thread a pixel stages its tile's fragments once and runs the chunks: a
+vote over its block's pixels, then per fragment the alpha, its stash store
+and the blend step.  A tile runs on one block of :data:`FWD_THREADS`
+threads, or, where the grid has fewer than two tiles (K1) or pairs (K4)
+per SM (RTGS's 70-tile tracking grid), is split by pixels over a
+thread-block cluster of two (:func:`fwd_cluster`), whose blocks exchange
+how many chunks their pixels kept running once, at the end (see the
+source note in the ``.cu`` file).  K4 runs one block or cluster per
+balanced pair of slots, each slot bounded by its trips, outputs in slot
+order.  Any K that the chunk divides is taken: a block stages at most
+:data:`FWD_WINDOW` fragments at a time.
 
 :func:`tile_render_fwd` and :func:`tile_render_fwd_sched` are the
 wrappers: on a CUDA tensor they launch the kernel (or raise); on a CPU
@@ -41,6 +45,13 @@ from repro_torch.kernels.ref import (
 
 DEFAULT_CHUNK = 16
 MAX_CHUNK = 64  # shared-memory staging bound of the CUDA kernels
+# The launch shape of K1 and K4 (constants of ``csrc/tile_render.cu``):
+FWD_THREADS = 256  # threads a tile, one a pixel
+FWD_WINDOW = 1024  # the most fragments a block holds staged
+# Fewer than this many tiles (K1) or pairs (K4) per SM: a cluster of
+# FWD_SPLIT blocks a tile (pair), else one block.
+FWD_SPLIT_BELOW = 2
+FWD_SPLIT = 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -51,12 +62,41 @@ FAULT_PERM, FAULT_TRIPS = 1, 2  # bits of the scheduled kernels' fault word
 def _lib():
     lib = _build.load("tile_render")
     fn = lib.tile_render_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I]
     fn.restype = _I
     fn = lib.tile_render_fwd_sched
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I]
+    fn.restype = _I
+    fn = lib.tile_render_fwd_smem
+    fn.argtypes = [_I, _I]
     fn.restype = _I
     return lib
+
+
+def fwd_cluster(blocks: int, sms: int) -> int:
+    """Blocks per tile (K1) or per pair of slots (K4) for ``blocks`` tiles
+    or pairs on a card of ``sms`` SMs: :data:`FWD_SPLIT` below
+    :data:`FWD_SPLIT_BELOW` per SM, else one."""
+    return FWD_SPLIT if blocks < FWD_SPLIT_BELOW * sms else 1
+
+
+_SMS: dict[torch.device, int] = {}
+
+
+def _cluster_for(device: torch.device, blocks: int) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return fwd_cluster(blocks, _SMS[device])
+
+
+def fwd_launch_shape(blocks: int, cap: int, chunk: int, device) -> dict:
+    """The launch shape K1 (``blocks`` tiles) or K4 (``blocks`` pairs of
+    slots) takes on ``device``: threads per block (a thread a pixel of the
+    block's share of the tile), blocks per tile or pair (the cluster size)
+    and each block's dynamic shared memory in bytes."""
+    c = _cluster_for(torch.device(device), blocks)
+    return dict(threads=FWD_THREADS // c, cluster=c,
+                smem_bytes=int(_lib().tile_render_fwd_smem(cap, chunk)))
 
 
 _FAULT_WORDS: dict[torch.device, torch.Tensor] = {}
@@ -185,7 +225,8 @@ def tile_render_fwd(attrs: torch.Tensor, count: torch.Tensor, grid: TileGrid,
             attrs.data_ptr(), count.data_ptr(), color.data_ptr(),
             depth.data_ptr(), finalt.data_ptr(), stash.data_ptr(),
             rows, cap, chunk, tiles, grid.grid_w,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream,
+            _cluster_for(attrs.device, rows))
     if err:
         raise RuntimeError(f"K1 tile_render_fwd launch failed: cudaError {err}")
     tile_render_fwd.launches += 1
@@ -216,7 +257,8 @@ def tile_render_fwd_sched(attrs: torch.Tensor, perm: torch.Tensor,
                           tiles_per_view: int | None = None):
     """K4: K1 under a WSU schedule.  Slot ``i`` renders attrs row
     ``perm[i]`` (tile ``perm[i] % tiles_per_view`` of its view) with
-    ``trips[i]`` chunk trips; slots ``2p`` and ``2p+1`` run in one block.
+    ``trips[i]`` chunk trips; slots ``2p`` and ``2p+1`` run in one block
+    or cluster (:func:`fwd_cluster`).
     Returns K1's four outputs with one row per slot, in slot order."""
     rows, cap, tiles, slots = check_sched_operands(attrs, perm, trips, chunk,
                                                    tiles_per_view)
@@ -237,7 +279,8 @@ def tile_render_fwd_sched(attrs: torch.Tensor, perm: torch.Tensor,
             attrs.data_ptr(), perm.data_ptr(), trips.data_ptr(),
             color.data_ptr(), depth.data_ptr(), finalt.data_ptr(),
             stash.data_ptr(), fault.data_ptr(), rows, slots, cap, chunk, tiles,
-            grid.grid_w, torch.cuda.current_stream().cuda_stream)
+            grid.grid_w, torch.cuda.current_stream().cuda_stream,
+            _cluster_for(attrs.device, slots // 2))
     if err:
         raise RuntimeError(f"K4 tile_render_fwd_sched launch failed: cudaError {err}")
     tile_render_fwd_sched.launches += 1

@@ -29,8 +29,8 @@ from repro_torch.core.schedule import build_schedule
 from repro_torch.core.sorting import make_tile_grid
 from repro_torch.kernels import gmu
 from repro_torch.kernels.tile_render import (
-    raise_on_sched_fault, tile_render_fwd, tile_render_fwd_plain,
-    tile_render_fwd_sched, tile_render_fwd_sched_plain,
+    FWD_SPLIT, FWD_WINDOW, fwd_launch_shape, raise_on_sched_fault, tile_render_fwd,
+    tile_render_fwd_plain, tile_render_fwd_sched, tile_render_fwd_sched_plain,
 )
 from repro_torch.kernels.tile_render_bp import (
     tile_render_bwd, tile_render_bwd_plain, tile_render_bwd_sched,
@@ -287,6 +287,118 @@ def test_cuda_backward_skips_fragments_no_warp_draws(dev, chunk):
     _close(g5, g5_plain, _grad_atol(g5_plain))
     assert torch.equal(g5[inv], gg)
     raise_on_sched_fault(dev)
+
+
+# K1/K4 on the card at their launch shapes: on an H100 (132 SMs) K1 takes a
+# cluster of two blocks a tile at 70 tiles and one block at 280 and 1200,
+# K4 a cluster a pair of slots at 70 and 280 tiles and one block at 1200.
+@pytest.mark.parametrize("hw,cap,chunk,near_tile,fill", [
+    ((112, 160), 256, 16, False, "full"),   # 70 tiles (factor 4), full lists
+    ((224, 320), 256, 16, False, "full"),   # 280 tiles (factor 2), full lists
+    ((480, 640), 256, 16, False, "full"),   # 1200 tiles (a full view)
+    ((112, 160), 512, 16, False, "full"),   # the sparse run's K
+    ((112, 160), 256, 8, True, "some"),     # saturated tiles: chunks skipped
+    ((112, 160), 256, 32, True, "empty"),   # and rows with count 0
+    ((112, 160), 256, 64, False, "empty"),
+    ((112, 160), 2048, 64, False, "full"),  # rows wider than a staging window
+    ((224, 320), 1536, 48, False, "some"),
+])
+def test_cuda_forward_equals_plain_bit_for_bit(dev, hw, cap, chunk, near_tile, fill):
+    """K1 and K4 equal their plain versions bit for bit, K4 gathered by
+    ``inv`` equals K1, and K2/K5 on those outputs equal their plain
+    versions (K5 gathered by ``inv`` equals K2)."""
+    grid = make_tile_grid(*hw)
+    tiles = grid.num_tiles
+    attrs, count = _attrs(51 + chunk, tiles, cap, *hw, near_tile=near_tile)
+    if fill == "full":
+        count[:] = cap
+        attrs[:, 10] = 1.0
+    elif fill == "empty":
+        attrs, count, empty = _empty_tiles(attrs, count, tiles, 0.3, 52)
+        assert bool(empty.any())
+    a, c = attrs.to(dev), count.to(dev)
+    perm, trips, inv = _stacked_schedule(c, tiles, 1, cap, chunk)
+    kw = dict(chunk=chunk, tiles_per_view=tiles)
+    got = tile_render_fwd(a, c, grid, **kw)
+    want = tile_render_fwd_plain(a, c, grid, **kw)
+    got4 = tile_render_fwd_sched(a, perm, trips, grid, **kw)
+    want4 = tile_render_fwd_sched_plain(a, perm, trips, grid, **kw)
+    torch.cuda.synchronize()
+    for name, g, w, g4, w4 in zip(("color", "depth", "final_T", "stash"), got, want,
+                                  got4, want4):
+        assert torch.equal(g, w), name
+        assert torch.equal(g4, w4), name
+        assert torch.equal(g4[inv], g), name
+    if near_tile:  # some chunks below the trip count were skipped
+        first_of_last = ((c.long() - 1) // chunk * chunk).clamp(min=0)
+        last = want[3][torch.arange(tiles, device=dev), first_of_last]
+        assert bool(((last == 0).all(1) & (c > 0)).any())
+    if cap > FWD_WINDOW:  # some tile ran past its first window
+        ran = (want[3] != 0).any(-1).any(0).nonzero()
+        assert int(ran.max()) >= FWD_WINDOW
+    r = np.random.default_rng(53)
+    cots = [torch.as_tensor(r.normal(size=s).astype(np.float32), device=dev)
+            for s in ((tiles, 3, 256), (tiles, 256), (tiles, 256))]
+    gg = tile_render_bwd(a, c, *got, *cots, grid, **kw)
+    gw = tile_render_bwd_plain(a, c, *got, *cots, grid, **kw)
+    slot_cots = [x[perm.long()].contiguous() for x in cots]
+    g5 = tile_render_bwd_sched(a, perm, trips, *got4, *slot_cots, grid, **kw)
+    g5_plain = tile_render_bwd_sched_plain(a, perm, trips, *got4, *slot_cots, grid, **kw)
+    torch.cuda.synchronize()
+    _close(gg, gw, _grad_atol(gw))
+    _close(g5, g5_plain, _grad_atol(g5_plain))
+    assert torch.equal(g5[inv], gg)
+    raise_on_sched_fault(dev)
+
+
+def test_cuda_forward_shapes_cover_both_launches(dev):
+    """The 70-, 280- and 1200-tile grids of the test above take both of
+    K1's and both of K4's launch shapes (one block, or a cluster of
+    :data:`FWD_SPLIT`), with 256 / cluster threads a block."""
+    got = {}
+    for tiles in (70, 280, 1200):
+        for name, blocks in (("K1", tiles), ("K4", (tiles + 1) // 2)):
+            shape = fwd_launch_shape(blocks, 256, 16, dev)
+            assert shape["threads"] * shape["cluster"] == 256
+            assert shape["smem_bytes"] == 256 * 40
+            got.setdefault(name, set()).add(shape["cluster"])
+    assert got == {"K1": {1, FWD_SPLIT}, "K4": {1, FWD_SPLIT}}
+
+
+@pytest.mark.parametrize("hw", [(48, 80), (496, 624)])   # K4: a cluster, one block
+@pytest.mark.parametrize("bad", ["perm", "trips"])
+def test_cuda_sched_forward_pads_and_guards_slots(dev, bad, hw):
+    """K4 on an odd tile count (the schedule's slot 1 is a pad slot) with
+    one slot's perm entry or trips out of range: that slot runs as a pad
+    slot (color and depth 0, final T 1, a zero stash) or with its trips
+    clamped, every slot equals the plain version bit for bit, and the fault
+    word says which."""
+    grid = make_tile_grid(*hw)
+    tiles = grid.num_tiles
+    cap, chunk = 64, 16
+    attrs, count = _attrs(54, tiles, cap, *hw)
+    a, c = attrs.to(dev), count.to(dev)
+    perm, trips, _ = _stacked_schedule(c, tiles, 1, cap, chunk)
+    assert perm.shape[0] == tiles + 1
+    want_perm, want_trips = perm.clone(), trips.clone()
+    if bad == "perm":
+        perm[4] = tiles
+        want_perm[4], want_trips[4] = 0, 0
+    else:
+        trips[4] = cap // chunk + 3
+        want_trips[4] = cap // chunk
+    raise_on_sched_fault(dev)
+    kw = dict(chunk=chunk, tiles_per_view=tiles)
+    got = tile_render_fwd_sched(a, perm, trips, grid, **kw)
+    want = tile_render_fwd_sched_plain(a, want_perm, want_trips, grid, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("color", "depth", "final_T", "stash"), got, want):
+        assert torch.equal(g, w), name
+    if bad == "perm":
+        assert not bool(got[0][4].any()) and not bool(got[3][4].any())
+        assert bool((got[2][4] == 1.0).all())
+    with pytest.raises(RuntimeError, match=bad):
+        raise_on_sched_fault(dev)
 
 
 @pytest.mark.parametrize("bad", ["strided", "int64", "perm_range", "trips_range"])

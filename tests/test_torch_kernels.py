@@ -3,7 +3,9 @@
 shape sweep of ``tests/test_kernels.py`` and its tolerances; GMU level 2
 against ``repro.kernels.gmu``; the premise of K2's single pass over the
 stash (K1's final T is the stash replay's, bit for bit); a numpy emulation
-of K2's warp reduce-scatter; and the wrappers' checks.  The CUDA kernels
+of K2's warp reduce-scatter; a torch emulation of K1's order on the card
+(a block's vote, the cluster's exchange, the staging window); and the
+wrappers' checks.  The CUDA kernels
 themselves are held against these plain versions on a card by
 ``tests/test_torch_cuda.py``.
 """
@@ -26,8 +28,13 @@ from repro.kernels.tile_render import tile_render_fwd as j_fwd
 from repro.kernels.tile_render_bp import tile_render_bwd as j_bwd
 from repro_torch.core.sorting import make_tile_grid as tgrid
 from repro_torch.kernels import gmu as tgmu
-from repro_torch.kernels.tile_render import tile_render_fwd, tile_render_fwd_plain
-from repro_torch.kernels.ref import TERM_EPS
+from repro_torch.kernels.tile_render import (
+    FWD_SPLIT, FWD_THREADS, FWD_WINDOW, MAX_CHUNK, fwd_cluster, tile_render_fwd,
+    tile_render_fwd_plain,
+)
+from repro_torch.kernels.ref import (
+    ALPHA_MAX, ALPHA_MIN, NUM_ATTRS, TERM_EPS, tile_pixel_coords,
+)
 from repro_torch.kernels.tile_render_bp import (
     REDUCE_GROUP, tile_render_bwd, tile_render_bwd_plain,
 )
@@ -216,6 +223,159 @@ def test_reduce_group_matches_the_kernel_source():
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
            / "tile_render_bp.cu").read_text()
     assert int(re.search(r"constexpr int GROUP = (\d+);", src).group(1)) == REDUCE_GROUP
+
+
+def _card_order_fwd(attrs, count, grid, chunk, cluster, window):
+    """torch emulation of K1 on the card (``render_tile`` in
+    ``csrc/tile_render.cu``), row by row: each tile's pixels split over
+    ``cluster`` blocks; each block stages its row's fragments into a
+    window of at most ``window`` (whole chunks; the first 64 fragments up
+    front, later chunks when first needed, a new window where a chunk would
+    overflow the last), reads every fragment from the window, and runs
+    chunks while a vote over its own pixels finds one alive, each pixel
+    evaluating and blending its fragments in order; the blocks' prefixes
+    meet in a max, rows that only another block kept running are written
+    from the block's own window, and zero rows fill the rest.  Returns K1's
+    outputs, the number of times each stash element was written, the
+    blocks whose prefix was shorter than their tile's, the blocks whose
+    last window started past fragment 0, and the rows that processed more
+    fragments than a window holds."""
+    rows, _, cap = attrs.shape
+    p = 256 // cluster
+    win = cap if cap <= window else window // chunk * chunk
+    trips = torch.clamp((count.long() + chunk - 1) // chunk, 0, cap // chunk).tolist()
+    px, py = tile_pixel_coords(grid)
+    color = torch.zeros((rows, 3, 256))
+    depth = torch.zeros((rows, 256))
+    final_t = torch.zeros((rows, 256))
+    stash = torch.full((rows, cap, 256), float("nan"))
+    writes = torch.zeros((rows, cap, 256), dtype=torch.int64)
+    deferred = restarts = past = 0
+    for r in range(rows):
+        tile = r % grid.num_tiles
+        blocks = []
+        for b in range(cluster):
+            sl = slice(b * p, (b + 1) * p)
+            blk = dict(sl=sl, x=px[tile, sl], y=py[tile, sl], base=0,
+                       buf=torch.full((NUM_ATTRS, win), float("nan")))
+            blk["end"] = min(min(trips[r], -(-64 // chunk)) * chunk, win)
+            blk["buf"][:, :blk["end"]] = attrs[r, :, :blk["end"]]
+            blocks.append(blk)
+
+        def stage_from(blk, k0, limit):
+            if k0 + chunk > blk["base"] + win:
+                blk["base"] = k0
+            blk["end"] = min(limit, blk["base"] + win)
+            i0, i1 = k0 - blk["base"], blk["end"] - blk["base"]
+            blk["buf"][:, i0:i1] = attrs[r, :, k0:blk["end"]]
+
+        def alpha(blk, k):
+            at = blk["buf"][:, k - blk["base"]]
+            dx, dy = blk["x"] - at[0], blk["y"] - at[1]
+            q = at[2] * dx * dx + 2.0 * at[3] * dx * dy + at[4] * dy * dy
+            a = torch.clamp(at[8] * torch.exp(-0.5 * torch.clamp(q, min=0.0)), max=ALPHA_MAX)
+            keep = (a >= ALPHA_MIN) & (at[10] > 0.5)
+            return torch.where(keep, a, torch.zeros_like(a))
+
+        def put(blk, k, a):
+            stash[r, k, blk["sl"]] = a
+            writes[r, k, blk["sl"]] += 1
+
+        for blk in blocks:
+            acc = torch.zeros((4, p))
+            trans = torch.ones(p)
+            done = 0
+            while done < trips[r] and bool((trans > TERM_EPS).any()):   # the vote
+                k0 = done * chunk
+                if k0 == blk["end"]:
+                    stage_from(blk, k0, trips[r] * chunk)
+                for k in range(k0, k0 + chunk):
+                    a = alpha(blk, k)
+                    put(blk, k, a)
+                    am = a * (trans > TERM_EPS).to(torch.float32)
+                    w = trans * am
+                    for i, row in enumerate((5, 6, 7, 9)):
+                        acc[i] = acc[i] + w * attrs[r, row, k]
+                    trans = trans * (1.0 - am)
+                done += 1
+            blk["done"] = done
+            color[r, :, blk["sl"]] = acc[:3]
+            depth[r, blk["sl"]] = acc[3]
+            final_t[r, blk["sl"]] = trans
+        total = max(blk["done"] for blk in blocks)          # the cluster's exchange
+        past += total * chunk > win
+        for blk in blocks:
+            deferred += blk["done"] < total
+            for k0 in range(blk["done"] * chunk, total * chunk, chunk):
+                if k0 == blk["end"]:
+                    stage_from(blk, k0, total * chunk)
+                for k in range(k0, k0 + chunk):
+                    put(blk, k, alpha(blk, k))
+            restarts += blk["base"] > 0
+        stash[r, total * chunk:] = 0.0
+        writes[r, total * chunk:] += 1
+    return (color, depth, final_t, stash), writes, deferred, restarts, past
+
+
+@pytest.mark.parametrize("window", [FWD_WINDOW, 32])
+@pytest.mark.parametrize("cluster", [1, FWD_SPLIT])
+@pytest.mark.parametrize("hw,cap,chunk,near_tile", [
+    ((32, 64), 256, 16, True),    # saturated: most tiles skip their last chunks
+    ((48, 48), 64, 8, False),     # sparse counts, some rows empty
+    ((32, 32), 128, 32, False),
+])
+def test_card_order_equals_plain_forward(hw, cap, chunk, near_tile, cluster, window):
+    """K1's order on the card (a block's vote over its own pixels, one
+    exchange of the blocks' prefixes per tile, the deferred rows, the
+    staging window) equals the plain forward bit for bit and writes each
+    stash element once; a 32-fragment window makes rows restart it."""
+    grid = tgrid(*hw)
+    attrs, count = random_attrs(61 + cap, grid.num_tiles, cap, *hw, sparse=not near_tile,
+                                near_tile=near_tile)
+    attrs, count = th(attrs), th(count)
+    if not near_tile:
+        count[::3] = 0
+    got, writes, deferred, restarts, past = _card_order_fwd(attrs, count, grid, chunk,
+                                                            cluster, window)
+    want = tile_render_fwd_plain(attrs, count, grid, chunk=chunk)
+    for name, g, w in zip(OUT_NAMES, got, want):
+        assert torch.equal(g, w), name
+    assert bool((writes == 1).all())
+    if near_tile and cluster > 1:   # some blocks stopped before their tile
+        assert deferred > 0
+    assert restarts == cluster * past     # each of a row's blocks, once it passes
+    if window < cap:
+        assert past > 0
+
+
+def test_forward_design_constants_match_the_kernel_source():
+    """The wrappers' copy of the launch shape is the kernels': a thread a
+    pixel (256 / cluster threads a block), the cluster sizes the launch
+    switches take (one block or :data:`FWD_SPLIT`), the staging window and
+    the widest chunk."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "tile_render.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("TILE") ** 2 == FWD_THREADS
+    assert re.search(r"constexpr int PIX = TILE \* TILE;", src)
+    assert re.search(r"__launch_bounds__\(PIX / CLUSTER, 1\)", src)
+    assert const("WINDOW") == FWD_WINDOW
+    assert const("MAX_CHUNK") == MAX_CHUNK
+    for kind in ("fwd", "sched"):
+        cases = re.findall(rf"case (\d+): return launch_{kind}<(\d+)>", src)
+        assert [tuple(map(int, c)) for c in cases] == [(1, 1), (FWD_SPLIT, FWD_SPLIT)]
+
+
+@pytest.mark.parametrize("blocks,sms,want", [
+    (70, 132, 2), (280, 132, 1), (1200, 132, 1), (4800, 132, 1),   # K1: tiles
+    (35, 132, 2), (140, 132, 2), (600, 132, 1), (2400, 132, 1),   # K4: pairs
+    (263, 132, 2), (264, 132, 1), (1, 132, 2), (0, 132, 2), (70, 16, 1)])
+def test_forward_cluster_choice(blocks, sms, want):
+    """Two blocks a tile (pair) below two tiles (pairs) per SM, else one."""
+    assert fwd_cluster(blocks, sms) == want
 
 
 @pytest.mark.parametrize("bad", ["color", "depth", "final_t"])

@@ -4,6 +4,7 @@
     python3 tools/main_ab.py PARENT . . PARENT
     python3 tools/main_ab.py --cases main,gsslam,photoslam,rows2,rows4 PARENT . . PARENT
     python3 tools/main_ab.py --cases rtgs,prune-rows2 PARENT . . PARENT
+    python3 tools/main_ab.py --cases fwd PARENT . . PARENT
 
 Each argument is the root of a checkout (for example a ``git archive`` of
 the parent commit unpacked under ``build/``); each runs, in the order given
@@ -50,7 +51,17 @@ one JSON line:
   port's draw, flat and paged) and ``[algos]`` (GS-SLAM, Photo-SLAM and
   SplaTAM with RTGS, 6 frames): of each session its poses digest,
   keyframes, keyframe PSNR, alive counts, removed count and work
-  counters, to hold two checkouts' results to each other.
+  counters, to hold two checkouts' results to each other;
+* ``fwd``: the checkout's K1 and K4 wrappers (``tile_render_fwd``,
+  ``tile_render_fwd_sched``) on ``chip_smoke.py``'s ground-truth views of
+  the 640x448 scene at factors 4 and 2 (70 and 280 tiles) and of room0 at
+  640x480, three times each: ms launched from the host (CUDA events
+  around 40 calls, ``chip_smoke.cuda_ms``, as ``[kernels]``' ``ms``) and
+  device ms from CUDA-graph replays (``chip_smoke.graph_ms``); and the
+  host's own time per call (the least of three loops of 500 calls on the
+  host clock, not waiting for the card) of the K1 wrapper and, as a
+  reference for the host's speed in that process, of the four
+  ``torch.empty`` of its outputs alone.
 """
 
 from __future__ import annotations
@@ -214,6 +225,18 @@ def run(tree: Path, cases) -> list:
                         capture_s=capture_seconds(pool.stacked.runner))
         return line
 
+    def host_us(fn, calls=500) -> float:
+        """The host's time per ``fn()`` in microseconds: the least of three
+        loops, each followed by a synchronize that it does not count."""
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return best
+
     def outcome(res) -> dict:
         """What a session computed, to compare checkouts."""
         return {"poses_sha256": digest(res.est_w2c), "keyframe_psnr": res.keyframe_psnr,
@@ -265,6 +288,32 @@ def run(tree: Path, cases) -> list:
             continue
         if case.startswith(("rows", "prune-rows")):
             line = pool_run(int(case.split("rows")[1]), prune=case.startswith("prune"))
+        elif case == "fwd":
+            from repro_torch.kernels import tile_render as tr
+            line = {}
+            for label, height, factor in (("f4", chip_smoke.RTGS_H, 4),
+                                          ("f2", chip_smoke.RTGS_H, 2),
+                                          ("real", chip_smoke.H, 1)):
+                g, proj, frags = chip_smoke.gt_view(dev, chip_smoke.make_scene(dev, height=height),
+                                                    factor)
+                attrs, count = chip_smoke.view_attrs(proj, frags)
+                perm, trips, _, _ = chip_smoke.sched_flat(count, g.num_tiles, 1)
+                kw = dict(chunk=chip_smoke.CHUNK, tiles_per_view=g.num_tiles)
+                calls = {"K1": lambda: tr.tile_render_fwd(attrs, count, g, **kw),
+                         "K4": lambda: tr.tile_render_fwd_sched(attrs, perm, trips, g, **kw)}
+                for name, fn in calls.items():
+                    line[f"{name}_{label}_ms"] = [chip_smoke.cuda_ms(fn, 40) for _ in range(3)]
+                    line[f"{name}_{label}_device_ms"] = [chip_smoke.graph_ms(fn)
+                                                         for _ in range(3)]
+                rows, _, cap = attrs.shape
+
+                def empties():
+                    for shape in ((rows, 3, 256), (rows, 256), (rows, 256), (rows, cap, 256)):
+                        torch.empty(shape, dtype=torch.float32, device=dev)
+                line[f"K1_{label}_host_us"] = host_us(calls["K1"])
+                line[f"empty4_{label}_host_us"] = host_us(empties)
+                del attrs, count, proj, frags
+                torch.cuda.empty_cache()
         elif case == "rtgs":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
