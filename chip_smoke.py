@@ -54,7 +54,15 @@ Run from the root of a checkout.  In order, it
    same seed (max |d| 0 on loss, grad norm, parameters, logits and cache;
    the median of 3 steps each way after an untimed one), and
    ``pipeline_apply`` at S=1, M=6 on (8, 4096) bf16 microbatches against
-   the sequential stack, forward and gradients; ``[roofline]``:
+   the sequential stack, forward and gradients (the peak of the last
+   sharded train and decode step measured, its arguments allocated);
+   ``[dryrun]``: ``launch/dryrun.py`` on fake process groups, every fake
+   tensor on the card: those two peaks predicted on a one-rank fake group
+   (``measure_step``, within 10%), then phi4-mini-3.8b's ``train_4k`` (its
+   8 microbatches fewer than the 16 data ranks; depth cut to
+   ``DRYRUN_PHI4_LAYERS``) and qwen3-moe-30b-a3b's ``decode_32k`` on the
+   16x16 mesh of 256 fake ranks (per-device peak, counted FLOPs and bytes,
+   collective bytes by kind, bottleneck, seconds); ``[roofline]``:
    ``analysis/roofline.py``'s rows of phi4's and zamba2's full-width train
    steps and phi4's prefill and decode step, FLOPs and bytes counted over
    one extra, untimed call of each (in ``[lm]`` and ``[lm-train]``), the
@@ -3376,6 +3384,7 @@ DIST_PIPE_FWD_ATOL, DIST_PIPE_GRAD_REL = 4 * 2.0 ** -8, 1e-2
 DIST_TRAIN_ARCH, DIST_TRAIN_SHAPE = "phi4-mini-3.8b", (1024, 2)
 DIST_DECODE_ARCH, DIST_DECODE_SHAPE = "zamba2-1.2b", (512, 4)
 DIST_STEPS = 3
+DRYRUN_PHI4_LAYERS = 4
 
 
 def rel_l2(got, want) -> float:
@@ -3573,6 +3582,20 @@ def dist_timed(fn):
     return value, (time.perf_counter() - t0) * 1e3
 
 
+def dist_peak_base(dev, args) -> int:
+    """Resets the card's peak memory and returns what the peak must lose to
+    be the step's own: the bytes allocated now less the step's arguments'
+    (their local storages), so the step's peak counts its arguments, as
+    ``launch/dryrun.measure_step`` predicts it, and nothing else the
+    process holds."""
+    import torch
+    from repro_torch.launch.dryrun import local_bytes
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) - local_bytes(args)
+
+
 def dist_sharded_steps(dev, mesh) -> dict:
     """``build_case``'s train step (phi4-mini) and decode step (zamba2) at
     full width on the 1x1 mesh against the same step on plain tensors
@@ -3607,8 +3630,13 @@ def dist_sharded_steps(dev, mesh) -> dict:
             params, opt_state = dryrun.abstract_state(cfg, True, dev, 0)
             batch = {k: v.to_local() for k, v in batch.items()}
         metrics, ms = [], []
-        for _ in range(1 + DIST_STEPS):
+        for i in range(1 + DIST_STEPS):
+            measure = how == "dtensor" and i == DIST_STEPS
+            if measure:
+                base = dist_peak_base(dev, (params, opt_state, batch))
             (m, params, opt_state), t = dist_timed(lambda: step(params, opt_state, batch))
+            if measure:
+                out["train_peak"] = torch.cuda.max_memory_allocated(dev) - base
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
             ms.append(t)
         ms = ms[1:]
@@ -3652,8 +3680,12 @@ def dist_sharded_steps(dev, mesh) -> dict:
     plain_cache = model.cache_struct(rows, seq, device=dev)
     plain_tokens = tokens.to_local()
     d_logits, d_cache, ms_s, ms_p = 0.0, 0.0, [], []
-    for _ in range(1 + DIST_STEPS):
+    for i in range(1 + DIST_STEPS):
+        if i == DIST_STEPS:
+            base = dist_peak_base(dev, (params, cache, tokens))
         (ls, cache), ts = dist_timed(lambda: decode(params, cache, tokens))
+        if i == DIST_STEPS:
+            out["decode_peak"] = torch.cuda.max_memory_allocated(dev) - base
         (lp, plain_cache), tp = dist_timed(
             lambda: model.decode_step(plain_params, plain_cache, plain_tokens))
         ms_s.append(ts)
@@ -3668,11 +3700,97 @@ def dist_sharded_steps(dev, mesh) -> dict:
         f"a {seq}-slot cache on its cache_specs, 1 + {DIST_STEPS} steps on DTensors and on "
         f"plain tensors: logits max |d| {d_logits:.1e}, every cache leaf max |d| {d_cache:.1e}; "
         f"median step {med_s:.2f} ms on DTensors, {med_p:.2f} ms plain (steps "
-        f"{[round(t, 2) for t in ms_s]} / {[round(t, 2) for t in ms_p]} ms) on {card}")
+        f"{[round(t, 2) for t in ms_s]} / {[round(t, 2) for t in ms_p]} ms) on {card}; "
+        f"peak of the last DTensor step with its arguments: train {out['train_peak'] / 1e9:.3f} "
+        f"GB, decode {out['decode_peak'] / 1e9:.3f} GB")
     require(d_logits == 0 and d_cache == 0,
             f"[dist] the sharded decode step differs from the plain one: logits max |d| "
             f"{d_logits}, cache max |d| {d_cache}")
     out.update(decode_ms=med_s, decode_plain_ms=med_p, decode_d=max(d_logits, d_cache))
+    return out
+
+
+DRYRUN_PEAK_REL = 0.10
+# [dryrun] (b): the 16x16 cells run, (arch, shape, layers kept; None: all)
+DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", DRYRUN_PHI4_LAYERS),
+                ("qwen3-moe-30b-a3b", "decode_32k", None))
+
+
+def phase_dryrun(dev, dist_out: dict) -> dict:
+    """``launch/dryrun.py`` on fake process groups, every fake tensor on the
+    card: (a) the per-device peak of ``[dist]``'s two sharded steps
+    predicted on a one-rank fake group and held to the peak ``[dist]``
+    measured of the same step (its arguments allocated); (b) two
+    production cells on the 16x16 mesh (256 fake ranks): phi4-mini's
+    ``train_4k``, whose 8 microbatches are fewer than its 16 data ranks, and
+    an MoE cell.  Every group is destroyed at the phase's end."""
+    import dataclasses
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    card, out = card_line(), {}
+    (tseq, trows), (dseq, drows) = DIST_TRAIN_SHAPE, DIST_DECODE_SHAPE
+    cases = (("train", dataclasses.replace(get_arch(DIST_TRAIN_ARCH), microbatches=2),
+              ShapeSpec("dist_train", tseq, trows, "train"), dist_out["train_peak"]),
+             ("decode", get_arch(DIST_DECODE_ARCH), ShapeSpec("dist_decode", dseq, drows,
+                                                              "decode"),
+              dist_out["decode_peak"]))
+    with dryrun.fake_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for what, cfg, shape, measured in cases:
+            t1 = time.perf_counter()
+            try:
+                with FakeTensorMode(allow_non_fake_inputs=True):
+                    fn, args = dryrun.build_case(cfg, shape, mesh)
+                    require(all(t.device.type == "cuda" for t in dryrun.local_tensors(args)),
+                            "[dryrun] a fake argument is not on the card")
+                    m = dryrun.measure_step(fn, args)
+                    del fn, args
+            finally:
+                dryrun.clear_ctx()
+            mem, pred = m["memory"], m["memory"]["peak"]
+            rel = abs(pred - measured) / measured
+            log(f"[dryrun] {cfg.name} {what} step ({shape.global_batch} x {shape.seq_len}) on a "
+                f"1x1 fake group: predicted peak {pred / 1e9:.3f} GB (arguments "
+                f"{mem['argument'] / 1e9:.3f}, output {mem['output'] / 1e9:.3f}, temp "
+                f"{mem['temp'] / 1e9:.3f}, alias {mem['alias'] / 1e9:.3f}), measured by [dist] "
+                f"{measured / 1e9:.3f} GB on {card}: {100 * rel:.2f}% apart (bound "
+                f"{100 * DRYRUN_PEAK_REL:.0f}%); collectives {m['counts']['collectives']}; "
+                f"fake run {time.perf_counter() - t1:.1f} s")
+            require(rel <= DRYRUN_PEAK_REL and m["counts"]["collective_bytes"] == 0,
+                    f"[dryrun] {what}: predicted peak {pred} against measured {measured}")
+            out[f"{what}_pred"], out[f"{what}_measured"] = pred, measured
+    with dryrun.fake_group(256):
+        for arch, shape_name, layers in DRYRUN_CELLS:
+            cfg = get_arch(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            rec = dryrun.run_cell(cfg, SHAPES[shape_name], False, dev)
+            require(rec["ok"], f"[dryrun] {arch} {shape_name} on 16x16 failed: "
+                               f"{rec.get('error')}\n{rec.get('traceback')}")
+            rf = rec["roofline"]
+            log(f"[dryrun] {arch} {shape_name} on 16x16 (256 fake ranks"
+                + (f", {layers} of {get_arch(arch).num_layers} layers" if layers else "")
+                + f"): per-device peak {rec['memory']['peak_gb']:.3f} GB (argument "
+                f"{rec['memory']['argument_gb']:.3f}, temp {rec['memory']['temp_gb']:.3f}), "
+                f"counted {rec['counted_flops'] / 256:.4e} FLOPs and "
+                f"{rec['counted_bytes'] / 256:.4e} bytes per device, collective GB per device "
+                + ", ".join(f"{k} {v['bytes'] / 1e9:.4f} ({v['count']:.0f})"
+                            for k, v in sorted(rec["collectives"].items()))
+                + f"; bottleneck {rf['bottleneck']} (t_compute {rf['t_compute_s']:.4g} s, "
+                f"t_memory {rf['t_memory_s']:.4g} s, t_collective {rf['t_collective_s']:.4g} s); "
+                f"fake run {rec['compile_s']} s")
+            require(0 < rec["memory"]["peak_gb"] < 80 and rec["counted_flops"] > 0,
+                    f"[dryrun] {arch} {shape_name}: {rec['memory']}")
+            out[(arch, shape_name)] = rec
+    require(not torch.distributed.is_initialized(), "[dryrun] a process group is still up")
+    log(f"[dryrun] done in {time.perf_counter() - t0:.1f} s (fake groups destroyed)")
     return out
 
 
@@ -3746,7 +3864,8 @@ def main(argv) -> int:
     phase_build()
     lm_out = phase_lm(dev, profile=argv == ["profile"])
     train_out = phase_lm_train(dev, profile=argv == ["profile"])
-    phase_dist(dev)
+    dist_out = phase_dist(dev)
+    phase_dryrun(dev, dist_out)
     phase_roofline(lm_out, train_out, card)
     kernel_rows = phase_kernels(dev)
     k3 = phase_gmu(dev)

@@ -9,6 +9,7 @@ on the CPU in its place.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,5 +42,8 @@ def constant(value, dtype: torch.dtype, device) -> torch.Tensor:
         device = torch.device("cuda", torch.cuda.current_device())
     key = (repr(value), dtype, device)
     if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.tensor(value, dtype=dtype, device=device)
+        t = torch.tensor(value, dtype=dtype, device=device)
+        if isinstance(t, FakeTensor):   # made in a fake run: never kept for a real one
+            return t
+        _CONSTANTS[key] = t
     return _CONSTANTS[key]

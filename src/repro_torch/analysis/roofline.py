@@ -11,17 +11,20 @@ load): 989 TFLOP/s bf16, 3.35 TB/s HBM3, 450 GB/s of NVLink 4 per
 direction.
 
 The reference reads FLOPs and bytes from XLA's ``cost_analysis()`` of a
-compiled step, which has no PyTorch counterpart; it also counts a scanned
-layer stack's body once, not once per layer.  Here :func:`count_step` runs
-the step once and counts what it ran: FLOPs with
+compiled step (``from_compiled``), which has no PyTorch counterpart; it
+also counts a scanned layer stack's body once, not once per layer.  Here
+:func:`count_step` runs the step once and counts what this rank ran, as
+``hlo_counter`` counts one device's partitioned program: FLOPs with
 ``torch.utils.flop_counter.FlopCounterMode`` (matrix products and
 convolutions, each GEMM's 2·m·n·k; elementwise work is not counted), bytes
 as the sum over every aten op of its tensor operands' and results' sizes
 (what XLA's "bytes accessed" sums per HLO op; views move nothing and are
-skipped).  Work that ``torch.utils.checkpoint`` recomputes in the backward
-runs again and is counted again, so ``flops_ratio`` = MODEL_FLOPS /
-counted FLOPs shows remat's cost.  MODEL_FLOPS = 6*N*D (dense) /
-6*N_active*D (MoE) for training, 2*N*D otherwise.
+skipped), and collective bytes from ``analysis/census.py``.  A DTensor op
+counts as the ops DTensor runs on this rank's local shards.  Work that
+``torch.utils.checkpoint`` recomputes in the backward runs again and is
+counted again, so ``flops_ratio`` = MODEL_FLOPS / counted FLOPs shows
+remat's cost.  MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE) for
+training, 2*N*D otherwise.
 """
 
 from __future__ import annotations
@@ -29,10 +32,9 @@ from __future__ import annotations
 import dataclasses
 import json
 
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.analysis import census
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 PEAK_FLOPS = 989e12      # bf16 dense, H100 SXM 80GB HBM3 at 700 W
@@ -110,51 +112,33 @@ def peak_share(flops: float, seconds: float) -> float:
     return flops / (seconds * PEAK_FLOPS)
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Sums, over every aten op but views, the bytes of its tensor operands
-    and results."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not func.is_view:
-            for t in _tensors((args, kwargs, out)):
-                self.bytes += t.numel() * t.element_size()
-        return out
-
-
-def _tensors(x):
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _tensors(v)
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-
-
 def count_step(fn, *args, **kwargs) -> dict:
-    """Run ``fn(*args, **kwargs)`` once and count its work: {"flops",
-    "bytes", "out"}.  A training step's backward runs inside ``fn`` and is
-    counted with it, checkpoint recomputation included."""
-    bc = _ByteCounter()
-    with FlopCounterMode(display=False) as fc, bc:
+    """Run ``fn(*args, **kwargs)`` once and count this rank's work:
+    {"flops", "bytes", "collective_bytes", "collectives" (``census.
+    collective_stats``), "transcendentals", "out"}.  A training step's backward runs inside
+    ``fn`` and is counted with it, checkpoint recomputation included.  On
+    one card, or a mesh of one rank, no collective runs and
+    ``collective_bytes`` is 0."""
+    # the census above the FLOP counter: it steps aside for a DTensor op,
+    # so neither sees one, only the local ops DTensor runs
+    with FlopCounterMode(display=False) as fc, census.Census() as cs:
         out = fn(*args, **kwargs)
-    return {"flops": float(fc.get_total_flops()), "bytes": float(bc.bytes), "out": out}
+    return {"flops": float(fc.get_total_flops()), "bytes": float(cs.bytes),
+            "collective_bytes": float(census.total_collective_bytes(cs)),
+            "collectives": census.collective_stats(cs),
+            "transcendentals": float(cs.transcendentals), "out": out}
 
 
 def from_counts(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str, chips: int,
                 counts: dict, peak_bytes: float) -> Roofline:
-    """A :class:`Roofline` from :func:`count_step`'s counts and the step's
-    peak device memory.  One card moves nothing between cards, so the
-    collective bytes are 0 and the collective term never bounds it."""
+    """A :class:`Roofline` from :func:`count_step`'s counts of one rank and
+    the step's peak device memory: the step's totals are ``chips`` times one
+    rank's, as the reference's dry run scales its per-device counts.  On one
+    card the collective bytes are 0 and the collective term never bounds."""
     return Roofline(
         arch=cfg.name, shape=shape.name, mesh=mesh_name, chips=chips,
-        hlo_flops=counts["flops"], hlo_bytes=counts["bytes"], collective_bytes=0.0,
+        hlo_flops=counts["flops"] * chips, hlo_bytes=counts["bytes"] * chips,
+        collective_bytes=counts.get("collective_bytes", 0.0) * chips,
         model_flops=model_flops(cfg, shape),
         per_device_hbm_bytes=float(peak_bytes),
     )

@@ -18,6 +18,13 @@ and the model takes the collectives it needs from here:
   ``psum_dp(x)``  a sum over the batch axes forward, the identity backward:
                   the loss's token sums.
 
+A decode step keeps a KV cache split on its slots over "model" where the
+cache's specs split it so (sequence parallelism, as the reference's
+GSPMD program runs it): each rank attends over its block of the slots
+(:func:`kv_slots`), with every query head (``model_gather``), and the
+ranks' partial softmaxes are combined by ``model_reduce``; only the rank
+that holds the new token's slot writes it.  No cache moves between ranks.
+
 Every rank's loss is then the whole batch's, and each rank's backward gives
 its batch rows' share of every gradient: summed over the batch axes, the
 gradient.  Outside :func:`local_mode`, and on an axis of one rank, each of
@@ -40,23 +47,28 @@ class Local:
     model_group: Optional[object]
     model_size: int
     model_rank: int
+    kv_split: frozenset = frozenset()   # decode cache leaves split on their slots
 
 
 _LOCAL: Optional[Local] = None
 
 
 @contextlib.contextmanager
-def local_mode(device_mesh, dp_axes: Tuple[str, ...], model_axis: Optional[str]):
+def local_mode(device_mesh, dp_axes: Tuple[str, ...], model_axis: Optional[str],
+               kv_split: Tuple[str, ...] = ()):
     """Run the model on local shards of ``device_mesh``: the batch split over
     ``dp_axes`` and the parameters' per-rank dims over ``model_axis`` (None
-    when the model axis carries batch or is absent)."""
+    when the model axis carries batch or is absent); the decode cache leaves
+    named in ``kv_split`` hold this rank's block of their slots
+    (:func:`kv_slots`)."""
     global _LOCAL
     names = device_mesh.mesh_dim_names
     groups = tuple(device_mesh.get_group(a) for a in dp_axes
                    if device_mesh.size(names.index(a)) > 1)
     m_size = device_mesh.size(names.index(model_axis)) if model_axis else 1
     state = Local(groups, device_mesh.get_group(model_axis) if m_size > 1 else None, m_size,
-                  device_mesh.get_local_rank(model_axis) if model_axis else 0)
+                  device_mesh.get_local_rank(model_axis) if model_axis else 0,
+                  frozenset(kv_split) if m_size > 1 else frozenset())
     prev, _LOCAL = _LOCAL, state
     try:
         yield state
@@ -136,3 +148,44 @@ def local_block(n: int) -> Tuple[int, int]:
         return 0, n
     per = n // _LOCAL.model_size
     return _LOCAL.model_rank * per, (_LOCAL.model_rank + 1) * per
+
+
+def kv_slots(name: str, t_local: int) -> Tuple[int, int]:
+    """(this rank's first slot, all slots) of the decode cache leaf ``name``
+    ("k", "v", "xk", "xv") whose local tensor holds ``t_local`` slots:
+    ``(0, t_local)`` unless the call splits that leaf's slots over "model"."""
+    if _LOCAL is None or name not in _LOCAL.kv_split:
+        return 0, t_local
+    return _LOCAL.model_rank * t_local, _LOCAL.model_size * t_local
+
+
+@torch.no_grad()
+def model_gather(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """All ``n`` entries of ``x``'s dim ``dim`` (heads), the "model" ranks'
+    blocks in rank order, where ``x`` holds this rank's block; else ``x``."""
+    if x.shape[dim] == n or _LOCAL is None or _LOCAL.model_group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(_LOCAL.model_size)]
+    dist.all_gather(parts, x.contiguous(), group=_LOCAL.model_group)
+    return torch.cat(parts, dim)
+
+
+def own_block(x: torch.Tensor, dim: int, n_local: int) -> torch.Tensor:
+    """This "model" rank's ``n_local`` entries of ``x``'s dim ``dim`` where
+    ``x`` holds all of them (the inverse of :func:`model_gather`)."""
+    if x.shape[dim] == n_local:
+        return x
+    lo, hi = local_block(x.shape[dim])
+    return x.narrow(dim, lo, hi - lo)
+
+
+@torch.no_grad()
+def model_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The "max" or "sum" of ``x`` over the "model" ranks (a decode step's
+    partial softmax; no backward)."""
+    if _LOCAL is None or _LOCAL.model_group is None:
+        return x
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=_LOCAL.model_group)
+    return y

@@ -17,8 +17,11 @@ state with others (a test run's worker) starts nothing.
 
 Production meshes: single pod 16x16 = 256 ranks, axes ("data", "model");
 multi-pod 2x16x16 = 512, ("pod", "data", "model"), where "pod" is an outer
-data-parallel axis.  One card cannot build them: :func:`make_mesh` raises,
-as ``jax.make_mesh`` does with too few devices.
+data-parallel axis.  With no process group one card cannot build them:
+:func:`make_mesh` raises, as ``jax.make_mesh`` does with too few devices.
+The dry run (``launch/dryrun.py``) starts a fake process group of 256 or
+512 ranks in one process, and the mesh is built on it: the ranks counted
+are the group's, never the cards.
 """
 
 from __future__ import annotations

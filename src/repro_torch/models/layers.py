@@ -149,25 +149,35 @@ def decode_attention(
     cache_len,                # valid prefix length: int or () int tensor
     *,
     window: int = 0,
+    first_slot: int = 0,
+    reduce=None,
 ) -> torch.Tensor:
     """Single-token attention over a KV cache: one masked einsum.
 
     ``cache_len`` may be a () device tensor: the mask is built on the
-    device, so the call reads nothing back."""
+    device, so the call reads nothing back.  With ``reduce`` the caches
+    hold slots ``first_slot`` onwards of a cache split over ranks: the
+    softmax is taken in parts, its max and sums combined by
+    ``reduce(x, "max" | "sum")`` over the ranks."""
     b, _, h, hd = q.shape
     t, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     qr = q.reshape(b, kv, g, hd).float()
     scores = torch.einsum("bkgd,btkd->bkgt", qr, k_cache.float())
     scores = scores * (hd ** -0.5)
-    pos = torch.arange(t, device=q.device)
+    pos = torch.arange(first_slot, first_slot + t, device=q.device)
     clen = cache_len.reshape(-1, 1) if torch.is_tensor(cache_len) else cache_len
     mask = pos[None, :] < clen
     if window > 0:
         mask = mask & (pos[None, :] >= clen - window)
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    if reduce is None:
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    else:
+        e = torch.exp(scores - reduce(scores.amax(-1, keepdim=True), "max"))
+        out = (reduce(torch.einsum("bkgt,btkd->bkgd", e, v_cache.float()), "sum")
+               / reduce(e.sum(-1)[..., None], "sum"))
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

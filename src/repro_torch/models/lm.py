@@ -31,7 +31,10 @@ and values its KV heads, or all of them where ``wk`` is whole), the SwiGLU
 its FFN columns and the MoE its experts; each ends in a sum over "model"
 of float32 partials, rounded once.  The other blocks run whole on every
 rank.  A block's branch follows from the shapes of the weights it is
-given, so plain tensors take the plain path.
+given, so plain tensors take the plain path.  A decode step whose caches
+hold this rank's block of their slots (``local.kv_slots``: sequence
+parallelism) attends with every query head over that block and combines
+the ranks' partial softmaxes.
 
 Decode caches are fixed-size rings: slot = pos % T, valid length
 min(pos+1, T). ``cache["len"]`` is a () int32 tensor on the cache's device
@@ -530,22 +533,43 @@ def scan_group(x, stacked, body, layers: int, remat, extra_xs=None):
 
 def _attn_step(x, p, k_cache, v_cache, pos, window, cfg: ArchConfig):
     """One-token attention against a ring cache. x (B,1,d); pos a () int32
-    tensor. Writes the token's k and v into slot pos % T of the caches."""
+    tensor. Writes the token's k and v into slot pos % T of the caches.
+
+    Where the caches hold this rank's block of their slots
+    (``local.kv_slots``), the step attends with every query head over that
+    block and combines the ranks' parts; the slot's holder writes it."""
     b = x.shape[0]
-    t = k_cache.shape[1]
+    tl = k_cache.shape[1]
+    lo, t = local.kv_slots("k", tl)
     xn = _norm(x, p["ln1"], cfg)
     q, k, v, sel = _qkv(xn, xn, p, cfg)
     posv = pos.expand(b, 1)
     q = rope(q, posv, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_theta)
     slot = torch.remainder(pos, t).long().reshape(1)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     eff_len = torch.clamp(pos + 1, max=t)
     # Linear (full-length) caches apply the sliding-window mask; ring caches
     # (t <= window, e.g. zamba2 at 500k) ARE the window — no mask needed.
-    o = decode_attention(q, _pick(k_cache, sel), _pick(v_cache, sel), eff_len, window=window)
+    if t == tl:
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+        o = decode_attention(q, _pick(k_cache, sel), _pick(v_cache, sel), eff_len, window=window)
+    else:
+        hl = q.shape[2]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            _write_held(cache, slot - lo, local.model_gather(new, 2, cfg.num_kv_heads))
+        o = decode_attention(local.model_gather(q, 2, cfg.num_heads), k_cache, v_cache, eff_len,
+                             window=window, first_slot=lo, reduce=local.model_reduce)
+        o = local.own_block(o, 2, hl)
     return _residual(x, _out(o, p["wo"], cfg))
+
+
+def _write_held(cache, idx, new):
+    """``cache[:, idx] = new`` where this rank holds slot ``idx`` of its block
+    (0 <= idx < its slots; a (1,) device index, read by no host)."""
+    held = (idx >= 0) & (idx < cache.shape[1])
+    i = idx.clamp(0, cache.shape[1] - 1)
+    cache.index_copy_(1, i, torch.where(held, new.to(cache.dtype), cache.index_select(1, i)))
 
 
 def _decode_attn_stack(x, p, cache, pos, windows, cfg: ArchConfig, moe: bool):
@@ -633,8 +657,14 @@ def _decode_encdec_stack(x, p, cache, pos, cfg: ArchConfig):
         x = _attn_step(x, lp, cache["k"][l], cache["v"][l], pos, 0, cfg)
         xn = _norm(x, lp["lnx"], cfg)
         q, _ = _q_proj(xn, lp["xwq"], cfg)
-        sel = _kv_pick(lp["xwq"], lp["xwk"], cfg)
-        o = decode_attention(q, _pick(xk, sel), _pick(xv, sel), xk.shape[1])
+        lo, t = local.kv_slots("xk", xk.shape[1])
+        if t == xk.shape[1]:
+            sel = _kv_pick(lp["xwq"], lp["xwk"], cfg)
+            o = decode_attention(q, _pick(xk, sel), _pick(xv, sel), t)
+        else:
+            o = local.own_block(decode_attention(
+                local.model_gather(q, 2, cfg.num_heads), xk, xv, t, first_slot=lo,
+                reduce=local.model_reduce), 2, q.shape[2])
         x = _residual(x, _out(o, lp["xwo"], cfg))
         x = _mlp_seq(x, lp, cfg).to(BF16)
     return x, cache
@@ -820,7 +850,8 @@ class Model:
                 x, new_cache[g.ckey] = _decode_mamba_stack(x, p, c, cfg)
             elif g.kind == "shared_attn":
                 w = g.meta["window"]
-                w = 0 if (w and c["k"].shape[1] <= w) else w  # ring == window
+                # ring == window
+                w = 0 if (w and local.kv_slots("k", c["k"].shape[1])[1] <= w) else w
                 x = _attn_step(x, p, c["k"], c["v"], pos, w, cfg)
                 x = _mlp_seq(x, p, cfg)
                 new_cache[g.ckey] = c

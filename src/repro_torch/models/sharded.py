@@ -17,7 +17,10 @@ so each call is a local map, the port's ``shard_map`` of the model:
   run  the model on those plain tensors under ``local.local_mode``.
   out  logits sharded on the batch axes; caches in their compute layout
        (:func:`_cache_layout`), which the caller redistributes to
-       ``cache_specs``.
+       ``cache_specs``.  A decode step keeps a KV cache split on its slots
+       over "model" where ``cache_specs`` splits it so: the cache moves
+       between no ranks, and the model attends over each rank's block of
+       slots (``distributed/local.py``).
 
 The model's blocks take their per-rank branch from the shapes of the
 weights they are given, so on a mesh of one rank (every layout whole) the
@@ -87,10 +90,22 @@ def _param_layout(cfg: ArchConfig, kind, name: str, t, model_axis) -> Tuple:
     return _placements(t.device_mesh, entry)
 
 
-def _cache_layout(cfg: ArchConfig, layouts: dict, dm, dp, model_axis, cache) -> dict:
+def _slots_split(dm, model_axis, name: str, t) -> bool:
+    """Whether a decode step keeps KV cache leaf ``t`` split on its slots
+    over "model", as ``cache_specs`` lays it out (sequence parallelism)."""
+    if name not in _KV or model_axis is None:
+        return False
+    m = dm.size(dm.mesh_dim_names.index(model_axis))
+    return m > 1 and t.shape[t.ndim - 3] % m == 0
+
+
+def _cache_layout(cfg: ArchConfig, layouts: dict, dm, dp, model_axis, cache,
+                  decode: bool = False) -> dict:
     """The compute layout of each leaf of a decode cache (global shapes):
-    the batch dim on the batch axes; on "model" the KV heads of a group
-    whose ``wk`` is split there; the rest replicated."""
+    the batch dim on the batch axes; on "model", in a decode step, the
+    slots of a KV leaf whose slots ``cache_specs`` splits there
+    (:func:`_slots_split`), else the KV heads of a group whose ``wk`` is
+    split there; the rest replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
     key_of = {g.ckey: g.key for g in plan_groups(cfg)}
@@ -100,16 +115,18 @@ def _cache_layout(cfg: ArchConfig, layouts: dict, dm, dp, model_axis, cache) -> 
         if name == "len":
             return _placements(dm, lambda a, n: Replicate())
         b = (1 if nd == 5 else 0) if name in _KV else (0 if name in ("c", "n", "m", "h") else 1)
-        split = False
-        if name in _KV:
+        split = None
+        if decode and _slots_split(dm, model_axis, name, t):
+            split = nd - 3
+        elif name in _KV:
             wk = layouts[key_of[ckey]]["xwk" if name.startswith("x") else "wk"]
-            split = any(p.is_shard() and a == model_axis
-                        for a, p in zip(dm.mesh_dim_names, wk))
+            if any(p.is_shard() and a == model_axis for a, p in zip(dm.mesh_dim_names, wk)):
+                split = nd - 2
 
         def entry(axis, size):
             if axis in dp:
                 return Shard(b)
-            return Shard(nd - 2) if split and axis == model_axis else Replicate()
+            return Shard(split) if split is not None and axis == model_axis else Replicate()
 
         return _placements(dm, entry)
 
@@ -178,8 +195,9 @@ def _batch_placements(call: LocalCall) -> Tuple:
     return _placements(call.mesh, lambda a, n: Shard(0) if a in call.dp else Replicate())
 
 
-def _cache_out(model, call: LocalCall, cache: dict) -> dict:
-    lay = _cache_layout(model.cfg, call.layouts, call.mesh, call.dp, call.model_axis, cache)
+def _cache_out(model, call: LocalCall, cache: dict, lay=None) -> dict:
+    if lay is None:
+        lay = _cache_layout(model.cfg, call.layouts, call.mesh, call.dp, call.model_axis, cache)
     return {k: ({n: _out(t, call.mesh, lay[k][n]) for n, t in v.items()} if isinstance(v, dict)
                 else _out(v, call.mesh, lay[k])) for k, v in cache.items()}
 
@@ -199,10 +217,18 @@ def decode_step(model, params: dict, cache: dict, tokens):
     its layout already, as the plain step consumes its cache); returns
     (logits sharded on the batch axes, the cache in its compute layout)."""
     call = localize(model.cfg, params, {"tokens": tokens})
-    lay = _cache_layout(model.cfg, call.layouts, call.mesh, call.dp, call.model_axis, cache)
+    lay = _cache_layout(model.cfg, call.layouts, call.mesh, call.dp, call.model_axis, cache,
+                        decode=True)
+    split = {n for v in cache.values() if isinstance(v, dict) for n, t in v.items()
+             if _slots_split(call.mesh, call.model_axis, n, t)}
+    if any(_slots_split(call.mesh, call.model_axis, n, t) != (n in split)
+           for v in cache.values() if isinstance(v, dict) for n, t in v.items() if n in _KV):
+        raise ValueError("decode cache leaves of one name differ in whether their slots split "
+                         "over the model axis")
     with torch.no_grad():
         lcache = {k: ({n: _local(t, lay[k][n]) for n, t in v.items()} if isinstance(v, dict)
                       else _local(v, lay[k])) for k, v in cache.items()}
-    with local.local_mode(call.mesh, call.dp, call.model_axis):
+    with local.local_mode(call.mesh, call.dp, call.model_axis, kv_split=tuple(split)):
         logits, lcache = model.decode_step(call.params, lcache, call.batch["tokens"])
-    return _out(logits, call.mesh, _batch_placements(call)), _cache_out(model, call, lcache)
+    return (_out(logits, call.mesh, _batch_placements(call)),
+            _cache_out(model, call, lcache, lay))

@@ -18,9 +18,11 @@ redistributed to ``grad_specs``, so on an FSDP leaf the sync is a
 reduce-scatter onto the leaf's shard.  The wire dtype is bf16 with
 ``grad_compression="bf16"`` (2 bytes an element, the reference's
 compression) and float32 without it.  The batch is split into microbatches
-by redistributing it to ``microbatch_specs``, so every microbatch stays
-sharded over the batch axes.  Adam then updates the DTensor leaves in
-place, clipping by the global norm of the whole sharded tree.
+on ``microbatch_specs`` by one all-to-all of its rows over the batch axes
+(``_split_batch``), so every microbatch stays sharded over them and holds
+the reference's rows whatever the data degree and microbatch count.
+Adam then updates the DTensor leaves in place, clipping by the global norm
+of the whole sharded tree.
 
 ``Trainer`` is the loop: periodic, final and emergency checkpoints
 (``train/checkpoint.py``, the reference's format; no emergency checkpoint
@@ -94,17 +96,77 @@ def _sharded_grads(model: Model, call, params, batch, grad_specs, wire: torch.dt
 
 
 def _split_batch(batch: dict, mb: int, microbatch_specs) -> list:
-    """The mb microbatches of a DTensor batch: (B, ...) -> (mb, B/mb, ...),
-    redistributed to ``microbatch_specs`` (the batch axes on dim 1) where
-    given, then one microbatch at a time."""
+    """The mb microbatches of a DTensor batch, as the reference's reshape
+    (B, ...) -> (mb, B/mb, ...) gives them: microbatch i holds the global
+    rows [i·B/mb, (i+1)·B/mb), laid out on ``microbatch_specs`` (the batch
+    axes on dim 1) where given, then one microbatch at a time."""
     out = {}
     for k, v in batch.items():
-        v = v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
-        if microbatch_specs is not None:
-            v = v.redistribute(v.device_mesh,
-                               placements(v.device_mesh.mesh_dim_names, microbatch_specs[k]))
-        out[k] = v
+        if microbatch_specs is None:
+            out[k] = v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
+            continue
+        dm = v.device_mesh
+        target = placements(dm.mesh_dim_names, microbatch_specs[k])
+        axes = _shard_axes(v.placements, dm, 0)
+        if axes != _shard_axes(target, dm, 1):
+            raise ValueError(f"{k}: rows on {axes}, its microbatches' on "
+                             f"{_shard_axes(target, dm, 1)}")
+        out[k] = _rows_to_microbatches(v, axes, mb, target)
     return [{k: v[i] for k, v in out.items()} for i in range(mb)]
+
+
+def _shard_axes(placed, dm, dim: int) -> tuple:
+    """The mesh axes that shard tensor dim ``dim``, in mesh order."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(a for a, p in zip(dm.mesh_dim_names, placed) if p == Shard(dim))
+
+
+def _rows_to_microbatches(v, axes: tuple, mb: int, target):
+    """``v`` (B, ...) sharded on ``axes`` as (mb, B/mb, ...) sharded on dim 1
+    over the same axes, by one all-to-all of rows over ``axes`` (with no
+    axes, or one rank on them, nothing moves): DTensor cannot unflatten
+    the sharded dim where mb is not a multiple of the axes' degree (16
+    data ranks and 8 microbatches on a 16x16 mesh).
+
+    Of B rows over D ranks, rank d holds rows [d·c, (d+1)·c), c = B/D, and
+    must end with rows i·n + d·r + [0, r) of every microbatch i (n = B/mb,
+    r = n/D): it sends each of its rows to rank (row mod n) // r, in row
+    order, and receives them in row order, which is microbatch by
+    microbatch.  Only rows move, so each microbatch sums the rows it did."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    dm = v.device_mesh
+    big, d, group = 1, 0, None
+    if axes:
+        with _disable_current_modes():   # the mesh's own bookkeeping, real even in a fake run
+            group = dm.get_group(axes[0]) if len(axes) == 1 else dm[axes]._flatten().get_group()
+        big, d = dist.get_world_size(group), dist.get_rank(group)
+    b, local = v.shape[0], v.to_local()
+    if b % mb or (b // mb) % big:
+        raise ValueError(f"{b} rows do not split into {mb} microbatches over {big} ranks")
+    got = local   # one rank holds every row: nothing moves
+    if big > 1:
+        c, n = b // big, b // mb
+        r = n // big
+        dest = (np.arange(d * c, (d + 1) * c) % n) // r
+        want = (np.arange(mb)[:, None] * n + d * r + np.arange(r)[None, :]).ravel()
+        # the local rows grouped by destination: runs of consecutive rows, each
+        # with one destination, in destination order
+        cuts = [0] + [i for i in range(1, c) if dest[i] != dest[i - 1]] + [c]
+        runs = sorted(zip(cuts[:-1], cuts[1:]), key=lambda se: dest[se[0]])
+        send = torch.cat([local[s:e] for s, e in runs]) if len(runs) > 1 else local
+        got = local.new_empty((mb * r,) + tuple(local.shape[1:]))
+        dist.all_to_all_single(got, send.contiguous(),
+                               np.bincount(want // c, minlength=big).tolist(),
+                               np.bincount(dest, minlength=big).tolist(), group=group)
+    shape = (mb, b // mb) + tuple(v.shape[1:])
+    return DTensor.from_local(got.reshape((mb, -1) + tuple(local.shape[1:])), dm, target,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def make_train_step(model: Model, opt, microbatches: int = 1,

@@ -261,6 +261,31 @@ DRYRUN_TRAIN_SHAPE = ShapeSpec("t", 64, 8, "train")
 DRYRUN_DECODE_SHAPE = ShapeSpec("d", 64, 8, "decode")
 
 
+# decode from a cache filled to FILLED_LEN of its 64 slots: on (2, 4) each
+# "model" rank holds 16 slots, so every rank holds live slots, and the
+# FILLED_STEPS steps write slots 60-63 (rank 3) and then wrap to 0-1 (rank 0)
+FILLED_LEN, FILLED_STEPS = 60, 6
+
+
+def filled_cache(cfg, seed: int = 1):
+    """``cache_struct`` at the decode shape with every leaf drawn from
+    ``seed`` (normal, attention and cross-attention K/V at unit scale, the
+    SSM states at half) and ``len`` = ``FILLED_LEN``."""
+    model = Model(cfg)
+    cache = model.cache_struct(DRYRUN_DECODE_SHAPE.global_batch, DRYRUN_DECODE_SHAPE.seq_len,
+                               device="cpu")
+    rng = np.random.default_rng(seed)
+
+    def fill(path, t):
+        if path == "len":
+            return torch.full((), FILLED_LEN, dtype=t.dtype)
+        scale = 1.0 if path.rsplit("/", 1)[-1] in ("k", "v", "xk", "xv") else 0.5
+        return torch.from_numpy(rng.normal(size=t.shape).astype(np.float32) * scale).to(t.dtype)
+
+    return {k: ({n: fill(f"{k}/{n}", t) for n, t in v.items()} if isinstance(v, dict)
+                else fill(k, v)) for k, v in cache.items()}
+
+
 def dryrun_cfg(name):
     import dataclasses
 
@@ -333,13 +358,23 @@ def case_dryrun(inputs, out_dir):
                                         logits_placements=tuple(map(str, logits.placements)),
                                         cache_placements=_placed(cache))
             fn, (params, cache, tokens) = build_case(cfg, DRYRUN_DECODE_SHAPE, mesh)
-            steps = []
+            first, steps = tokens, []
             for _ in range(2):
                 logits, cache = fn(params, cache, tokens)
                 steps.append(dict(logits=_gathered(logits, keep), cache=_gathered(cache, keep),
                                   cache_placements=_placed(cache)))
                 tokens = _next_tokens(logits, tokens)
             res[name]["decode"] = dict(tokens=_gathered(tokens, keep), steps=steps)
+            # from a cache whose live slots lie on every "model" rank, past
+            # the ring's end
+            filled = filled_cache(cfg)
+            cache = S.shard_tree(filled, mesh, S.cache_specs(cfg, filled, mesh))
+            tokens, steps = first, []
+            for _ in range(FILLED_STEPS):
+                logits, cache = fn(params, cache, tokens)
+                steps.append(dict(logits=_gathered(logits, keep), cache=_gathered(cache, keep)))
+                tokens = _next_tokens(logits, tokens)
+            res[name]["decode_filled"] = dict(tokens=_gathered(tokens, keep), steps=steps)
         finally:
             ctx.set_dp_axes(None)
             ctx.set_model_axis(None)
@@ -355,38 +390,24 @@ def _next_tokens(logits, tokens):
     return DTensor.from_local(nxt, tokens.device_mesh, tokens.placements, run_check=False)
 
 
-_COLLECTIVES = ("all_reduce", "allreduce", "reduce_scatter", "all_gather", "allgather",
-                "all_to_all", "alltoall", "broadcast")
-
-
 class CommBytes:
-    """Counts the bytes each collective of ``torch.distributed`` takes in
-    (its input tensors), as the reference counts an HLO collective's
-    operand bytes: a ``TorchDispatchMode`` over the c10d ops."""
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        counter = self
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                if func.namespace in ("_c10d_functional", "c10d") and any(
-                        c in func.__name__ for c in _COLLECTIVES):
-                    first = args[0]
-                    ts = first if isinstance(first, (list, tuple)) else [first]
-                    counter.ops.append((str(func), sum(
-                        t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))))
-                return func(*args, **(kwargs or {}))
-
-        self.ops, self.mode = [], Mode()
+    """The bytes each collective takes in (its operand bytes), on this rank:
+    ``analysis/census.Census``'s collectives, whose result bytes
+    (``census.collective_stats``) the reference's ``hlo.py`` counts."""
 
     def __enter__(self):
-        self.mode.__enter__()
+        from repro_torch.analysis.census import Census
+
+        self.census = Census()
+        self.census.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.mode.__exit__(*exc)
+        self.census.__exit__(*exc)
+
+    @property
+    def ops(self) -> list:
+        return [(c.op, c.operand_bytes) for c in self.census.collectives]
 
 
 def case_wire(inputs, out_dir):
@@ -396,6 +417,7 @@ def case_wire(inputs, out_dir):
     the sync (each microbatch's gradients synced in float32)."""
     import dataclasses
 
+    from repro_torch.analysis.census import collective_stats
     from repro_torch.launch.dryrun import build_case
     from repro_torch.train import trainer as T
     from repro_torch.train.optimizer import Adam
@@ -416,7 +438,8 @@ def case_wire(inputs, out_dir):
                     metrics, params, _ = step(params, opt_state, batch)
             finally:
                 T._sharded_grads = sync
-            res[what] = dict(ops=count.ops, loss=float(metrics["loss"]),
+            res[what] = dict(ops=count.ops, stats=collective_stats(count.census),
+                             loss=float(metrics["loss"]),
                              param_bytes=sum(t.numel() * t.element_size()
                                              for t in tree_leaves(params)))
     finally:
@@ -426,9 +449,39 @@ def case_wire(inputs, out_dir):
     return res
 
 
+SPLIT_ARCH = "phi4-mini-3.8b"
+
+
+def case_split(inputs, out_dir):
+    """``build_case``'s train step on a (4, 2) mesh, whose data degree (4)
+    does not divide the 2 microbatches: the batch's rows reach the
+    microbatches by one all-to-all (``trainer._split_batch``).  Rank 0
+    keeps each microbatch's rows and the step's loss, grad norm and
+    parameters."""
+    from repro_torch.launch.dryrun import build_case
+    from repro_torch.train import trainer as T
+
+    keep = dist.get_rank() == 0
+    mesh = M.make_mesh((4, 2), ("data", "model"), device="cpu")
+    try:
+        step, (params, opt_state, batch) = build_case(dryrun_cfg(SPLIT_ARCH),
+                                                      DRYRUN_TRAIN_SHAPE, mesh)
+        parts = T._split_batch(batch, 2, {"tokens": S.P(None, "data")})
+        res = dict(microbatches=[_gathered(p, keep) for p in parts],
+                   placements=[_placed(p) for p in parts])
+        metrics, params, opt_state = step(params, opt_state, batch)
+        res.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   params=_gathered(params, keep), param_placements=_placed(params))
+    finally:
+        ctx.set_dp_axes(None)
+        ctx.set_model_axis(None)
+        ctx.set_seq_axis(None)
+    return res
+
+
 CASES = {"meshes": case_meshes, "shard_tree": case_shard_tree, "ctx": case_ctx,
          "ctx_model": case_ctx_model, "elastic": case_elastic, "pipeline": case_pipeline,
-         "dryrun": case_dryrun, "wire": case_wire}
+         "dryrun": case_dryrun, "wire": case_wire, "split": case_split}
 
 
 WORLD = 8

@@ -6,7 +6,10 @@ path (the ten architectures at reduced size against the port's CPU run, a
 decode step that reads nothing back, ``launch/serve.py``) and the LM
 training path (a train step of each architecture against the CPU's, the
 remat modes bit for bit, the Trainer's checkpoint and resume,
-``launch/train.py``).  Every test here is marked ``cuda`` and skips where
+``launch/train.py``), the distributed layer on a one-rank NCCL group, and
+the dry run (``launch/dryrun.py``: a peak predicted on a fake group against
+the measured one; a fake run's record equal on the card and the CPU; a
+one-rank step's census).  Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false.
 
 The file imports neither JAX nor ``repro``, so it runs on a machine that
@@ -2121,3 +2124,105 @@ def test_cuda_count_step_counts_the_backward_on_the_card(dev):
     cpu, card = counts["cpu"], counts[str(dev)]
     assert card["flops"] == cpu["flops"] > 0
     assert card["bytes"] > 0
+
+
+def test_cuda_census_of_a_one_rank_nccl_step_is_zero(dev, nccl_one_rank):
+    """``build_case``'s train and decode steps on the 1x1 mesh of a one-rank
+    NCCL group, counted by ``count_step``: the census sees no collective,
+    so the roofline's collective term is 0."""
+    import dataclasses
+
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(), microbatches=2)
+    for kind in ("train", "decode"):
+        shape = ShapeSpec(kind, 64, 8, kind)
+        try:
+            fn, args = dryrun.build_case(cfg, shape, mesh)
+        finally:
+            dryrun.clear_ctx()
+        c = roofline.count_step(fn, *args)
+        assert c["flops"] > 0 and c["collective_bytes"] == 0 and c["collectives"] == {}, kind
+        assert roofline.from_counts(cfg, shape, "1x1", 1, c, 1e9).t_collective == 0
+
+
+def test_cuda_dryrun_records_the_same_on_the_card_and_the_cpu(dev):
+    """Reduced phi4's train step (8 microbatches over 16 data ranks) and
+    decode step on the 16x16 fake group, fake tensors on the card and on
+    the CPU: the memory record and the counted FLOPs and collectives are
+    equal."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(), microbatches=8)
+    with dryrun.fake_group(256):
+        for shape in (ShapeSpec("t", 256, 32, "train"), ShapeSpec("d", 256, 32, "decode")):
+            got = {}
+            for where in ("cuda", "cpu"):
+                mesh = make_mesh((16, 16), ("data", "model"), device=where)
+                try:
+                    with FakeTensorMode(allow_non_fake_inputs=True):
+                        fn, args = dryrun.build_case(cfg, shape, mesh)
+                        m = dryrun.measure_step(fn, args)
+                finally:
+                    dryrun.clear_ctx()
+                got[where] = (m["memory"], m["counts"]["flops"], m["counts"]["collectives"])
+            assert got["cuda"] == got["cpu"], shape.kind
+
+
+def test_cuda_dryrun_predicts_the_peak_of_a_step(dev, tmp_path):
+    """``[dryrun]``'s check at a cut size: phi4-mini at full width cut to 2
+    layers, a train step of 2 microbatches of 1 x 512.  The peak predicted
+    on a one-rank fake group, fake tensors on the card, against the peak of
+    the same step on a one-rank NCCL group, measured after a warm-up step
+    with its arguments allocated: within 10%."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b"), num_layers=2, microbatches=2)
+    shape = ShapeSpec("t", 512, 2, "train")
+    with dryrun.fake_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"))   # outside the fake mode
+        try:
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                fn, args = dryrun.build_case(cfg, shape, mesh)
+                assert all(t.device.type == "cuda" for t in dryrun.local_tensors(args))
+                predicted = dryrun.measure_step(fn, args)["memory"]["peak"]
+                del fn, args
+        finally:
+            dryrun.clear_ctx()
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        try:
+            step, (params, opt, batch) = dryrun.build_case(
+                cfg, shape, make_mesh((1, 1), ("data", "model")))
+        finally:
+            dryrun.clear_ctx()
+        _, params, opt = step(params, opt, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - dryrun.local_bytes((params, opt, batch))
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+    finally:
+        dist.destroy_process_group()
+    assert abs(predicted - measured) <= 0.10 * measured, (predicted, measured)

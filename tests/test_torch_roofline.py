@@ -2,8 +2,8 @@
 against ``repro``'s: ``model_flops`` equal for every shape cell of every
 architecture; the ``Roofline`` terms held to their formulas at the port's
 H100 constants, as ``tests/test_analysis_and_specs.py`` holds the
-reference's at its own; the report's table rendering the same rows as the
-reference's; and ``count_step``'s counted FLOPs of a reduced dense
+reference's at its own; the report's tables (the roofline's and the dry
+run's) rendering the same rows as the reference's; and ``count_step``'s counted FLOPs of a reduced dense
 ``loss_fn`` forward and backward against an analytic count written out
 here (rtol 1e-2; measured: equal), with and without remat.
 
@@ -122,6 +122,43 @@ def test_report_main_prints_a_rows_file(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "1xH100" in out and "3 counted steps" in out and out.count("**") == 6
     assert treport.main([]) == 2
+
+
+def _dryrun_rows():
+    """Dry-run records of two cells on both production meshes, one failed."""
+    out = []
+    for i, (name, kind) in enumerate((("phi4-mini-3.8b", "train"), ("zamba2-1.2b", "decode"))):
+        cfg = tconfigs.get_arch(name)
+        shape = tbase.ShapeSpec(f"{kind}_x", 4096, 256, kind)
+        for mesh, chips in (("16x16", 256), ("2x16x16", 512)):
+            if i == 1 and mesh == "2x16x16":
+                out.append({"arch": name, "shape": shape.name, "mesh": mesh, "ok": False,
+                            "error": "RuntimeError: x"})
+                continue
+            r = troof.from_counts(cfg, shape, mesh, chips, {"flops": 1e13, "bytes": 4e10,
+                                                            "collective_bytes": 3e9}, 20e9)
+            out.append({"arch": name, "shape": shape.name, "mesh": mesh, "ok": True,
+                        "roofline": r.row(), "memory": {"peak_gb": 20.0 + i},
+                        "collective_gb_per_device": 3.0, "compile_s": 12.5})
+    return out
+
+
+def test_dryrun_table_renders_the_references_rows(tmp_path, capsys):
+    """``dryrun_table`` and ``main`` on a dry-run rows file: the reference's
+    table row for row (its last column is the fake run's seconds, not a
+    compile's), then a roofline table per mesh."""
+    path = tmp_path / "dryrun.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in _dryrun_rows()))
+    rows = treport.load(str(path))
+    got, want = treport.dryrun_table(rows).splitlines(), jreport.dryrun_table(rows).splitlines()
+    assert got[2:] == want[2:] and len(got) == 4
+    assert got[0] == want[0].replace("compile s", "fake run s")
+    for mesh in ("16x16", "2x16x16"):
+        assert treport.roofline_table(rows, mesh).splitlines()[2:] == \
+            jreport.roofline_table(rows, mesh).splitlines()[2:]
+    assert treport.main([str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "3/4 cells ran" in out and "2x16x16" in out and "1xH100" not in out
 
 
 def test_count_step_counts_bytes_of_every_op_but_views():

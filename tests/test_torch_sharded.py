@@ -12,12 +12,16 @@ starts a process group).  They run:
     ``test_mini_dryrun_train_and_decode``) for real: qwen3-moe-30b-a3b,
     zamba2-1.2b and whisper-large-v3 at ``reduced()`` with two microbatches
     on a (2, 4) ("data", "model") mesh, the train step at (64, 8), and the
-    prefill and two decode steps at (64, 8);
+    prefill and two decode steps at (64, 8); then six decode steps from a
+    drawn cache whose live slots lie on every "model" rank, past the
+    ring's end;
   * the same train step for the other seven architectures, so each
     family's sharding roles run once (FSDP+TP, the VLM, TP only, MoE with
     FSDP experts, pure DP);
   * the gradient sync's bytes for xlstm-125m on an (8,) data mesh, with
-    bf16 compression and with the cast after the sync.
+    bf16 compression and with the cast after the sync;
+  * reduced phi4's train step on a (4, 2) mesh, whose 4 data ranks do not
+    divide its 2 microbatches (the batch split's all-to-all).
 
 Bounds.  With the batch sharded over "data" alone the sharded step
 changes only the order of batch sums (float32 loss within 1e-5, bf16
@@ -178,6 +182,38 @@ def test_gloo_fsdp_really_shards_llama3(ranks):
         assert 4 * sum(r["param_bytes"].values()) < whole
 
 
+def test_gloo_split_gives_each_microbatch_the_reference_rows(ranks):
+    """On a (4, 2) mesh 4 data ranks share 2 microbatches, which DTensor
+    cannot unflatten: ``_split_batch`` moves the rows by one all-to-all, and
+    microbatch i holds rows [4i, 4i + 4) of the batch, the reference's
+    reshape, sharded over "data"."""
+    results = _case(ranks, "split")
+    res = results[0]
+    tokens = _np(dryrun.draw_inputs(R.dryrun_cfg(R.SPLIT_ARCH), R.DRYRUN_TRAIN_SHAPE,
+                                    "cpu")["tokens"])
+    want = tokens.reshape(2, 4, -1)
+    for i, mb in enumerate(res["microbatches"]):
+        np.testing.assert_array_equal(mb["tokens"], want[i])
+    for r in results:
+        assert r["placements"] == [{"tokens": ("S(0)", "R")}] * 2
+
+
+def test_gloo_split_train_matches_one_rank(ranks):
+    """The (4, 2) mesh's train step against the one-rank step, within the
+    bounds of runs split over "model" (reduced phi4's 4 heads split over 2
+    ranks)."""
+    res = _case(ranks, "split")[0]
+    _, metrics, params, _ = _one_rank_train(R.SPLIT_ARCH)
+    assert _split_over_model(res)
+    loss = float(metrics["loss"])
+    assert abs(res["loss"] - loss) <= LOSS_RTOL["model"] * abs(loss)
+    assert abs(res["grad_norm"] - float(metrics["grad_norm"])) <= \
+        GNORM_RTOL * float(metrics["grad_norm"])
+    after = tree_paths(res["params"])
+    for k, p in tree_paths(params).items():
+        np.testing.assert_allclose(after[k], _np(p), atol=PARAM_ATOL, rtol=0, err_msg=k)
+
+
 @pytest.mark.parametrize("name", R.DRYRUN_FULL)
 def test_gloo_build_case_prefill_matches_one_rank(ranks, name):
     """``build_case``'s prefill at the mini dry-run's decode shape: logits
@@ -228,6 +264,36 @@ def test_gloo_build_case_decode_matches_one_rank(ranks, name):
     np.testing.assert_array_equal(res["tokens"], _np(tokens))
 
 
+@pytest.mark.parametrize("name", R.DRYRUN_FULL)
+def test_gloo_decode_over_every_ranks_slots_matches_one_rank(ranks, name):
+    """``build_case``'s decode step from a drawn cache filled to 60 slots
+    (``_dist_ranks.filled_cache``), six steps: every "model" rank holds live
+    slots, so four ranks' partial softmaxes combine (whisper's cross
+    attention over its drawn K/V too), and the steps write slots held by
+    rank 3 and then, past the ring's end, by rank 0."""
+    res = _case(ranks, "dryrun")[0][name]["decode_filled"]
+    cfg = R.dryrun_cfg(name)
+    model = TLM.Model(cfg)
+    params, _ = dryrun.abstract_state(cfg, False, "cpu", 0)
+    cache = R.filled_cache(cfg)
+    written = range(R.FILLED_LEN, R.FILLED_LEN + R.FILLED_STEPS)
+    for k, v in tree_paths(cache).items():
+        if k.rsplit("/", 1)[-1] == "k":
+            t = v.shape[-3]
+            assert R.FILLED_LEN >= t * 3 // 4 and {p % t // (t // 4) for p in written} == {0, 3}
+    tokens = dryrun.draw_inputs(cfg, R.DRYRUN_DECODE_SHAPE, "cpu")["tokens"]
+    assert len(res["steps"]) == R.FILLED_STEPS
+    for st in res["steps"]:
+        logits, cache = model.decode_step(params, cache, tokens)
+        np.testing.assert_allclose(st["logits"], _np(logits), atol=LOGIT_ATOL, rtol=0)
+        got = tree_paths(st["cache"])
+        for k, v in tree_paths(cache).items():
+            want = _np(v)
+            assert np.abs(got[k] - want).max() <= CACHE_REL * max(np.abs(want).max(), 1.0), k
+        tokens = torch.argmax(logits, -1).to(torch.int32)
+    np.testing.assert_array_equal(res["tokens"], _np(tokens))
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("name", ["llava-next-mistral-7b", "whisper-large-v3", "xlstm-125m"])
 def test_input_specs_describe_the_drawn_inputs(name, kind):
@@ -259,6 +325,24 @@ def test_gloo_gradient_sync_rides_bf16(ranks):
         assert 0 < sent <= 1.5 * param_bytes, (sent, param_bytes)
         mutant = sum(n for _, n in res["cast_after_sync"]["ops"])
         assert mutant > 1.5 * param_bytes, (mutant, param_bytes)
+
+
+def test_gloo_census_equals_the_fake_groups(ranks, tmp_path):
+    """The same xlstm step (bf16 compression, an (8,) data mesh) on rank 0
+    of a fake 8-rank group, started and destroyed here: its collective
+    census equals every gloo rank's, kind by kind and byte for byte, and
+    its all-reduce bytes are the bf16 parameter bytes (1.00x) and
+    two float32 scalars (the loss's token count and sum)."""
+    with dryrun.fake_group(R.WORLD):
+        fake = R.case_wire(None, str(tmp_path))
+    assert not torch.distributed.is_initialized()
+    for what in ("bf16", "cast_after_sync"):
+        for res in _case(ranks, "wire"):
+            assert res[what]["stats"] == fake[what]["stats"], what
+    stats, param_bytes = fake["bf16"]["stats"], fake["bf16"]["param_bytes"]
+    assert set(stats) == {"all-reduce"}
+    assert stats["all-reduce"]["bytes"] == param_bytes + 2 * 4
+    assert fake["cast_after_sync"]["stats"]["all-reduce"]["bytes"] == 2 * param_bytes + 2 * 4
 
 
 def test_row_parallel_rounding_moves_the_one_rank_run():

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s ``[dist]`` and ``[roofline]`` phases, on one NVIDIA GPU.
+"""``chip_smoke.py``'s ``[dist]``, ``[dryrun]`` and ``[roofline]`` phases, on
+one NVIDIA GPU.
 
     python3 tools/lm_dist.py             # from the root of a checkout
-    python3 tools/lm_dist.py dist        # [dist] alone
+    python3 tools/lm_dist.py dist        # [dist] and [dryrun] alone
 
 Runs ``chip_smoke.phase_lm`` and ``phase_lm_train`` (whose full-width
 models also count one untimed call each), then ``phase_dist`` (a one-rank
 NCCL group: the mesh, the sharding rules, ``ctx``, ``build_case``'s sharded
 train and decode steps at full width against the plain ones, and the S=1
-pipeline) and
+pipeline), ``phase_dryrun`` (``launch/dryrun.py`` on fake process groups:
+``[dist]``'s peaks predicted, two 16x16 cells) and
 ``phase_roofline`` (the counted rows and ``analysis/report.py``'s table),
-with their prints and requirements; ``dist`` runs ``phase_dist`` only.
+with their prints and requirements; ``dist`` runs ``phase_dist`` and
+``phase_dryrun`` only.
 Any failed requirement raises, and the script exits non-zero.
 """
 
@@ -40,11 +43,11 @@ def main(argv) -> int:
     card = chip_smoke.card_line()
     t0 = time.perf_counter()
     if argv == ["dist"]:
-        chip_smoke.phase_dist(dev)
+        chip_smoke.phase_dryrun(dev, chip_smoke.phase_dist(dev))
     else:
         lm_out = chip_smoke.phase_lm(dev)
         train_out = chip_smoke.phase_lm_train(dev)
-        chip_smoke.phase_dist(dev)
+        chip_smoke.phase_dryrun(dev, chip_smoke.phase_dist(dev))
         chip_smoke.phase_roofline(lm_out, train_out, card)
     chip_smoke.log(f"[dist] tools/lm_dist.py done in {time.perf_counter() - t0:.1f} s on {card}")
     return 0
